@@ -1,0 +1,32 @@
+"""repro_torch.core — CRIU-style userspace checkpoint/restore for torch jobs.
+
+The engine room of the port: plan/execute pipeline (core/plan.py,
+core/executor.py), content-addressed storage tiers (file:// and mem://),
+integrity + replica repair, leaf codecs with the Hopper codec kernels
+(core/compression.py, core/device_codec.py). Images are byte-compatible
+with the JAX package's: the same state dumps to the same chunks and
+manifest, and an image written by either package restores in the other.
+
+    from repro_torch.core import dump, restore
+
+    dump(state, "mem://ck", step=3, device="cuda")
+    state, manifest = restore("mem://ck", device="cuda")
+"""
+from __future__ import annotations
+
+from repro_torch.core.compression import default_policy
+from repro_torch.core.dump import dump, flatten_with_paths, host_tree_by_path
+from repro_torch.core.executor import CheckpointExecutor, get_default_executor
+from repro_torch.core.integrity import CorruptionError, tree_digest
+from repro_torch.core.plan import (DumpPlan, LeafPlan, RestorePlan, plan_dump,
+                                   plan_restore)
+from repro_torch.core.restore import latest_image_id, read_manifest, restore
+from repro_torch.core.storage import LocalDirTier, MemoryTier, as_tier
+
+__all__ = [
+    "default_policy", "dump", "flatten_with_paths", "host_tree_by_path",
+    "CheckpointExecutor", "get_default_executor", "CorruptionError",
+    "tree_digest", "DumpPlan", "LeafPlan", "RestorePlan", "plan_dump",
+    "plan_restore", "latest_image_id", "read_manifest", "restore",
+    "LocalDirTier", "MemoryTier", "as_tier",
+]
