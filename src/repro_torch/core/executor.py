@@ -135,8 +135,8 @@ class CheckpointExecutor:
             if fut is not None:
                 # device stage: block on this leaf's landed result (the
                 # stage keeps the NEXT leaf's encode + transfer in flight
-                # while we chunk/write this one); any device failure was
-                # already degraded to a host encode inside the stage
+                # while we chunk/write this one); a kernel failure
+                # re-raises here and fails the dump
                 stored, codec_meta = fut.result()
                 raw_nbytes, orig_dtype, orig_shape = (
                     lp.nbytes, lp.dtype, list(lp.shape))

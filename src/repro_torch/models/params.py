@@ -88,8 +88,9 @@ def init(tree, generator: torch.Generator, dtype=torch.float32,
 def from_jax(tree, device="cuda"):
     """Nested dict of numpy arrays (the JAX package's params through
     ``np.asarray``) -> the same tree of tensors on ``device``. Leaves keep
-    their dtypes; a bfloat16 array (ml_dtypes, which the port does not
-    import) is carried across by its bit pattern."""
+    their dtypes and never share memory with the arrays given (the train
+    step updates its state in place); a bfloat16 array (ml_dtypes, which
+    the port does not import) is carried across by its bit pattern."""
     dev = resolve_device(device)
 
     def one(_, a):
@@ -97,7 +98,7 @@ def from_jax(tree, device="cuda"):
         if str(a.dtype) == "bfloat16":
             bits = np.ascontiguousarray(a).view(np.int16)
             return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
-        return to_device(a, dev)
+        return to_device(a.copy(), dev)
     return tree_map(one, tree)
 
 

@@ -27,6 +27,8 @@ from repro_torch.kernels.ckpt_codec import ckpt_codec, ops, ref  # noqa: E402
 CASES = [(3, 256), (1, 128), (8, 512)]
 jit_encode = jax.jit(jref.delta_encode_ref)
 jit_decode = jax.jit(jref.delta_decode_ref)
+jit_encode_digest = jax.jit(jref.delta_encode_digest_ref)
+jit_bf16_digest = jax.jit(jref.bf16_encode_digest_ref)
 
 
 def _u8(a):
@@ -136,7 +138,7 @@ def test_fused_delta_digest_bit_identical(nblk, blk):
     w = ops.digest_weights(blk)
     got = ckpt_codec.delta_encode_digest(_t(x), _t(prev), w)
     jw = jops.digest_weights(blk)
-    for want in (jref.delta_encode_digest_ref(jnp.asarray(x), jnp.asarray(prev), jw),
+    for want in (jit_encode_digest(jnp.asarray(x), jnp.asarray(prev), jw),
                  delta_encode_digest_pallas(jnp.asarray(x), jnp.asarray(prev), jw,
                                             interpret=True)):
         for g, wv in zip(got, want):
@@ -150,7 +152,7 @@ def test_fused_bf16_digest_bit_identical(nblk, blk):
     x, _ = _inputs(nblk, blk, 200 + nblk)
     got = ckpt_codec.bf16_encode_digest(_t(x), ops.digest_weights(blk))
     jw = jops.digest_weights(blk)
-    for want in (jref.bf16_encode_digest_ref(jnp.asarray(x), jw),
+    for want in (jit_bf16_digest(jnp.asarray(x), jw),
                  bf16_encode_digest_pallas(jnp.asarray(x), jw, interpret=True)):
         for g, wv in zip(got, want):
             assert _bits(g).tobytes() == _bits(wv).tobytes()
