@@ -5,20 +5,36 @@
 
 Phases, one line each (plus details):
   1. card    — nvidia-smi name and power limit, torch and CUDA versions;
-  2. build   — nvcc builds the codec kernels (K1-K4) from the sources in
-               src/repro_torch/kernels/ckpt_codec/csrc into build/;
+  2. build   — nvcc builds the codec kernels (K1-K4) and flash attention
+               (K6) from the sources under src/repro_torch/kernels/*/csrc
+               into build/, one nvcc process per source, all at once;
   3. kernels — each kernel against its plain torch version on the card, at
-               the main path's shapes (the qwen3-8b embedding leaf, a
-               stacked MLP leaf, a ragged length, a leaf with clean blocks):
-               bitwise equal outputs, median times beside the HBM bound;
-  4. main path on qwen3-8b at full width (d_model 4096, 32/8 heads, head_dim
-               128, d_ff 12288, vocab 151936 padded to 152064) with
-               num_layers cut from 36 to 2: train 3 steps -> image A
+               the main paths' shapes: K1-K4 bitwise (the qwen3-8b
+               embedding leaf, a stacked MLP leaf, a ragged length, a leaf
+               with clean blocks), median times beside the HBM bound; K6 at
+               the serving shape in bf16 (2e-2), an fp32 case (2e-6), a
+               ragged length, a query offset and window + softcap, timed
+               beside its bound and scaled_dot_product_attention;
+  4. train path on qwen3-8b at full width (d_model 4096, 32/8 heads,
+               head_dim 128, d_ff 12288, vocab 151936 padded to 152064)
+               with num_layers cut from 36 to 2: train 3 steps -> image A
                (lossless) -> 1 step -> image B (opt/m delta8 against A,
                opt/v bf16, parent A) -> restore B on the card -> check ->
-               2 more steps from the restored and from the live state.
-               The kernels' launch counters are zeroed just before and read
-               just after; all four must have launched.
+               2 more steps from the restored and from the live state. The
+               codec kernels' counters are zeroed just before and read just
+               after; all four must have launched. Its tensors and its
+               mem:// tier are released afterwards;
+  5. serve path on qwen3-8b at full width and full depth (36 layers,
+               8,191,783,936 params, fp32 on the card): engine A generates
+               32 tokens for 4 prompts of 2048 tokens; engine B generates
+               16, checkpoints its live session through CheckpointSession
+               (lossless, so the image carries the migration record and its
+               digest) and is deleted; engine C resumes the session
+               (digest verified) and generates to 32. C's tokens must equal
+               A's exactly, and K6 must have launched once per layer for
+               each of the two prefills (counters zeroed just before, read
+               just after). Then one decode step and one prefill run
+               under torch.profiler for the kernel-time breakdown.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 the last line. Without a CUDA device it exits 2 at once.
@@ -26,6 +42,7 @@ the last line. Without a CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import resource
@@ -40,17 +57,37 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # and the card does ~20 fp32/int32 operations per byte of HBM rate: every
 # kernel's bound is the bytes it must move.
 HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 REPLACES = {
     "delta_encode_digest": "src/repro/kernels/ckpt_codec/ckpt_codec.py:124",
     "bf16_encode_digest": "src/repro/kernels/ckpt_codec/ckpt_codec.py:148",
     "delta_decode": "src/repro/kernels/ckpt_codec/ckpt_codec.py:178",
     "delta_encode": "src/repro/kernels/ckpt_codec/ckpt_codec.py:50",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:110",
 }
 SOURCE = "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SLAB = 2048          # blocks per plain-version call (bounds its temporaries)
 # qwen3-8b has 36 layers: params + m + v are ~98 GB in fp32, more than one
 # 80 GB card; at 2 layers they are 19.6 GB and fit with gradients
 LAYERS = 2
+# serve path: qwen3-8b at full depth, 4 prompts of 2048 tokens, 32 tokens
+# generated, the session checkpointed after 16
+SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CUT = 4, 2048, 32, 16
+# K6 cases: label, B, Sq, Skv, H, KV, hd, dtype, window, softcap, tolerance
+FLASH_CASES = [
+    ("serving 4x2048 32/8 heads x128 bf16", 4, 2048, 2048, 32, 8, 128,
+     "bfloat16", 0, 0.0, 2e-2),
+    ("fp32 2x512 8/2 heads x128", 2, 512, 512, 8, 2, 128, "float32", 0, 0.0,
+     2e-6),
+    ("ragged 2x1000 32/8 heads x128 bf16", 2, 1000, 1000, 32, 8, 128,
+     "bfloat16", 0, 0.0, 2e-2),
+    ("q_offset Sq 128 Skv 384 fp32", 1, 128, 384, 4, 2, 64, "float32", 0, 0.0,
+     2e-6),
+    ("window 128 + softcap 30 fp32", 1, 512, 512, 2, 1, 128, "float32", 128,
+     30.0, 2e-6),
+]
 
 
 class CheckFailed(RuntimeError):
@@ -213,7 +250,78 @@ def kernel_phase(torch, dev, seed):
     return rows
 
 
-# --------------------------------------------------------------- main path
+def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave live: the work this input needs."""
+    import numpy as np
+    qp = (Skv - Sq) + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_phase(torch, dev, seed):
+    """K6 against its plain version at FLASH_CASES; times at the first
+    (serving) case beside its bound and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    row = None
+    for (label, B, Sq, Skv, H, KV, hd, dtype, window, cap,
+         tol) in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dt)
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = k6.flash_attention_fwd(q, k, v, **kw)
+        want = reference_attention(q.float(), k.float(), v.float(), **kw)
+        err = float((got.float() - want).abs().max())
+        again = k6.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        log(f"kernels: flash_attention on {label}: max abs err {err:.3g} "
+            f"(tolerance {tol:g}); repeat bit-identical: {same}")
+        check(err < tol, f"flash_attention differs from its plain version "
+                         f"on {label}: max abs err {err} >= {tol}")
+        check(same, f"flash_attention is not deterministic on {label}")
+        del got, want, again
+        if row is None:        # the serving shape: time it
+            ms = cuda_ms(torch, lambda: k6.flash_attention_fwd(q, k, v, **kw),
+                         iters=10)
+            plain_ms = cuda_ms(torch, lambda: reference_attention(
+                q, k, v, **kw), iters=3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention
+            library_ms = cuda_ms(torch, lambda: lib(
+                qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+            pairs = live_pairs(Sq, Skv, True, window)
+            ops = 4 * B * H * hd * pairs
+            es = q.element_size()
+            nbytes = es * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
+            t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+            row = {"name": "flash_attention", "route": "cuda",
+                   "source": FLASH_SOURCE,
+                   "replaces": REPLACES["flash_attention"], "launches": 0,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": library_ms, "shape": [B, Sq, Skv, H, KV, hd],
+                   "ops": ops, "bytes": nbytes}
+            log(f"kernels: flash_attention on {label}: {ms:.3f} ms (bound "
+                f"{row['bound_ms']:.3f} ms by {row['bound_by']}: "
+                f"{ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
+                f"{nbytes / 1e6:.0f} MB at 3.35 TB/s; "
+                f"{row['bound_ms'] / ms:.1%} of bound), plain {plain_ms:.1f} "
+                f"ms, scaled_dot_product_attention {library_ms:.3f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return row
+
+
+# -------------------------------------------------------------- train path
 def policy_b(path: str) -> str:
     if path.startswith("opt/m/"):
         return "delta8"
@@ -244,7 +352,7 @@ def m_within_half_scale(got, live, prev):
     return ok, worst
 
 
-def main_path(torch, dev, args):
+def train_path(torch, dev, args):
     import numpy as np
 
     from repro_torch.configs.qwen3_8b import CONFIG
@@ -259,7 +367,7 @@ def main_path(torch, dev, args):
 
     cfg = CONFIG.replace(num_layers=LAYERS)
     lm = LM(cfg)
-    log(f"main: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+    log(f"train: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}->{cfg.padded_vocab}; "
         f"cut: num_layers {CONFIG.num_layers} -> {cfg.num_layers} (the only "
@@ -278,7 +386,7 @@ def main_path(torch, dev, args):
     torch.cuda.synchronize()
     state_bytes = sum(t.numel() * t.element_size()
                       for _, t in flatten_with_paths(state))
-    log(f"main: init {time.time() - t0:.1f} s; train state "
+    log(f"train: init {time.time() - t0:.1f} s; train state "
         f"{state_bytes / 1e9:.2f} GB on the card")
     step = make_train_step(lm, OptConfig())
     out = {"state_bytes": state_bytes, "losses": [], "step_s": []}
@@ -291,14 +399,14 @@ def main_path(torch, dev, args):
         out["losses"].append(loss)
         out["step_s"].append(time.time() - t0)
         check(np.isfinite(loss), f"loss {loss} is not finite")
-    log(f"main: train 3 steps, losses {out['losses']}, step s "
+    log(f"train: 3 steps, losses {out['losses']}, step s "
         f"{[round(s, 3) for s in out['step_s']]}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     t0 = time.time()
     ra = dump(state, root, step=3, device=dev, device_codec="auto")
     out["dump_a_s"] = time.time() - t0
-    log(f"main: image A {ra['image_id']} lossless in {out['dump_a_s']:.1f} s: "
+    log(f"train: image A {ra['image_id']} lossless in {out['dump_a_s']:.1f} s: "
         f"{ra['stats']['bytes_stored'] / 1e9:.2f} GB stored")
     prev = {p: to_host(t) for p, t in flatten_with_paths(state)
             if p.startswith("opt/m/")}
@@ -312,7 +420,7 @@ def main_path(torch, dev, args):
               device_codec="auto")
     out["dump_b_s"] = time.time() - t0
     st = rb["stats"]
-    log(f"main: image B {rb['image_id']} (parent {ra['image_id']}) in "
+    log(f"train: image B {rb['image_id']} (parent {ra['image_id']}) in "
         f"{out['dump_b_s']:.1f} s: {st['bytes_stored'] / 1e9:.2f} GB stored, "
         f"{st['leaves_device']} leaves through the device codec stage")
     check(st["leaves_device"] > 0, "no leaf went through the device stage")
@@ -326,7 +434,7 @@ def main_path(torch, dev, args):
     torch.cuda.synchronize()
     out["restore_s"] = time.time() - t0
     digests = sum(1 for r in man["leaves"] if "digest" in r["codec_meta"])
-    log(f"main: restore B in {out['restore_s']:.1f} s; {digests} payload "
+    log(f"train: restore B in {out['restore_s']:.1f} s; {digests} payload "
         f"digests re-derived from the stored bytes and verified")
     check(digests > 0, "image B carries no payload digest")
 
@@ -349,7 +457,7 @@ def main_path(torch, dev, args):
         else:
             check(torch.equal(g, t), f"{p}: not bit-identical after restore")
     out["m_err_over_half_scale"] = worst
-    log("main: params and step bit-identical; opt/v equals the bf16 round "
+    log("train: params and step bit-identical; opt/v equals the bf16 round "
         "trip of the live v bitwise; opt/m within each block's scale/2 "
         f"(worst error / (scale/2) = {worst:.4f})")
     del prev, got, live
@@ -366,7 +474,7 @@ def main_path(torch, dev, args):
         else:
             state = s
     out["continue"] = cont
-    log(f"main: continue 2 steps: restored losses {cont['restored']}, live "
+    log(f"train: continue 2 steps: restored losses {cont['restored']}, live "
         f"losses {cont['live']} (held to 1e-5 relative at step 5, whose "
         f"params are bit-identical, and 1e-3 at step 6, after one update "
         f"with the lossy moments)")
@@ -384,30 +492,179 @@ def main_path(torch, dev, args):
     check(int(tree["step"]) == 6 and tree["step"].dtype == torch.int32,
           "restored step counter did not continue")
 
-    launches = dict(ckpt_codec.LAUNCHES)  # read just after the main path
+    launches = dict(ckpt_codec.LAUNCHES)  # read just after the train path
     out["launches"] = launches
-    log("kernels: main-path launches " + " ".join(
+    log("kernels: train-path launches " + " ".join(
         f"{k}={v}" for k, v in launches.items()))
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+        check(v > 0, f"kernel {k} was not launched on the train path")
+    if not args.ckpt_dir:      # release the images held in host memory
+        root.delete("chunks")
+        root.delete("images")
     return out
+
+
+# -------------------------------------------------------------- serve path
+def serve_path(torch, dev, args):
+    import numpy as np
+
+    from repro_torch.api import CheckpointSession
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.core.storage import as_tier
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServeEngine
+
+    cfg = CONFIG
+    lm = LM(cfg)
+    t0 = time.time()
+    params = lm.init(torch.Generator().manual_seed(args.seed), device=dev)
+    torch.cuda.synchronize()
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(params))
+    log(f"serve: {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, no cut); params={lm.n_params():,} ({pbytes / 1e9:.1f} GB "
+        f"fp32 on the card), init {time.time() - t0:.1f} s")
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    max_len = SERVE_PROMPT + SERVE_GEN + 1
+    uri = f"mem://chip-smoke-serve-{args.seed}"
+    out = {"params": lm.n_params()}
+
+    torch.use_deterministic_algorithms(True)   # A, B and C must agree bitwise
+    k6.reset_launches()                        # the serve path's counts
+    ckpt_codec.reset_launches()
+    a = ServeEngine(lm, params, max_len=max_len)
+    t0 = time.time()
+    a.submit(prompts)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.time() - t0
+    kv = a.cache["stack"]["b0"]["k"][:, :, :SERVE_PROMPT]
+    check(bool(torch.isfinite(kv).all()), "prefill wrote non-finite keys")
+    t0 = time.time()
+    want = a.generate(SERVE_GEN).copy()
+    out["decode_s_per_token"] = (time.time() - t0) / (SERVE_GEN - 1)
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(a.cache))
+    del a, kv
+    log(f"serve: engine A: prefill {SERVE_B}x{SERVE_PROMPT} in "
+        f"{out['prefill_s']:.3f} s, decode {out['decode_s_per_token']:.4f} "
+        f"s/token to {SERVE_GEN} tokens; KV cache {cache_bytes / 1e9:.3f} GB "
+        f"bf16")
+    check(want.shape == (SERVE_B, SERVE_GEN) and want.min() >= 0
+          and want.max() < cfg.vocab_size, "generated tokens out of range")
+
+    b = ServeEngine(lm, params, max_len=max_len)
+    b.submit(prompts)
+    b.generate(SERVE_CUT)
+    sess = CheckpointSession(uri, device=dev)
+    t0 = time.time()
+    receipt = b.checkpoint(sess, arch=cfg.name)
+    out["dump_s"] = time.time() - t0
+    out["image_bytes"] = receipt.stats["bytes_stored"]
+    del b
+    log(f"serve: engine B checkpointed at token {SERVE_CUT} as "
+        f"{receipt.image_id} in {out['dump_s']:.2f} s: "
+        f"{out['image_bytes'] / 1e9:.3f} GB stored; engine B deleted")
+
+    c = ServeEngine(lm, params, max_len=max_len)
+    t0 = time.time()
+    res = c.resume_from(CheckpointSession(uri, device=dev))
+    torch.cuda.synchronize()
+    out["restore_s"] = time.time() - t0
+    log(f"serve: engine C resumed {res.image_id} in {out['restore_s']:.2f} s, "
+        f"digest_verified={res.digest_verified}")
+    check(res.digest_verified is True, "the resumed session's digest was "
+                                       "not verified")
+    check(np.array_equal(c.generated(), want[:, :SERVE_CUT]),
+          "the resumed session's tokens differ from engine A's")
+    got = c.generate(SERVE_GEN)
+    same = bool(np.array_equal(got, want))
+    torch.use_deterministic_algorithms(False)
+    launches = dict(k6.LAUNCHES)               # read just after the path
+    codec = dict(ckpt_codec.LAUNCHES)
+    out["launches"] = launches
+    out["tokens_equal"] = same
+    log(f"serve: engine C tokens {'equal' if same else 'DIFFER FROM'} "
+        f"engine A's at all {SERVE_B}x{SERVE_GEN}; first row "
+        f"{got[0, :8].tolist()}...")
+    log(f"kernels: serve-path launches flash_attention="
+        f"{launches['flash_attention']} (codec kernels "
+        f"{sum(codec.values())}: the serve image is lossless)")
+    check(same, "engine C's continuation differs from engine A's tokens")
+    check(launches["flash_attention"] == 2 * cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times on "
+          f"the serve path, not {2 * cfg.num_layers} (one per layer for each "
+          f"of the two prefills)")
+    # where the time goes, after the counts were read: one decode step and
+    # one prefill under torch.profiler, kernel time by name
+    out["profile"] = {}
+    for name, fn in (("decode step", c.step),
+                     ("prefill", lambda: c.submit(prompts))):
+        wall_ms, busy_ms, top = device_breakdown(torch, fn)
+        out["profile"][name] = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                                "top": top}
+        log(f"serve: profile of one {name}: {wall_ms:.1f} ms wall under the "
+            f"profiler, {busy_ms:.1f} ms of kernels ({busy_ms / wall_ms:.0%} "
+            f"busy); top: " + "; ".join(
+                f"{k[:48]} {ms:.2f} ms x{n}" for ms, k, n in top))
+    del c, params
+    as_tier(uri).delete("chunks")
+    as_tier(uri).delete("images")
+    return out
+
+
+def device_breakdown(torch, fn, top: int = 6):
+    """Run fn once under torch.profiler -> (wall ms, summed kernel ms,
+    [(ms, kernel name, launches)] of the ``top`` kernels by time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((us / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    return wall_ms, sum(r[0] for r in rows), rows[:top]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="image directory (default: an in-memory mem:// tier)")
+                    help="train-path image directory (default: an in-memory "
+                         "mem:// tier)")
     ap.add_argument("--out", default=None, help="write the run's record here")
     args = ap.parse_args(argv)
 
+    # cuBLAS picks deterministic algorithms only with a fixed workspace;
+    # set before CUDA initializes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing to drive", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels._build import build_all
     from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -420,19 +677,30 @@ def main(argv=None) -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.time()
-    so = ckpt_codec.build()
-    ckpt_codec._load()
-    ptxas = [ln.strip() for ln in ckpt_codec.build_log.splitlines()
-             if "Used" in ln or "Function properties" in ln]
-    log(f"build: {os.path.relpath(so, ROOT)} in {time.time() - t0:.1f} s")
-    for ln in ptxas:
-        log(f"build: {ln}")
+    libs = [ckpt_codec.LIB, k6.LIB]
+    sos = build_all(libs)
+    for lib in libs:
+        lib.load()
+    log(f"build: {', '.join(os.path.relpath(so, ROOT) for so in sos)} in "
+        f"{time.time() - t0:.1f} s (one nvcc each, in parallel)")
+    for lib in libs:
+        for ln in lib.ptxas_lines():
+            log(f"build: {lib.name}: {ln}")
 
     rows = kernel_phase(torch, dev, args.seed)
+    rows["flash_attention"] = flash_phase(torch, dev, args.seed)
     torch.cuda.reset_peak_memory_stats()
-    record = main_path(torch, dev, args)
+    record = train_path(torch, dev, args)
+    record["train_peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for k, n in record["launches"].items():
         rows[k]["launches"] = n
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record["serve"] = serve_path(torch, dev, args)
+    record["serve"]["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rows["flash_attention"]["launches"] = \
+        record["serve"]["launches"]["flash_attention"]
     record["kernels"] = list(rows.values())
     record["card"] = card
     record["wall_s"] = time.time() - t_start
@@ -444,7 +712,9 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
     log(f"done in {record['wall_s']:.0f} s; host peak RSS "
-        f"{record['host_peak_rss_gb']:.1f} GB")
+        f"{record['host_peak_rss_gb']:.1f} GB; peak device memory: train "
+        f"{record['train_peak_device_gb']:.1f} GB, serve "
+        f"{record['serve']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -69,7 +69,11 @@ def encode_leaf(arr: np.ndarray, codec: str, prev: np.ndarray | None = None,
 
 
 def decode_leaf(stored: np.ndarray, codec: str, codec_meta: dict,
-                prev: np.ndarray | None = None, *, device="cuda") -> np.ndarray:
+                prev=None, *, device="cuda"):
+    """Stored payload -> the leaf's value: a host array, except that a
+    delta8 leaf decoded on a CUDA ``device`` comes back as the K3 output
+    tensor on that device (restore places it where it already is). ``prev``
+    is the parent image's leaf, a host array or a tensor."""
     if codec == "none" or not codec_meta.get("applied", False):
         return stored
     if "digest" in codec_meta:
@@ -99,8 +103,8 @@ def decode_leaf(stored: np.ndarray, codec: str, codec_meta: dict,
         n = int(np.prod(codec_meta["orig_shape"]))
         out = delta_decode(to_device(q, device), to_device(scale, device),
                            to_device(prev, device, torch.float32).reshape(-1),
-                           n=n)
-        return to_host(out).reshape(codec_meta["orig_shape"])
+                           n=n).reshape(codec_meta["orig_shape"])
+        return out if out.device.type == "cuda" else to_host(out)
     raise ValueError(f"unknown codec {codec!r}")
 
 

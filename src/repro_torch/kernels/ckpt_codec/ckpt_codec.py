@@ -2,9 +2,9 @@
 
 Each wrapper below takes a CUDA tensor to its hand-written kernel in
 ``csrc/ckpt_codec.cu`` (built for ``sm_90a`` by ``nvcc`` at first use into
-``<repo>/build/ckpt_codec/``) and a CPU tensor to its plain torch version
-in ``ref.py``. A CUDA tensor never reaches the plain version: the wrapper
-launches its kernel or raises.
+``<repo>/build/ckpt_codec/``; see ``kernels/_build.py``) and a CPU tensor
+to its plain torch version in ``ref.py``. A CUDA tensor never reaches the
+plain version: the wrapper launches its kernel or raises.
 
   kernel                      replaces (src/repro/kernels/ckpt_codec/)
   K1 delta_encode_digest      ckpt_codec.py  delta_encode_digest_pallas
@@ -23,31 +23,28 @@ not counted), so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._build import Library, stream_of
 from repro_torch.kernels.ckpt_codec import ref
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "ckpt_codec.cu"
-_REPO = Path(__file__).resolve().parents[4]
-BUILD_DIR = _REPO / "build" / "ckpt_codec"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+LIB = Library(
+    "ckpt_codec", Path(__file__).resolve().parent / "csrc" / "ckpt_codec.cu",
+    {"ckpt_delta_encode_digest": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
+     "ckpt_delta_encode": [_P, _P, _P, _P, _P, _LL, _I, _P],
+     "ckpt_bf16_encode_digest": [_P, _P, _P, _P, _P, _LL, _I, _P],
+     "ckpt_delta_decode": [_P, _P, _P, _P, _LL, _I, _P]},
+    error_fn="ckpt_error_string")
 
 KERNELS = ("delta_encode_digest", "bf16_encode_digest", "delta_decode",
            "delta_encode")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()          # LAUNCHES
-_build_lock = threading.Lock()    # one build + bind per process
-_lib = None
-build_log = ""
 
 
 def reset_launches():
@@ -59,62 +56,6 @@ def reset_launches():
 def _count(name: str):
     with _lock:
         LAUNCHES[name] += 1
-
-
-def _nvcc() -> str:
-    cands = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if home:
-            cands.append(os.path.join(home, "bin", "nvcc"))
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the codec kernels are built from "
-                       f"{_SRC} at first use and need the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile the kernels (once per source version) -> path of the .so."""
-    global build_log
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libckpt_codec-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libckpt_codec-{tag}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    """Build (first use) and bind the library, once per process."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _build_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            sigs = {"ckpt_delta_encode_digest": [P, P, P, P, P, P, P, P, LL,
-                                                 I, P],
-                    "ckpt_delta_encode": [P, P, P, P, P, LL, I, P],
-                    "ckpt_bf16_encode_digest": [P, P, P, P, P, LL, I, P],
-                    "ckpt_delta_decode": [P, P, P, P, LL, I, P]}
-            for name, args in sigs.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = I
-            lib.ckpt_error_string.argtypes = [I]
-            lib.ckpt_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape):
@@ -136,16 +77,8 @@ def _blk_ok(nblk: int, blk: int):
 
 
 def _launch(name: str, fn, *args):
-    lib = _load()
-    rc = getattr(lib, fn)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn}: CUDA error {rc}: "
-                           f"{lib.ckpt_error_string(rc).decode()}")
+    LIB.call(fn, *args)
     _count(name)
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def delta_encode_digest(x, prev, weights):
@@ -168,7 +101,7 @@ def delta_encode_digest(x, prev, weights):
         _launch("delta_encode_digest", "ckpt_delta_encode_digest",
                 x.data_ptr(), prev.data_ptr(), weights.data_ptr(),
                 q.data_ptr(), scale.data_ptr(), dirty.data_ptr(),
-                h1.data_ptr(), h2.data_ptr(), nblk, blk, _stream(x))
+                h1.data_ptr(), h2.data_ptr(), nblk, blk, stream_of(x))
     return q, scale, dirty, h1, h2
 
 
@@ -186,7 +119,7 @@ def delta_encode(x, prev):
         dirty = torch.empty(nblk, dtype=torch.bool, device=x.device)
         _launch("delta_encode", "ckpt_delta_encode",
                 x.data_ptr(), prev.data_ptr(), q.data_ptr(),
-                scale.data_ptr(), dirty.data_ptr(), nblk, blk, _stream(x))
+                scale.data_ptr(), dirty.data_ptr(), nblk, blk, stream_of(x))
     return q, scale, dirty
 
 
@@ -205,7 +138,7 @@ def bf16_encode_digest(x, weights):
         h2 = torch.empty(nblk, dtype=torch.int32, device=x.device)
         _launch("bf16_encode_digest", "ckpt_bf16_encode_digest",
                 x.data_ptr(), weights.data_ptr(), y.data_ptr(),
-                h1.data_ptr(), h2.data_ptr(), nblk, blk, _stream(x))
+                h1.data_ptr(), h2.data_ptr(), nblk, blk, stream_of(x))
     return y, h1, h2
 
 
@@ -223,5 +156,5 @@ def delta_decode(q, scale, prev):
         out = torch.empty((nblk, blk), dtype=torch.float32, device=q.device)
         _launch("delta_decode", "ckpt_delta_decode",
                 q.data_ptr(), scale.data_ptr(), prev.data_ptr(),
-                out.data_ptr(), nblk, blk, _stream(q))
+                out.data_ptr(), nblk, blk, stream_of(q))
     return out

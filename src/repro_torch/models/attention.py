@@ -1,13 +1,17 @@
-"""Attention: GQA projections + RoPE/qk-norm and the online-softmax
-("flash in XLA") chunked implementation for training, ported from the JAX
-package's models/attention.py with the same chunking, the same -1e30 mask
-and the same -1e9 floor on the running max.
+"""Attention: GQA projections + RoPE/qk-norm, the online-softmax
+("flash in XLA") chunked implementation, its block-windowed path for
+sliding-window layers, and decode attention over a KV cache — ported from
+the JAX package's models/attention.py with the same chunking, the same
+-1e30 mask and the same -1e9 floor on the running max.
 
 Score and value products take bf16 (or fp32) inputs and accumulate and
 return fp32, as the JAX code asks with ``preferred_element_type``: the
 inputs are upcast and multiplied in fp32, which is exact for bf16 inputs.
-The sliding-window path and decode attention are not ported yet (qwen3
-uses neither); the Pallas flash kernel is not on any model path.
+
+Where each runs: training uses ``xla_flash`` (K6 has no backward yet);
+prefill goes through ``kernels.flash_attention.ops.flash_attention``,
+which sends a CUDA tensor to the Hopper kernel K6 and a CPU tensor back
+to ``xla_flash``; decode uses ``decode_attention`` (plain torch ops).
 """
 from __future__ import annotations
 
@@ -65,10 +69,14 @@ def _chunk(n: int, c: int) -> int:
 
 
 def xla_flash(q, k, v, *, causal: bool = True, window: int = 0,
-              softcap: float = 0.0, chunk_q: int = 512, chunk_kv: int = 1024):
+              softcap: float = 0.0, chunk_q: int = 512, chunk_kv: int = 1024,
+              q_offset: int = 0):
     """Online-softmax attention, O(chunk) memory in sequence length.
 
-    q [B,Sq,H,hd]; k,v [B,Skv,KV,hd] (GQA: KV divides H, repeated here)."""
+    q [B,Sq,H,hd]; k,v [B,Skv,KV,hd] (GQA: KV divides H, repeated here);
+    query row i sits at position ``q_offset + i``. ``window`` > 0 uses the
+    block-windowed path: per-q-chunk slice of the KV stream -> flops
+    O(S*(W+cq)) instead of O(S^2)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     if KV != H:
@@ -77,9 +85,9 @@ def xla_flash(q, k, v, *, causal: bool = True, window: int = 0,
     scale = hd ** -0.5
     q = q * torch.tensor(scale, dtype=q.dtype)
     if window and causal and window < k.shape[1]:
-        raise NotImplementedError(
-            "sliding-window attention is not ported to repro_torch yet")
-    return _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv)
+        return _windowed(q, k, v, window, softcap, chunk_q, q_offset)
+    return _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv,
+                        q_offset)
 
 
 def _scores(qc, kc, softcap):
@@ -103,14 +111,16 @@ def _online_update(carry, s, vc):
     return m_new, l, acc
 
 
-def _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv):
+def _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv,
+                 q_offset):
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     cq, ckv = _chunk(Sq, chunk_q), _chunk(Skv, chunk_kv)
     nq, nkv = Sq // cq, Skv // ckv
     dev = q.device
     q5 = q.reshape(B, nq, cq, H, hd)
-    qpos = torch.arange(Sq, device=dev).reshape(nq, cq)[None, :, :, None, None]
+    qpos = (q_offset + torch.arange(Sq, device=dev)).reshape(nq, cq)[
+        None, :, :, None, None]
 
     m = torch.full((B, nq, cq, H), -torch.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((B, nq, cq, H), dtype=torch.float32, device=dev)
@@ -130,3 +140,65 @@ def _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv):
         m, l, acc = _online_update((m, l, acc), s, vc)
     out = acc / torch.clamp_min(l, 1e-20)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _windowed(q, k, v, window, softcap, chunk_q, q_offset):
+    """Sliding-window attention: per-q-chunk slice of a front-padded KV
+    stream; static slice size (W + cq) -> real flop saving."""
+    B, Sq, H, hd = q.shape
+    cq = _chunk(Sq, chunk_q)
+    nq = Sq // cq
+    W = window
+    dev = q.device
+    pad = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype, device=dev)
+    kp = torch.cat([pad, k], dim=1)                           # [B, W+Skv, H, hd]
+    vp = torch.cat([pad.to(v.dtype), v], dim=1)
+    outs = []
+    for n in range(nq):
+        # q rows [n*cq, n*cq+cq); allowed k in (q-W, q]; padded index base n*cq
+        qc = q[:, n * cq:(n + 1) * cq]
+        start = n * cq + q_offset
+        kc = kp[:, start:start + W + cq]
+        vc = vp[:, start:start + W + cq]
+        s = torch.einsum("bchd,bkhd->bchk", qc.to(torch.float32),
+                         kc.to(torch.float32))
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        qpos = (start + torch.arange(cq, device=dev))[None, :, None, None]
+        kpos = (start - W + torch.arange(W + cq, device=dev))[
+            None, None, None, :]
+        valid = (qpos >= kpos) & (qpos - kpos < W) & (kpos >= 0)
+        s = torch.where(valid, s, torch.full_like(s, _NEG))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bchk,bkhd->bchd",
+                                 p.to(vc.dtype).to(torch.float32),
+                                 vc.to(torch.float32)))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# --------------------------------------------------------------------- decode
+def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
+                     window: int = 0):
+    """One-token attention over a KV cache.
+
+    q [B,1,H,hd]; caches [B,S,KV,hd]; kv_len: number of valid cache
+    entries (int or 0-d tensor). GQA is handled without materializing
+    repeated KV (grouped einsum) — decode is memory-bound, the cache is
+    read once."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    q5 = q.reshape(B, KV, G, hd) * torch.tensor(hd ** -0.5, dtype=q.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", q5.to(torch.float32),
+                     k_cache.to(torch.float32))               # [B,KV,G,S]
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(S, device=q.device)[None, None, None, :]
+    valid = pos < kv_len
+    if window:
+        valid = valid & (pos > kv_len - 1 - window)
+    s = torch.where(valid, s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)

@@ -1,10 +1,13 @@
-"""repro_torch's Hopper codec kernels on the card: each kernel against its
-plain torch version, bitwise, plus the wrappers' checks and counters and a
-small dump/restore through the kernels. Marked ``cuda``: every test skips
+"""repro_torch's Hopper kernels on the card: each codec kernel against its
+plain torch version, bitwise, plus the wrappers' checks and counters, a
+small dump/restore through the kernels (delta8 restores stay on the card)
+and a tiny serving session through K6 (its own checks against the plain
+version are in tests/test_torch_flash.py). Marked ``cuda``: every test skips
 where there is no CUDA device. This file imports neither JAX nor
 ``repro``, so it runs on a machine without them:
 
-    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda \
+        tests/test_torch_cuda.py tests/test_torch_flash.py
 """
 import numpy as np
 import pytest
@@ -94,3 +97,67 @@ def test_dump_restore_through_the_kernels(dev, tmp_path):
     assert torch.equal(tree["v"], b["v"].to(torch.bfloat16).float())
     assert float((tree["m"] - b["m"]).abs().max()) < 1e-3
     assert np.isfinite(float(tree["norm"].sum()))
+
+
+def test_delta8_restore_stays_on_the_card(dev, tmp_path):
+    """K3's output is placed where it was decoded: no host round trip, and
+    the same bits as the plain version's decode on the CPU."""
+    from repro_torch.core import (dump, host_tree_by_path, restore,
+                                  restore_pairs, tree_digest)
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = {"m": torch.randn(100_003, generator=g, device=dev),
+         "w": torch.randn(64, generator=g, device=dev)}
+    root = str(tmp_path / "ck")
+    ra = dump(a, root, step=1, device=dev)
+    b = {"m": a["m"] + 1e-3 * torch.randn(100_003, generator=g, device=dev),
+         "w": a["w"] + 1.0}
+    rb = dump(b, root, step=2, parent=ra["image_id"],
+              codec_policy={"m": "delta8", "w": "none"}.get,
+              prev_host_tree=host_tree_by_path(a), device=dev,
+              device_codec="auto")
+    ckpt_codec.reset_launches()
+    pairs, _ = restore_pairs(root, rb["image_id"], device=dev)
+    assert ckpt_codec.LAUNCHES["delta_decode"] == 1
+    assert isinstance(pairs["m"], torch.Tensor)
+    assert pairs["m"].device.type == "cuda" and pairs["m"].shape == (100_003,)
+    assert isinstance(pairs["w"], np.ndarray)          # lossless: host bytes
+    host, _ = restore_pairs(root, rb["image_id"], device="cpu")
+    assert isinstance(host["m"], np.ndarray)
+    assert np.array_equal(pairs["m"].cpu().numpy().view(np.int32),
+                          host["m"].view(np.int32))
+    assert tree_digest(pairs) == tree_digest(host)
+    tree, _ = restore(root, rb["image_id"], device=dev)
+    assert torch.equal(tree["m"].view(torch.int32),
+                       pairs["m"].view(torch.int32))
+    assert float((tree["m"] - b["m"]).abs().max()) < 1e-3
+
+
+def test_serve_engine_on_the_card_goes_through_k6(dev):
+    """qwen3 tiny served on the card: prefill launches K6 once per layer,
+    and a session checkpointed mid-generation continues token for token
+    in a fresh engine."""
+    from repro_torch.api import CheckpointSession
+    from repro_torch.configs import get_tiny
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServeEngine
+    cfg = get_tiny("qwen3-8b")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0), device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    k6.reset_launches()
+    a = ServeEngine(lm, params, max_len=53)
+    a.submit(prompts)
+    want = a.generate(12).copy()
+    assert k6.LAUNCHES["flash_attention"] == cfg.num_layers
+    b = ServeEngine(lm, params, max_len=53)
+    b.submit(prompts)
+    b.generate(5)
+    sess = CheckpointSession("mem://card-serve-test", device=dev)
+    b.checkpoint(sess, arch=cfg.name)
+    c = ServeEngine(lm, params, max_len=53)
+    res = c.resume_from(sess)
+    assert res.digest_verified is True
+    assert c.cache["stack"]["b0"]["k"].device.type == "cuda"
+    assert np.array_equal(c.generate(12), want)

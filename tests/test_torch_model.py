@@ -136,8 +136,8 @@ def test_hidden_states_fp32(pair):
     toks = _tokens(cfg, 0)
     hj, _, _ = jlm.forward(jstate["params"], tokens=jnp.asarray(toks),
                            compute_dtype=jnp.float32)
-    ht = tlm.forward(params, tokens=torch.from_numpy(toks).long(),
-                     compute_dtype=torch.float32)
+    ht, _ = tlm.forward(params, tokens=torch.from_numpy(toks).long(),
+                        compute_dtype=torch.float32)
     np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-5)
 
 
