@@ -5,16 +5,20 @@
 
 Phases, one line each (plus details):
   1. card    — nvidia-smi name and power limit, torch and CUDA versions;
-  2. build   — nvcc builds the codec kernels (K1-K4) and flash attention
+  2. build   — nvcc builds the codec kernels (K1-K5) and flash attention
                (K6) from the sources under src/repro_torch/kernels/*/csrc
                into build/, one nvcc process per source, all at once;
   3. kernels — each kernel against its plain torch version on the card, at
                the main paths' shapes: K1-K4 bitwise (the qwen3-8b
                embedding leaf, a stacked MLP leaf, a ragged length, a leaf
-               with clean blocks), median times beside the HBM bound; K6 at
-               the serving shape in bf16 (2e-2), an fp32 case (2e-6), a
-               ragged length, a query offset and window + softcap, timed
-               beside its bound and scaled_dot_product_attention;
+               with clean blocks), median times beside the HBM bound; K5
+               bitwise, all four lanes (the embedding, a stacked 8-layer
+               MLP leaf, a bf16 KV-cache leaf, a ragged length, a leaf with
+               -0.0, denormals and inf and the same with its last element
+               changed), timed beside its bound; K6 at the serving shape in
+               bf16 (2e-2), an fp32 case (2e-6), a ragged length, a query
+               offset and window + softcap, timed beside its bound and
+               scaled_dot_product_attention;
   4. train path on qwen3-8b at full width (d_model 4096, 32/8 heads,
                head_dim 128, d_ff 12288, vocab 151936 padded to 152064)
                with num_layers cut from 36 to 2: train 3 steps -> image A
@@ -34,7 +38,28 @@ Phases, one line each (plus details):
                A's exactly, and K6 must have launched once per layer for
                each of the two prefills (counters zeroed just before, read
                just after). Then one decode step and one prefill run
-               under torch.profiler for the kernel-time breakdown.
+               under torch.profiler for the kernel-time breakdown;
+  6. pre-copy path on qwen3-8b at full width with num_layers cut from 36
+               to 8 (the image holds the weights): engine A generates 32
+               tokens; engine P generates 8, then pre-dump round 0 through
+               ServeEngine.checkpoint(mode="pre_dump", weights=True) of
+               {"params", "session"} (every leaf written), 12 and round 1
+               (every params leaf reused, the cache written), 16 and the
+               residual dump through ServeEngine.checkpoint with the
+               migration record (the cache's bytes stored, not the
+               weights'); a lazy restore through CheckpointSession
+               (skeleton, first fault of the embedding, materialize with
+               the deferred digest check); engine D resumes through
+               ServeEngine.resume_from(lazy=True), adopting the image's
+               weights, and continues to 32 tokens, which must equal A's;
+               an eager restore of the same image must equal the lazy one
+               bitwise. K5 must have classified every fp32/bf16 leaf on
+               the card once in each of the 3 passes, K6 run
+               once per layer for each of the 2 prefills (A and P; D
+               resumes a session and only decodes), K1-K4 not at all.
+               K5's classification of the tree is timed beside the JAX
+               package's host route (blake2b of the digest's host capture),
+               and the path's own host peak RSS is sampled.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 the last line. Without a CUDA device it exits 2 at once.
@@ -49,6 +74,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -63,6 +89,7 @@ REPLACES = {
     "bf16_encode_digest": "src/repro/kernels/ckpt_codec/ckpt_codec.py:148",
     "delta_decode": "src/repro/kernels/ckpt_codec/ckpt_codec.py:178",
     "delta_encode": "src/repro/kernels/ckpt_codec/ckpt_codec.py:50",
+    "digest_blocks": "src/repro/kernels/ckpt_codec/ckpt_codec.py:165",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:110",
 }
@@ -75,6 +102,13 @@ LAYERS = 2
 # serve path: qwen3-8b at full depth, 4 prompts of 2048 tokens, 32 tokens
 # generated, the session checkpointed after 16
 SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CUT = 4, 2048, 32, 16
+# pre-copy path: the image holds the weights too, and the host holds the
+# mem:// tier's copy of them beside the final dump's digest capture: at 36
+# layers (32.8 GB) that would pass the machine's 96 GiB, at 8 (11.2 GB) the
+# host peak stays near 40 GB. Rounds after tokens 8 and 12, the residual
+# dump after 16, the same prompts and 32 tokens as the serve path.
+PRECOPY_LAYERS = 8
+PRECOPY_ROUNDS, PRECOPY_CUT = (8, 12), 16
 # K6 cases: label, B, Sq, Skv, H, KV, hd, dtype, window, softcap, tolerance
 FLASH_CASES = [
     ("serving 4x2048 32/8 heads x128 bf16", 4, 2048, 2048, 32, 8, 128,
@@ -247,7 +281,85 @@ def kernel_phase(torch, dev, seed):
             del q, s
         del xb, pb
         torch.cuda.empty_cache()
+    rows["digest_blocks"] = digest_phase(torch, dev, gen, slabbed)
     return rows
+
+
+def digest_phase(torch, dev, gen, slabbed):
+    """K5 against its plain version, bitwise, all four lanes, at the
+    pre-copy path's shapes; timed on the embedding beside its HBM bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ckpt_codec import ckpt_codec, ops, ref
+    B = ops.BLOCK
+    w = ops.digest_weights(B, dev)
+
+    def plain(x):
+        n = x.numel()
+        nblk = max(1, -(-n // B))
+        xb = F.pad(x, (0, nblk * B - n)).reshape(nblk, B)
+        return torch.cat([
+            torch.stack(slabbed(ref.digest_blocks_ref, xb, w, per_block=1)),
+            torch.stack(slabbed(ref.mixed_lanes_ref, xb, w, per_block=1))])
+
+    edge = torch.randn(3 * B + 5, generator=gen, device=dev)
+    edge[:4] = torch.tensor([-0.0, 1e-40, -1e-45, float("inf")])
+    edge_changed = edge.clone()
+    edge_changed[-1] += 1.0
+    L = PRECOPY_LAYERS
+    cases = [
+        ("params/embed/tok 152064x4096 fp32",
+         torch.randn(152064 * 4096, generator=gen, device=dev)),
+        (f"params/stack/b0/mlp/w_up {L}x4096x12288 fp32",
+         torch.randn(L * 4096 * 12288, generator=gen, device=dev)),
+        (f"session/cache/stack/b0/k {L}x4x2081x8x128 bf16",
+         torch.randn(L * 4 * 2081 * 8 * 128, generator=gen,
+                     device=dev).to(torch.bfloat16)),
+        ("ragged 1000003 fp32",
+         torch.randn(1_000_003, generator=gen, device=dev)),
+        ("-0.0, denormals, inf; 3x16384+5 fp32", edge),
+        ("the same with its last element changed", edge_changed),
+    ]
+    row, edge_lanes = None, []
+    for label, x in cases:
+        got = ckpt_codec.digest_blocks(x, w)
+        want = plain(x)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        log(f"kernels: digest_blocks on {label}: nblk={got.shape[1]} "
+            f"{'bit-identical' if same else 'MISMATCH'} (4 lanes)")
+        check(same, f"digest_blocks differs from its plain version on "
+                    f"{label}")
+        if label.startswith("-0.0") or label.startswith("the same"):
+            edge_lanes.append(got)
+        if row is None:          # the embedding: time it
+            n = x.numel()
+            nblk = got.shape[1]
+            nbytes = n * x.element_size() + 2 * B * 4 + 16 * nblk
+            ms = cuda_ms(torch, lambda: ckpt_codec.digest_blocks(x, w),
+                         iters=10)
+            plain_ms = cuda_ms(torch, lambda: plain(x), iters=2)
+            row = {"name": "digest_blocks", "route": "cuda", "source": SOURCE,
+                   "replaces": REPLACES["digest_blocks"], "launches": 0,
+                   "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "library_ms": None,
+                   "shape": [nblk, B], "bytes": nbytes}
+            log(f"kernels: digest_blocks on {label}: {ms:.3f} ms (bound "
+                f"{row['bound_ms']:.3f} ms, {row['bound_ms'] / ms:.0%} of "
+                f"HBM peak), plain {plain_ms:.1f} ms")
+        elif "bf16" in label:
+            ms = cuda_ms(torch, lambda: ckpt_codec.digest_blocks(x, w),
+                         iters=10)
+            nbytes = x.numel() * 2 + 2 * B * 4 + 16 * got.shape[1]
+            log(f"kernels: digest_blocks on {label}: {ms:.3f} ms (bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms by bytes)")
+        del got, want
+    check(not torch.equal(edge_lanes[0], edge_lanes[1]),
+          "digest_blocks did not see a changed last element")
+    del cases, x, edge, edge_changed
+    torch.cuda.empty_cache()
+    return row
 
 
 def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
@@ -492,7 +604,10 @@ def train_path(torch, dev, args):
     check(int(tree["step"]) == 6 and tree["step"].dtype == torch.int32,
           "restored step counter did not continue")
 
-    launches = dict(ckpt_codec.LAUNCHES)  # read just after the train path
+    # read just after the train path: its kernels are K1-K4 (K5 runs on
+    # the pre-copy path)
+    launches = {k: v for k, v in ckpt_codec.LAUNCHES.items()
+                if k != "digest_blocks"}
     out["launches"] = launches
     log("kernels: train-path launches " + " ".join(
         f"{k}={v}" for k, v in launches.items()))
@@ -614,6 +729,315 @@ def serve_path(torch, dev, args):
     return out
 
 
+# ----------------------------------------------------------- pre-copy path
+def precopy_path(torch, dev, args):
+    """Pre-copy migration of a serving job (CRIU pre-dump -> residual dump
+    -> lazy-pages restore), the tree {"params", "session"} classified on the
+    card by K5 in every pass."""
+    import numpy as np
+
+    from repro_torch.api import CheckpointSession, RestoreRequest
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.core import (flatten_with_paths, get_default_executor,
+                                  host_tree_by_path, read_manifest)
+    from repro_torch.core.migration import MIGRATION_META_KEY
+    from repro_torch.core.predump import digest_pairs, leaf_digest, uses_lanes
+    from repro_torch.core.storage import as_tier
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServeEngine
+
+    cfg = CONFIG.replace(num_layers=PRECOPY_LAYERS)
+    lm = LM(cfg)
+    t0 = time.time()
+    params = lm.init(torch.Generator().manual_seed(args.seed), device=dev)
+    torch.cuda.synchronize()
+    pbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"precopy: {cfg.name} at full width; cut: num_layers "
+        f"{CONFIG.num_layers} -> {cfg.num_layers} (the only cut: the image "
+        f"holds the weights and the host their mem:// copy); params="
+        f"{lm.n_params():,} ({pbytes / 1e9:.3f} GB fp32 on the card), init "
+        f"{time.time() - t0:.1f} s")
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    max_len = SERVE_PROMPT + SERVE_GEN + 1
+    uri = f"mem://chip-smoke-precopy-{args.seed}"
+    out = {"params": lm.n_params(), "layers": cfg.num_layers}
+
+    torch.use_deterministic_algorithms(True)
+    ckpt_codec.reset_launches()              # the path's counts start here
+    k6.reset_launches()
+    a = ServeEngine(lm, params, max_len=max_len)
+    a.submit(prompts)
+    want = a.generate(SERVE_GEN).copy()
+    del a
+    log(f"precopy: engine A generated {SERVE_B}x{SERVE_GEN} tokens "
+        f"uninterrupted (the reference)")
+
+    p = ServeEngine(lm, params, max_len=max_len)
+    p.submit(prompts)
+
+    def tree():
+        return {"params": p.params, "session": p.session_state()}
+    n_leaves = len(flatten_with_paths(tree()))
+    n_params = len(flatten_with_paths(params))
+    n_lanes = sum(1 for _, t in flatten_with_paths(tree())
+                  if uses_lanes(t) and t.device.type == "cuda")
+    cache_paths = [q for q, _ in flatten_with_paths(tree())
+                   if q.startswith("session/cache/stack/")]
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(p.cache))
+    sess = CheckpointSession(uri, device=dev)
+
+    def k5_pass(what, fn):
+        """fn() once, checking that K5 classified every fp32/bf16 leaf on
+        the card exactly once in it."""
+        before = ckpt_codec.LAUNCHES["digest_blocks"]
+        t0 = time.time()
+        rec = fn()
+        dt = time.time() - t0
+        n = ckpt_codec.LAUNCHES["digest_blocks"] - before
+        check(n == n_lanes, f"{what}: digest_blocks launched {n} times, not "
+                            f"once for each of the {n_lanes} fp32/bf16 leaves "
+                            f"on the card")
+        return rec, dt
+
+    rounds = []
+    for r, upto in enumerate(PRECOPY_ROUNDS):
+        p.generate(upto)
+        torch.cuda.synchronize()
+        rec, dt = k5_pass(f"round {r}", lambda: p.checkpoint(
+            sess, arch=cfg.name, mode="pre_dump", weights=True))
+        st = rec.stats
+        rounds.append({"image_id": rec.image_id, "s": dt,
+                       "leaves_dirty": st["leaves_dirty"],
+                       "leaves_clean": st["leaves_clean"],
+                       "bytes_stored": st["bytes_stored"]})
+        log(f"precopy: round {r} at token {upto} -> {rec.image_id} in "
+            f"{dt:.2f} s through ServeEngine.checkpoint(mode=\"pre_dump\"): "
+            f"{st['leaves_dirty']} dirty, {st['leaves_clean']} clean of "
+            f"{n_leaves} leaves, {st['bytes_stored'] / 1e9:.3f} GB stored")
+        check(rec.image_id == f"step_{upto:010d}p{r:02d}",
+              f"round {r} wrote {rec.image_id}")
+    out["rounds"] = rounds
+    check(rounds[0]["leaves_clean"] == 0
+          and rounds[0]["leaves_dirty"] == n_leaves,
+          "round 0 (a cold tracker) did not write every leaf")
+    m0, m1 = (read_manifest(sess.tier, r["image_id"])["leaves"]
+              for r in rounds)
+    r0 = {x["path"]: x for x in m0}
+    r1 = {x["path"]: x for x in m1}
+    reused = [q for q in r1 if q.startswith("params/")
+              and r1[q]["chunks"] == r0[q]["chunks"]]
+    check(rounds[1]["leaves_clean"] >= n_params and len(reused) == n_params,
+          f"round 1 reused {rounds[1]['leaves_clean']} leaves, not every "
+          f"one of the {n_params} params leaves")
+    for q in cache_paths + ["session/generated"]:
+        check(r1[q]["chunks"] != r0[q]["chunks"],
+              f"{q} changed between the rounds but was not written")
+
+    # the final (residual) dump through the engine: its migration record
+    # holds the tree digest of a host capture that the engine takes and
+    # drops; the dump itself gets the live tree and copies only the dirty
+    # leaves to the host
+    p.generate(PRECOPY_CUT)
+    torch.cuda.synchronize()
+    fin, dt = k5_pass("the residual dump", lambda: p.checkpoint(
+        sess, arch=cfg.name, weights=True))
+    out["residual_s"] = fin.duration_s
+    out["capture_digest_s"] = dt - fin.duration_s
+    st = fin.stats
+    out["residual"] = {"image_id": fin.image_id,
+                       "leaves_reused": st["leaves_reused"],
+                       "bytes_stored": st["bytes_stored"],
+                       "bytes_reused": st["bytes_reused"]}
+    digest = read_manifest(sess.tier, fin.image_id)["meta"][
+        MIGRATION_META_KEY]["state_digest"]
+    log(f"precopy: residual dump at token {PRECOPY_CUT} -> {fin.image_id} "
+        f"through ServeEngine.checkpoint in {out['residual_s']:.2f} s (apart "
+        f"from the migration digest's host capture and SHA-256, "
+        f"{out['capture_digest_s']:.2f} s); round 0, in effect the "
+        f"monolithic dump of this tree, took {rounds[0]['s']:.2f} s. "
+        f"{st['leaves_reused']} leaves reused ({st['bytes_reused'] / 1e9:.3f}"
+        f" GB), {st['bytes_stored'] / 1e9:.3f} GB stored against a "
+        f"{cache_bytes / 1e9:.3f} GB KV cache")
+    check(fin.image_id == f"step_{PRECOPY_CUT:010d}",
+          f"the final dump wrote {fin.image_id}")
+    check(st["leaves_reused"] >= n_params,
+          "the residual dump did not reuse every params leaf")
+    check(0 < st["bytes_stored"] <= 1.05 * cache_bytes + 2 ** 20,
+          f"the residual dump stored {st['bytes_stored']} bytes, more than "
+          f"the {cache_bytes}-byte KV cache")
+    # the JAX package's classifier on the same tree, for comparison:
+    # capture it to the host, then blake2b every leaf on the cpu pool
+    t0 = time.time()
+    host = host_tree_by_path(tree())
+    out["capture_s"] = time.time() - t0
+    t0 = time.time()
+    get_default_executor().map_cpu(leaf_digest, host.values())
+    out["host_classify_s"] = time.time() - t0
+    del host, p, tree
+    gc.collect()
+
+    # lazy (post-copy) resume, timed: skeleton, first fault, materialize
+    sess = CheckpointSession(uri, device=dev)
+    t0 = time.time()
+    res = sess.restore(RestoreRequest(lazy=True, prefetch_order=("params",)))
+    out["skeleton_s"] = time.time() - t0
+    check(res.image_id == fin.image_id,
+          f"the lazy restore picked {res.image_id}, not the final image")
+    srv = res.state.server
+    t0 = time.time()
+    emb = res.state["params"]["embed"]["tok"]
+    torch.cuda.synchronize()
+    out["first_fault_s"] = time.time() - t0
+    check(emb.device.type == "cuda" and tuple(emb.shape) == (
+        cfg.padded_vocab, cfg.d_model), "the embedding did not fault in "
+                                        "onto the card")
+    t0 = time.time()
+    state = res.state.materialize()
+    torch.cuda.synchronize()
+    out["materialize_s"] = time.time() - t0
+    verified = srv.verify_tree_digest()
+    log(f"precopy: lazy resume of {res.image_id}: skeleton in "
+        f"{out['skeleton_s']:.3f} s, first fault of params/embed/tok in "
+        f"{out['first_fault_s']:.3f} s, materialize (deferred digest "
+        f"check included) in {out['materialize_s']:.2f} s; digest verified: "
+        f"{verified}; server stats {srv.stats}")
+    check(verified is True and srv.expected_digest == digest,
+          "the lazy resume did not verify the tree digest")
+    lazy_flat = dict(flatten_with_paths(state))
+    check(all(t.device.type == "cuda" for t in lazy_flat.values()),
+          "a materialized leaf is not on the card")
+    del res, srv, emb, state
+    gc.collect()
+
+    # engine D resumes the job lazily through its own entry point: it
+    # adopts the image's weights and session, then decodes to the end
+    d = ServeEngine(lm, params, max_len=max_len)
+    t0 = time.time()
+    res_d = d.resume_from(CheckpointSession(uri, device=dev), lazy=True,
+                          prefetch_order=("params",))
+    torch.cuda.synchronize()
+    out["engine_resume_s"] = time.time() - t0
+    check(res_d.image_id == fin.image_id and res_d.digest_verified is True,
+          f"ServeEngine.resume_from(lazy=True) gave {res_d.image_id}, digest "
+          f"verified {res_d.digest_verified}")
+    d_flat = {**{f"params/{q}": t for q, t in flatten_with_paths(d.params)},
+              **{f"session/cache/{q}": t
+                 for q, t in flatten_with_paths(d.cache)}}
+    check(d.params is not params and all(
+        t.device.type == "cuda" and torch.equal(t, lazy_flat[q])
+        for q, t in d_flat.items()),
+          "engine D did not adopt the image's weights and cache on the card")
+    check(np.array_equal(d.generated(), want[:, :PRECOPY_CUT]),
+          "the resumed session's tokens differ from engine A's")
+    del res_d, d_flat
+    got = d.generate(SERVE_GEN)
+    same = bool(np.array_equal(got, want))
+    out["tokens_equal"] = same
+    log(f"precopy: engine D resumed through ServeEngine.resume_from(lazy="
+        f"True) in {out['engine_resume_s']:.2f} s (digest verified); its "
+        f"tokens {'equal' if same else 'DIFFER FROM'} engine A's at all "
+        f"{SERVE_B}x{SERVE_GEN}")
+    check(same, "engine D's continuation differs from engine A's tokens")
+    del d
+
+    # eager restore of the same image: bitwise the lazily materialized tree
+    t0 = time.time()
+    eager = CheckpointSession(uri, device=dev).restore(
+        RestoreRequest(image_id=fin.image_id))
+    torch.cuda.synchronize()
+    out["eager_s"] = time.time() - t0
+    eager_flat = dict(flatten_with_paths(eager.state))
+    check(eager.digest_verified is True, "the eager restore's digest was "
+                                         "not verified")
+    check(lazy_flat.keys() == eager_flat.keys()
+          and all(eager_flat[q].dtype == t.dtype
+                  and torch.equal(eager_flat[q], t)
+                  for q, t in lazy_flat.items()),
+          "the eager restore differs from the lazy one")
+    log(f"precopy: eager restore of {fin.image_id} in {out['eager_s']:.2f} s "
+        f"(digest verified); bitwise equal to the lazy one at all "
+        f"{len(eager_flat)} leaves")
+    torch.use_deterministic_algorithms(False)
+    del eager, eager_flat
+
+    launches = {"digest_blocks": ckpt_codec.LAUNCHES["digest_blocks"],
+                "flash_attention": k6.LAUNCHES["flash_attention"],
+                "codec K1-K4": sum(v for k, v in ckpt_codec.LAUNCHES.items()
+                                   if k != "digest_blocks")}
+    out["launches"] = launches
+    log(f"kernels: pre-copy-path launches digest_blocks="
+        f"{launches['digest_blocks']} ({n_lanes} fp32/bf16 leaves on the card"
+        f" x 3 classification passes), flash_attention="
+        f"{launches['flash_attention']} (2 prefills, A and P, x "
+        f"{cfg.num_layers} layers: D resumes a session and only decodes), "
+        f"codec K1-K4 {launches['codec K1-K4']} (lossless image)")
+    check(launches["digest_blocks"] == 3 * n_lanes,
+          f"digest_blocks launched {launches['digest_blocks']} times, not "
+          f"{3 * n_lanes}")
+    check(launches["codec K1-K4"] == 0, "a codec kernel ran on the lossless "
+                                        "pre-copy path")
+    check(launches["flash_attention"] == 2 * cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"not {2 * cfg.num_layers}")
+
+    # K5's classification of the same tree (the dumped one), timed after
+    # the counts were read, beside the host route above
+    pairs = sorted(lazy_flat.items())
+    digest_pairs(pairs)                    # warm
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        digest_pairs(pairs)
+        times.append(time.time() - t0)
+    out["k5_classify_s"] = statistics.median(times)
+    tree_gb = sum(t.numel() * t.element_size() for _, t in pairs) / 1e9
+    log(f"precopy: classifying the {tree_gb:.2f} GB tree: K5 on the card "
+        f"{out['k5_classify_s'] * 1e3:.1f} ms (host clock, lanes to host "
+        f"included); the JAX package's route (blake2b of the host capture "
+        f"on the cpu pool) {out['host_classify_s']:.2f} s, after a "
+        f"{out['capture_s']:.2f} s device-to-host capture")
+    del lazy_flat, pairs, params
+    as_tier(uri).delete("chunks")
+    as_tier(uri).delete("images")
+    return out
+
+
+def _rss_gb() -> float:
+    """The process's peak RSS so far, GB (ru_maxrss is in KiB on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+class RssPeak:
+    """The peak of the process's current RSS while the block runs, sampled
+    every 20 ms from /proc/self/statm: a path's own host peak, which
+    ru_maxrss hides behind an earlier path's."""
+
+    def __init__(self):
+        self.peak_gb = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._page = os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * self._page / 1e9
+            self.peak_gb = max(self.peak_gb, rss)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
 def device_breakdown(torch, fn, top: int = 6):
     """Run fn once under torch.profiler -> (wall ms, summed kernel ms,
     [(ms, kernel name, launches)] of the ``top`` kernels by time)."""
@@ -701,20 +1125,31 @@ def main(argv=None) -> int:
     record["serve"]["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rows["flash_attention"]["launches"] = \
         record["serve"]["launches"]["flash_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        record["precopy"] = precopy_path(torch, dev, args)
+    record["precopy"]["host_peak_rss_gb"] = rss.peak_gb
+    record["precopy"]["peak_device_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    rows["digest_blocks"]["launches"] = \
+        record["precopy"]["launches"]["digest_blocks"]
     record["kernels"] = list(rows.values())
     record["card"] = card
     record["wall_s"] = time.time() - t_start
-    # ru_maxrss is in KiB on Linux
-    record["host_peak_rss_gb"] = resource.getrusage(
-        resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    record["host_peak_rss_gb"] = _rss_gb()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
+    log(f"precopy: host peak RSS of the path {rss.peak_gb:.1f} GB "
+        f"(sampled every 20 ms)")
     log(f"done in {record['wall_s']:.0f} s; host peak RSS "
         f"{record['host_peak_rss_gb']:.1f} GB; peak device memory: train "
         f"{record['train_peak_device_gb']:.1f} GB, serve "
-        f"{record['serve']['peak_device_gb']:.1f} GB")
+        f"{record['serve']['peak_device_gb']:.1f} GB, pre-copy "
+        f"{record['precopy']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

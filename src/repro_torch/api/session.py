@@ -11,11 +11,18 @@ operations:
     res = sess.restore(RestoreRequest())          # latest image, verified
     tree, man = sess.load_latest()                # raw restore
 
-What is ported: sync dumps (``dump`` with mode="sync", ``save``), eager
-restore (``restore``, ``load_latest``, ``load``), dry-run ``plan``,
-retention and gc after every dump, incremental delta8 chains. Not yet:
-async and pre-dump modes, ``migrate`` and the preemption machinery, lazy
-restore and ``capabilities`` — the first three raise NotImplementedError.
+What is ported: sync dumps (``dump`` with mode="sync", ``save``),
+pre-copy rounds (``dump`` with mode="pre_dump", ``pre_dump``) and the
+residual dump after them, eager and lazy restore (``restore``,
+``load_latest``, ``load``), dry-run ``plan``, retention and gc after every
+dump, incremental delta8 chains. Not yet: the async mode and the
+migration orchestrator (``migrate``, ``pre_dump_round``,
+``should_predump`` and the preemption machinery) raise
+NotImplementedError; ``capabilities`` does not exist yet.
+
+The dirty classifier of pre-copy runs on the card: an fp32 or bf16 leaf
+on the card is digested there by K5 (core/predump.py), and a leaf whose
+record a dump re-emits is never copied to the host.
 
 One tier object is shared between the dumper and its registry: gc must
 update the same in-memory chunk index the dump path dedups against."""
@@ -80,6 +87,7 @@ class CheckpointSession:
         self._prev_host = None  # for delta8 chains
         self._prev_step = None  # step whose image _prev_host belongs to
         self._prev_image = None  # image id _prev_host is the content of
+        self._tracker = None    # lazy DirtyLeafTracker (pre-dump rounds)
 
     # ------------------------------------------------------------ lifecycle
     def __enter__(self):
@@ -93,15 +101,32 @@ class CheckpointSession:
 
     # ------------------------------------------------------- typed requests
     def dump(self, request: DumpRequest) -> DumpReceipt:
-        """DumpRequest -> DumpReceipt (sync: the image is durable when this
-        returns)."""
+        """DumpRequest -> DumpReceipt (the image is durable when this
+        returns). mode="pre_dump" runs one iterative pre-copy round (see
+        pre_dump()) and returns a committed receipt whose stats carry the
+        dirty/clean split; mode="async" is not ported yet.
+
+        Example::
+
+            sess.dump(DumpRequest(state=state, step=s, mode="pre_dump"))
+            ...                       # serving goes on, the cache drifts
+            sess.dump(DumpRequest(state=state, step=s2))   # residual only
+        """
         if not isinstance(request, DumpRequest):
             raise TypeError(f"dump() takes a DumpRequest, got "
                             f"{type(request).__name__} — build one, or use "
                             f"the legacy save() shim")
+        t0 = time.monotonic()
+        if request.mode == "pre_dump":
+            out = self.pre_dump(request.state, step=request.step,
+                                meta=request.meta,
+                                topology=request.topology)
+            return DumpReceipt(step=int(request.step), mode="pre_dump",
+                               committed=True, image_id=out["image_id"],
+                               stats=out["stats"],
+                               duration_s=time.monotonic() - t0)
         if request.mode != "sync":
             raise _not_ported(f'DumpRequest(mode="{request.mode}")')
-        t0 = time.monotonic()
         out = self.save(request.state, step=request.step, meta=request.meta,
                         topology=request.topology)
         return DumpReceipt(step=int(request.step), mode="sync",
@@ -114,7 +139,9 @@ class CheckpointSession:
         topology plan -> digest verification of the decoded bytes ->
         placement on the session's device. ``target_struct`` is a nested
         dict of tensors (``meta`` ones do) giving the leaves' shapes and
-        dtypes."""
+        dtypes. ``lazy=True`` is the post-copy restore: the result's state
+        is a core.lazy.LazyState whose leaves fault in onto the session's
+        device, ``prefetch_order`` first."""
         from repro_torch.core.migration import resume
         req = request or RestoreRequest()
         if not isinstance(req, RestoreRequest):
@@ -130,27 +157,36 @@ class CheckpointSession:
                      verify_digest=(req.verify_digest
                                     and self.config.migration.verify_digest),
                      allow_env_mismatch=req.allow_env_mismatch,
-                     lazy=req.lazy)
+                     lazy=req.lazy, prefetch_order=req.prefetch_order)
         return RestoreResult(
             state=rep.state, image_id=rep.manifest["image_id"],
             step=int(rep.migration.step), manifest=rep.manifest,
             migration=rep.migration, topology_changed=rep.topology_changed,
             changes=rep.changes, host_count=rep.host_count,
             dp_degree=rep.dp_degree, data=rep.data,
-            digest_verified=rep.digest_verified, report=rep, lazy=False)
+            digest_verified=rep.digest_verified, report=rep,
+            lazy=req.lazy)
 
     def migrate(self, request: MigrateRequest) -> MigrationTicket:
         raise _not_ported("migrate() (the preempt-to-migrate dump side)")
 
+    def should_predump(self) -> bool:
+        raise _not_ported("should_predump() (the migration orchestrator)")
+
+    def pre_dump_round(self, state, *, step: int | None = None) -> dict:
+        raise _not_ported("pre_dump_round() (the migration orchestrator's "
+                          "budgeted rounds; the bare engine entry point "
+                          "pre_dump() is ported)")
+
     # --------------------------------------------------------- engine: save
-    def _save_kw(self, step, meta, topology):
+    def _save_kw(self, step, meta, topology, with_parent: bool = True):
         parent = None
         prev_host = self._prev_host
         if not self.incremental:
             # no parent link will ever be written, so a delta8 leaf could
             # never be decoded — force full encodes
             prev_host = None
-        else:
+        elif with_parent:
             parent, prev_host = self.registry.resolve_parent_baseline(
                 self._prev_step, prev_host, step,
                 baseline_image=self._prev_image)
@@ -163,26 +199,108 @@ class CheckpointSession:
             kw["chunk_bytes"] = self.chunk_bytes
         return kw
 
+    def _classify(self, tree):
+        """(reuse_records, digests) from the dirty tracker — ({}, None)
+        when no pre-dump round has warmed it, so sessions that never
+        pre-dump pay nothing for the machinery."""
+        if self._tracker is None or not self._tracker.warm:
+            return {}, None
+        from repro_torch.core.predump import digest_pairs
+        digests = digest_pairs(flatten_with_paths(tree),
+                               executor=self.executor)
+        return self._tracker.reuse_for(digests), digests
+
     def save(self, tree, *, step: int, meta: dict | None = None,
              topology: dict | None = None) -> dict:
         """Raw-dict sync dump (the engine under DumpRequest(mode="sync")):
         blocks until the image is durable, returns {"image_id", "stats",
-        "records"}; then applies retention and gc.
+        "records"}; then applies retention and gc. After pre-dump rounds
+        this is automatically the residual dump — digest-unchanged leaves
+        re-emit cached records and are never copied to the host.
 
         Example::
 
             out = sess.save(state, step=7)
             print(out["image_id"], out["stats"]["bytes_stored"])
         """
+        # residual-dump path: after pre-dump rounds, digest-unchanged
+        # leaves re-emit their cached records — the freeze window pays
+        # only for the dirty set (plus the classification pass itself)
+        reuse, digests = self._classify(tree)
         out = _dump(tree, self.tier, replicas=self.replicas,
                     executor=self.executor, device=self.device,
+                    reuse_records=reuse,
                     **self._save_kw(step, meta, topology))
+        if digests is not None:
+            self._tracker.update(digests, out["records"], out["image_id"],
+                                 pre_dump=False)
+        self._committed(tree, step, out)
+        return out
+
+    def _committed(self, tree, step, out):
+        """After a dump of ``tree`` committed as ``out``: advance the delta8
+        baseline to it, then apply retention and gc."""
         if self.codec_policy is not None and self.incremental:
             self._prev_host = host_tree_by_path(tree)
             self._prev_step = step
             self._prev_image = out["image_id"]
         self.registry.retain(self.keep_last, self.keep_every)
         self.registry.gc()
+
+    def pre_dump(self, tree, *, step: int, meta: dict | None = None,
+                 topology: dict | None = None) -> dict:
+        """One iterative pre-copy round (CRIU `criu pre-dump`): commit a
+        complete, restorable image of the current state while the job goes
+        on, writing only leaves dirtied since the previous round. The
+        dirty tracker remembers this round's records, so the *final* dump
+        at the step boundary (an ordinary save()/DumpRequest) writes only
+        the residual dirty set — that is the stop-the-world window this
+        call exists to shrink.
+
+        Returns {"image_id", "stats", "records"}; stats carry
+        ``leaves_dirty``/``leaves_clean``/``predump_round``. Rounds never
+        delta8-encode (a reused record must decode parent-free — see
+        core/predump.py), but they do advance the session's delta8
+        baseline so the final dump's dirty leaves delta against the last
+        round's image.
+
+        Example::
+
+            r = sess.pre_dump(state, step=12)
+            print(r["image_id"], r["stats"]["leaves_clean"])
+        """
+        from repro_torch.core.predump import (PRE_DUMP_META_KEY,
+                                              DirtyLeafTracker, digest_pairs)
+        if self._tracker is None:
+            self._tracker = DirtyLeafTracker()
+        pairs = flatten_with_paths(tree)
+        digests = digest_pairs(pairs, executor=self.executor)
+        reuse = self._tracker.reuse_for(digests)
+        latest = self.registry.latest()
+        parent = latest["image_id"] if latest else None
+        rnd = self._tracker.rounds
+        existing = set(self.tier.image_ids())
+        image_id = f"step_{int(step):010d}p{rnd:02d}"
+        while image_id in existing:   # a foreign session's round at this
+            rnd += 1                  # step: never overwrite an image a
+            image_id = f"step_{int(step):010d}p{rnd:02d}"   # delta child
+            #                           may decode through
+        kw = self._save_kw(step, {**(meta or {}),
+                                  PRE_DUMP_META_KEY: {
+                                      "round": rnd,
+                                      "dirty": len(pairs) - len(reuse),
+                                      "clean": len(reuse)}},
+                           topology, with_parent=False)
+        kw.update(parent=parent, prev_host_tree=None)
+        out = _dump(tree, self.tier, replicas=self.replicas,
+                    executor=self.executor, image_id=image_id,
+                    reuse_records=reuse, device=self.device, **kw)
+        self._tracker.update(digests, out["records"], out["image_id"],
+                             pre_dump=True)
+        self._committed(tree, step, out)
+        out["stats"]["predump_round"] = rnd
+        out["stats"]["leaves_dirty"] = len(pairs) - len(reuse)
+        out["stats"]["leaves_clean"] = len(reuse)
         return out
 
     # --------------------------------------------------------- engine: plan

@@ -3,8 +3,9 @@
 The engine room of the port: plan/execute pipeline (core/plan.py,
 core/executor.py), content-addressed storage tiers (file:// and mem://),
 integrity + replica repair, leaf codecs with the Hopper codec kernels
-(core/compression.py, core/device_codec.py), the image registry, and the
-restore side of migration (core/migration.py). Images are byte-compatible
+(core/compression.py, core/device_codec.py), the image registry, pre-copy
+dirty tracking (core/predump.py, K5 on the card), lazy post-copy restore
+(core/lazy.py) and the restore side of migration (core/migration.py). Images are byte-compatible
 with the JAX package's: the same state dumps to the same chunks and
 manifest, and an image written by either package restores in the other.
 
@@ -19,10 +20,13 @@ from repro_torch.core.compression import default_policy
 from repro_torch.core.dump import dump, flatten_with_paths, host_tree_by_path
 from repro_torch.core.executor import CheckpointExecutor, get_default_executor
 from repro_torch.core.integrity import CorruptionError, tree_digest
+from repro_torch.core.lazy import LazyState, LeafServer, lazy_restore
 from repro_torch.core.migration import (MIGRATION_META_KEY, MigrationManifest,
                                         ResumeReport, resume)
 from repro_torch.core.plan import (DumpPlan, LeafPlan, RestorePlan, plan_dump,
                                    plan_restore)
+from repro_torch.core.predump import (DirtyLeafTracker, digest_pairs,
+                                      leaf_digest, tensor_digest)
 from repro_torch.core.registry import Registry
 from repro_torch.core.restore import (latest_image_id, place, read_manifest,
                                       restore, restore_pairs)
@@ -36,7 +40,9 @@ __all__ = [
     "plan_restore", "latest_image_id", "read_manifest", "restore",
     "restore_pairs", "place", "LocalDirTier", "MemoryTier", "as_tier",
     "Registry", "MIGRATION_META_KEY", "MigrationManifest", "ResumeReport",
-    "resume", "serve_meta", "train_meta", "Checkpointer",
+    "resume", "serve_meta", "train_meta", "Checkpointer", "LazyState",
+    "LeafServer", "lazy_restore", "DirtyLeafTracker", "digest_pairs",
+    "leaf_digest", "tensor_digest",
 ]
 
 

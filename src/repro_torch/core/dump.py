@@ -3,7 +3,8 @@
 Flow: plan_dump (leaf partition, codec applicability, chunk geometry —
 pure data) -> the device codec stage reads its leaves in place -> quiesce
 (``.cpu()`` of every other leaf waits for the in-flight work that produces
-it — the step boundary IS the quiesce point) ->
+it — the step boundary IS the quiesce point; leaves re-emitted from a
+pre-dump round's records are not captured) ->
 CheckpointExecutor pipelines encode+hash and deduplicated pool writes
 (unchanged chunks cost nothing — incremental dumps for free) -> manifest
 committed last (atomic rename). Multi-host: leaves are partitioned
@@ -92,8 +93,12 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
             plan, src, prev_host_tree, ex, device=dev)
 
     # quiesce + capture: .cpu() of every leaf the host path writes (the
-    # device stage reads its leaves in place, on the same stream)
-    arrays = {p: to_host(a) for p, a in live if p not in encoded}
+    # device stage reads its leaves in place, on the same stream); a leaf
+    # whose record is re-emitted is captured only if its reuse falls back
+    reused = {lp.path for lp in plan.leaves if lp.reuse is not None}
+    arrays = _Capture({p: to_host(a) for p, a in live
+                       if p not in encoded and p not in reused},
+                      {p: a for p, a in live if p in reused})
     del live
     # the writer guard spans probe->write->commit: a concurrent gc on the
     # SAME tier object (sessions sharing a mem:// URI) waits here instead
@@ -123,6 +128,20 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
                               atomic=True)
     return {"image_id": plan.image_id, "stats": out["stats"],
             "records": man["leaves"]}
+
+
+class _Capture(dict):
+    """{path: host array} of the leaves the host path writes. A leaf the
+    planner re-emits from a cached record is left on its device; if the
+    executor falls back to a full encode (its chunks vanished from the
+    pool), indexing the leaf captures it then."""
+
+    def __init__(self, captured: dict, deferred: dict):
+        super().__init__(captured)
+        self._deferred = deferred
+
+    def __missing__(self, path):
+        return to_host(self._deferred[path])
 
 
 def merge_parts(tier: Tier, image_id: str, num_processes: int, replicas=()):

@@ -8,10 +8,13 @@ Ported from the JAX package's core/migration.py:
                      the other's records;
   resume             image -> migration record -> topology-change plan ->
                      bit-identity check of the decoded bytes -> placement
-                     on the session's device (eager only).
+                     on the session's device; or, with ``lazy=True``, a
+                     post-copy skeleton whose digest check runs when it
+                     fully materializes (core/lazy.py).
 
 The dump side (``MigrationOrchestrator``: signal -> drain -> migration
-dump -> exit 85) and lazy (post-copy) resume are not ported yet and raise.
+dump -> exit 85, with its budgeted pre-copy rounds) is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -109,7 +112,8 @@ def resume(root, *, expected=None, device="cuda",
            host_count: int | None = None, dp_degree: int | None = None,
            global_batch: int | None = None, image_id: str | None = None,
            replicas=(), executor=None, verify_digest: bool = True,
-           allow_env_mismatch: bool = True, lazy: bool = False) -> ResumeReport:
+           allow_env_mismatch: bool = True, lazy: bool = False,
+           prefetch_order=None) -> ResumeReport:
     """Restore-side lifecycle: image -> migration record -> topology-change
     plan -> bit-identity verification -> placement on ``device``.
 
@@ -118,16 +122,43 @@ def resume(root, *, expected=None, device="cuda",
     bytes that came back are the bytes that were dumped, independent of
     where they are about to live. A mismatch raises CorruptionError.
     ``expected`` (nested dict of ``meta`` tensors) plays the role of the
-    JAX package's target_struct."""
+    JAX package's target_struct.
+
+    lazy: post-copy restore — the report's ``state`` is a LazyState whose
+    skeleton is immediate and whose leaves fault in onto ``device`` on
+    access (prefetched in ``prefetch_order``; see core/lazy.py). Chunk
+    hashes are still verified per read; the whole-tree digest check cannot
+    run before the leaves exist, so ``digest_verified`` stays None in the
+    report and the recorded digest is instead checked automatically the
+    moment the tree fully materializes (state.materialize() —
+    CorruptionError on mismatch, exactly like the eager path, just
+    deferred); ``expected`` does not apply to a tree that isn't there yet
+    — materialize() first, then cast."""
     from repro_torch.core.restore import place, restore_pairs
 
     if lazy:
-        raise NotImplementedError(
-            "lazy (post-copy) restore (core/lazy.py) is not ported to "
-            "repro_torch yet")
-    pairs, man = restore_pairs(root, image_id, device=device,
-                               replicas=replicas, executor=executor,
-                               allow_env_mismatch=allow_env_mismatch)
+        if expected is not None:
+            raise ValueError(
+                "lazy restore serves leaves on fault; target_struct applies "
+                "after materialize() — restore eagerly, or cast the "
+                "materialized tree yourself")
+        from repro_torch.core.lazy import lazy_restore
+        tree, man, server = lazy_restore(
+            root, image_id, replicas=replicas, executor=executor,
+            prefetch_order=prefetch_order,
+            allow_env_mismatch=allow_env_mismatch, device=device)
+        if verify_digest:
+            # deferred bit-identity: the server checks this digest when
+            # the tree fully materializes (LazyState.materialize /
+            # LeafServer.verify_tree_digest) — the lazy analogue of the
+            # eager pre-placement check below
+            server.expected_digest = \
+                MigrationManifest.from_image(man).state_digest
+        pairs = None
+    else:
+        pairs, man = restore_pairs(root, image_id, device=device,
+                                   replicas=replicas, executor=executor,
+                                   allow_env_mismatch=allow_env_mismatch)
     rec = MigrationManifest.from_image(man)
     plan = plan_topology_change(
         {**dataclasses.asdict(rec), "data": rec.data},
@@ -135,6 +166,8 @@ def resume(root, *, expected=None, device="cuda",
         global_batch=global_batch)
 
     digest_ok: bool | None = None
+    if lazy:
+        verify_digest = False     # nothing to digest until leaves arrive
     if verify_digest and rec.state_digest:
         got = tree_digest(pairs)     # raw decoded bytes, pre-cast/pre-place
         digest_ok = got == rec.state_digest
@@ -145,7 +178,8 @@ def resume(root, *, expected=None, device="cuda",
     if plan["changed"]:
         log.info("topology change on resume of %s: %s", man["image_id"],
                  plan["changes"])
-    tree = place(pairs, device, expected)
+    if not lazy:
+        tree = place(pairs, device, expected)
     return ResumeReport(state=tree, manifest=man, migration=rec,
                         topology_changed=plan["changed"],
                         changes=plan["changes"],

@@ -37,11 +37,12 @@ LIB = Library(
     {"ckpt_delta_encode_digest": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
      "ckpt_delta_encode": [_P, _P, _P, _P, _P, _LL, _I, _P],
      "ckpt_bf16_encode_digest": [_P, _P, _P, _P, _P, _LL, _I, _P],
-     "ckpt_delta_decode": [_P, _P, _P, _P, _LL, _I, _P]},
+     "ckpt_delta_decode": [_P, _P, _P, _P, _LL, _I, _P],
+     "ckpt_digest_blocks": [_P, _P, _P, _LL, _LL, _I, _I, _P]},
     error_fn="ckpt_error_string")
 
 KERNELS = ("delta_encode_digest", "bf16_encode_digest", "delta_decode",
-           "delta_encode")
+           "delta_encode", "digest_blocks")
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()          # LAUNCHES
@@ -157,4 +158,36 @@ def delta_decode(q, scale, prev):
         _launch("delta_decode", "ckpt_delta_decode",
                 q.data_ptr(), scale.data_ptr(), prev.data_ptr(),
                 out.data_ptr(), nblk, blk, stream_of(q))
+    return out
+
+
+def digest_blocks(x, weights):
+    """K5. x: flat fp32 or bf16 (any length n); weights: [2, blk] int32.
+    -> lanes int32 [4, max(1, ceil(n / blk))] holding uint32 bits: rows
+    0-1 the digest of each block of x's fp32 bit patterns (bf16 widened
+    exactly) as the Pallas kernel computes it, rows 2-3 the classifier's
+    mixed lanes (ref.mixed_lanes_ref), elements past n counting as zero.
+    The kernel reads the ragged last block in place; the plain version
+    pads a copy."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"digest_blocks takes fp32 or bf16, got {x.dtype}")
+    blk = weights.shape[-1]
+    n = x.numel()
+    nblk = max(1, -(-n // blk))
+    if x.device.type == "cpu":
+        xb = torch.nn.functional.pad(x.reshape(-1), (0, nblk * blk - n))
+        xb = xb.reshape(nblk, blk)
+        return torch.stack([*ref.digest_blocks_ref(xb, weights),
+                            *ref.mixed_lanes_ref(xb, weights)])
+    _blk_ok(nblk, blk)
+    if blk % 8:
+        raise ValueError(f"unsupported digest geometry [{nblk}, {blk}]: "
+                         f"blk must be a multiple of 8")
+    _check(x, "x", x.dtype, (n,))
+    _check(weights, "weights", torch.int32, (2, blk))
+    with torch.cuda.device(x.device):
+        out = torch.empty((4, nblk), dtype=torch.int32, device=x.device)
+        _launch("digest_blocks", "ckpt_digest_blocks",
+                x.data_ptr(), weights.data_ptr(), out.data_ptr(), n, nblk,
+                blk, int(x.dtype == torch.bfloat16), stream_of(x))
     return out

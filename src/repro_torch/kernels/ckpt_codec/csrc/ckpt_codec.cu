@@ -5,17 +5,19 @@
 //   K2 bf16_encode_digest_kernel   <- bf16_encode_digest_pallas  (_bf16_digest_kernel)
 //   K3 delta_decode_kernel         <- delta_decode_pallas        (_decode_kernel)
 //   K4 delta_encode_kernel<false>  <- delta_encode_pallas        (_encode_kernel)
+//   K5 digest_blocks_kernel        <- digest_blocks_pallas       (_digest_kernel)
 //
 // Data layout: [nblk, blk] row-major, one codec block (16384 fp32 on the main
-// path) per CTA, as the Pallas grid had one block per grid step. blk must be a
-// multiple of 4 and every pointer 16-byte aligned (checked by the Python
-// wrapper), so all traffic is 16-byte vector loads and stores.
+// path) per CTA, as the Pallas grid had one block per grid step (K5: four
+// blocks per CTA, see below). blk must be a multiple of 4 (8 for K5) and every
+// pointer 16-byte aligned (checked by the Python wrapper), so all traffic is
+// 16-byte vector loads and stores.
 //
 // Bound: every kernel streams device memory once and does a handful of
-// operations per element (~9 B/element for K1, K3, K4; 6 B for K2), so all four
-// are bound by HBM bandwidth. K1/K4 keep the block's delta (64 KiB) in dynamic
-// shared memory between the amax pass and the quantize pass, so x and prev are
-// read from HBM once.
+// operations per element (~9 B/element for K1, K3, K4; 6 B for K2; 4 or 2 B
+// for K5), so all five are bound by HBM bandwidth. K1/K4 keep the block's delta
+// (64 KiB) in dynamic shared memory between the amax pass and the quantize
+// pass, so x and prev are read from HBM once.
 //
 // Bit-identity with the plain versions (ref.py) is the contract. They compute
 // the JAX package's codec as XLA runs it, so images match byte for byte:
@@ -31,7 +33,7 @@
 //     mod-2^32 arithmetic of the reference; amax and the lane sums are exact
 //     and order-independent, so any reduction tree gives the same bits.
 // The codec's contract covers finite inputs (NaN handling of fmaxf differs
-// from jnp.max).
+// from jnp.max). K5 only reads bit patterns, so it covers every input.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -214,6 +216,127 @@ __global__ void __launch_bounds__(kDecodeThreads)
   }
 }
 
+// K5: per block, two lanes sum(bits(fp32(x_i)) * w_k[i]) mod 2^32 over the raw
+// block -- the digest-only sweep of the Pallas kernel -- and, in the same pass,
+// the pre-dump classifier's second pair over fmix32(bits + w_1[i]) (see
+// ref.mixed_lanes_ref: the raw lanes are linear in the bits, so a change that
+// is uniform over a block, such as x -> 2x or x -> -x, can cancel in them).
+// x is a flat fp32 or bf16 buffer of n elements; block b covers
+// [b*blk, (b+1)*blk) and elements past n count as zero (the zero padding of
+// ops.digest_blocks), so a ragged leaf needs no padded copy. bf16 widens by
+// bits << 16, which is the exact fp32 cast of the Pallas kernel, done in
+// registers.
+//
+// Each CTA digests kDigestGroup consecutive blocks at once: a thread loads the
+// weights of one position once and applies them to that position in every
+// block of the group, which cuts the weight table's L2 traffic to a quarter of
+// x's bytes (one block per CTA would read twice x's bytes of weights).
+constexpr int kDigestGroup = 4;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void load_units(const void* x, long long e0, long long n,
+                                           uint32_t* u) {
+  constexpr int kVec = kBf16 ? 8 : 4;  // elements per 16-byte load
+  if (e0 + kVec <= n) {
+    const uint4 q = __ldcs(reinterpret_cast<const uint4*>(
+        static_cast<const char*>(x) + e0 * (kBf16 ? 2 : 4)));
+    if constexpr (kBf16) {
+      const uint32_t p[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // little endian: the lower element is
+        u[2 * j] = p[j] << 16;       // the low half
+        u[2 * j + 1] = p[j] & 0xFFFF0000u;
+      }
+    } else {
+      u[0] = q.x;
+      u[1] = q.y;
+      u[2] = q.z;
+      u[3] = q.w;
+    }
+  } else {  // the ragged end of the last block
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const long long e = e0 + j;
+      if (e >= n) {
+        u[j] = 0u;
+      } else if constexpr (kBf16) {
+        u[j] = static_cast<uint32_t>(static_cast<const uint16_t*>(x)[e]) << 16;
+      } else {
+        u[j] = static_cast<const uint32_t*>(x)[e];
+      }
+    }
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    digest_blocks_kernel(const void* __restrict__ x, const uint32_t* __restrict__ w,
+                         uint32_t* __restrict__ out, long long n, long long nblk, int blk) {
+  constexpr int kVec = kBf16 ? 8 : 4;
+  const int nv = blk / kVec;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kDigestGroup;
+  uint32_t acc[kDigestGroup][4];  // h1, h2, g1, g2 of each block of the group
+#pragma unroll
+  for (int g = 0; g < kDigestGroup; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0u;
+
+  for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+    uint32_t w0[kVec], w1[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; j += 4) {
+      const uint4 a = reinterpret_cast<const uint4*>(w + v * kVec + j)[0];
+      const uint4 c = reinterpret_cast<const uint4*>(w + blk + v * kVec + j)[0];
+      w0[j] = a.x; w0[j + 1] = a.y; w0[j + 2] = a.z; w0[j + 3] = a.w;
+      w1[j] = c.x; w1[j + 1] = c.y; w1[j + 2] = c.z; w1[j + 3] = c.w;
+    }
+#pragma unroll
+    for (int g = 0; g < kDigestGroup; ++g) {
+      const long long b = b0 + g;
+      if (b < nblk) {
+        uint32_t u[kVec];
+        load_units<kBf16>(x, b * blk + static_cast<long long>(v) * kVec, n, u);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const uint32_t m = fmix32(u[j] + w0[j]);
+          acc[g][0] += u[j] * w0[j];
+          acc[g][1] += u[j] * w1[j];
+          acc[g][2] += m * w0[j];
+          acc[g][3] += m * w1[j];
+        }
+      }
+    }
+  }
+
+  // wraparound sums are exact in any order: warps first, then warp g sums
+  // block g's per-warp partials; lanes 0-3 of that warp write its 4 lanes
+  __shared__ uint32_t red[kDigestGroup][4][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int g = 0; g < kDigestGroup; ++g) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t a = warp_sum(acc[g][k]);
+      if (lane == 0) red[g][k][warp] = a;
+    }
+  }
+  __syncthreads();
+  if (warp < kDigestGroup && b0 + warp < nblk) {
+    const bool in = lane < (int)(blockDim.x >> 5);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t a = warp_sum(in ? red[warp][k][lane] : 0u);
+      if (lane == 0) out[k * nblk + b0 + warp] = a;
+    }
+  }
+}
+
 template <bool kDigest>
 int launch_encode(const void* x, const void* prev, const void* w, void* q, void* scale,
                   void* dirty, void* h1, void* h2, long long nblk, int blk, void* stream) {
@@ -264,6 +387,20 @@ int ckpt_delta_decode(const void* q, const void* scale, const void* prev, void* 
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const float*>(scale),
       static_cast<const float*>(prev), static_cast<float*>(out), blk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ckpt_digest_blocks(const void* x, const void* w, void* out, long long n,
+                       long long nblk, int blk, int bf16, void* stream) {
+  const unsigned grid = static_cast<unsigned>((nblk + kDigestGroup - 1) / kDigestGroup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* wu = static_cast<const uint32_t*>(w);
+  auto* o = static_cast<uint32_t*>(out);
+  if (bf16) {
+    digest_blocks_kernel<true><<<grid, kThreads, 0, s>>>(x, wu, o, n, nblk, blk);
+  } else {
+    digest_blocks_kernel<false><<<grid, kThreads, 0, s>>>(x, wu, o, n, nblk, blk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

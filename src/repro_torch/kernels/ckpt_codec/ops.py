@@ -5,6 +5,7 @@ encodes as clean and digests as zero (padded units add 0 to the lanes).
 
   delta_encode / delta_decode              plain codec
   delta_encode_digest / bf16_encode_digest fused encode + per-block digest
+  digest_blocks / classifier_lanes         digest-only sweep (classification)
   fold_digest                              per-block lanes -> leaf hex digest
   payload_digest                           numpy re-verification on decode
 
@@ -104,6 +105,28 @@ def bf16_encode_digest(x, *, block=BLOCK):
     xb, _ = _blocked(x, block)
     w = digest_weights(block, x.device)
     return ckpt_codec.bf16_encode_digest(xb, w)
+
+
+def classifier_lanes(x, *, block=BLOCK):
+    """The pre-dump classifier's view of a flat fp32 or bf16 tensor: K5's
+    four lanes per block, int32 [4, nblk] holding uint32 bits — (h1, h2)
+    of digest_blocks and the mixed pair that catches changes uniform over
+    a block (see ref.mixed_lanes_ref). A CUDA tensor goes through one K5
+    launch where it lies (a misaligned view is copied first), a CPU tensor
+    through the plain version."""
+    _check_flat(x)
+    if x.device.type == "cuda" and (not x.is_contiguous()
+                                    or x.data_ptr() % 16):
+        x = x.clone(memory_format=torch.contiguous_format)
+    return ckpt_codec.digest_blocks(x, digest_weights(block, x.device))
+
+
+def digest_blocks(x, *, block=BLOCK):
+    """Digest-only sweep over a flat fp32 or bf16 tensor -> (h1, h2) int32
+    [nblk] holding uint32 bits: the lanes of x zero-padded to whole
+    blocks, as the JAX package's ``digest_blocks``."""
+    lanes = classifier_lanes(x, block=block)
+    return lanes[0], lanes[1]
 
 
 # --------------------------------------------------- host-side fold / verify

@@ -23,8 +23,10 @@ image bytes and restore the same values:
 Torch has little uint32 arithmetic, so the digest lanes are computed in
 int64 and masked with ``& 0xFFFFFFFF``: units are <= 0xFFFF and weights
 < 2^32, so each product is < 2^48 and a 16384-unit block sum < 2^62.
-The lanes come back as int32 tensors holding the uint32 bit patterns
-(the kernels write uint32 into the same int32 storage).
+The 32-bit units of ``digest_blocks_ref`` (fp32 bit patterns) are split
+into 16-bit halves, each summed that way: ``u*w = lo*w + (hi*w << 16)``
+mod 2^32. The lanes come back as int32 tensors holding the uint32 bit
+patterns (the kernels write uint32 into the same int32 storage).
 """
 from __future__ import annotations
 
@@ -39,12 +41,19 @@ def _as_i32_bits(v: torch.Tensor) -> torch.Tensor:
     return (((v + (1 << 31)) & _M32) - (1 << 31)).to(torch.int32)
 
 
-def _digest_lanes(units: torch.Tensor, weights: torch.Tensor):
+def _lane_sums(units: torch.Tensor, weights: torch.Tensor):
     """units: [nblk, blk] int64 in [0, 2^16); weights: [2, blk] int32
-    holding uint32 bits. -> (h1, h2) int32 [nblk] (uint32 bits)."""
+    holding uint32 bits. -> (h1, h2) int64 [nblk] in [0, 2^32)."""
     w = weights.to(torch.int64) & _M32
     h1 = (units * w[0][None, :]).sum(dim=1) & _M32
     h2 = (units * w[1][None, :]).sum(dim=1) & _M32
+    return h1, h2
+
+
+def _digest_lanes(units: torch.Tensor, weights: torch.Tensor):
+    """units: [nblk, blk] int64 in [0, 2^16); weights: [2, blk] int32
+    holding uint32 bits. -> (h1, h2) int32 [nblk] (uint32 bits)."""
+    h1, h2 = _lane_sums(units, weights)
     return _as_i32_bits(h1), _as_i32_bits(h2)
 
 
@@ -78,6 +87,55 @@ def bf16_encode_digest_ref(x, weights):
     units = y.view(torch.int16).to(torch.int64) & 0xFFFF
     h1, h2 = _digest_lanes(units, weights)
     return y, h1, h2
+
+
+def _lanes32(units: torch.Tensor, weights: torch.Tensor):
+    """_digest_lanes for 32-bit units, summed as two 16-bit halves."""
+    lo1, lo2 = _lane_sums(units & 0xFFFF, weights)
+    hi1, hi2 = _lane_sums(units >> 16, weights)
+    return (_as_i32_bits((lo1 + (hi1 << 16)) & _M32),
+            _as_i32_bits((lo2 + (hi2 << 16)) & _M32))
+
+
+def _fp32_units(x):
+    """[nblk, blk] fp32 or bf16 -> int64 fp32 bit patterns in [0, 2^32)."""
+    return x.to(torch.float32).view(torch.int32).to(torch.int64) & _M32
+
+
+def digest_blocks_ref(x, weights):
+    """Lanes over the fp32 bit patterns of each block, as the JAX
+    package's ``digest_blocks_ref``: x [nblk, blk] fp32 or bf16 (widened
+    to fp32 exactly first); weights [2, blk] int32 holding uint32 bits.
+    -> (h1, h2) int32 [nblk] holding uint32 bits."""
+    return _lanes32(_fp32_units(x), weights)
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for int64 a in [0, 2^32), in 16-bit halves so no
+    product leaves int64."""
+    return ((a & 0xFFFF) * c + ((((a >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def fmix32(h):
+    """MurmurHash3's 32-bit finalizer on int64 values in [0, 2^32): a
+    bijection that spreads every input bit over every output bit."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def mixed_lanes_ref(x, weights):
+    """The classifier's second lane pair, which K5 computes in the same
+    pass: lanes over ``fmix32(bits + w_1[i])`` instead of the raw bits.
+    The raw lanes are linear in the bits, so a change that is uniform over
+    a block (a constant, a power-of-two scale, a sign flip of every
+    element) cancels whenever the block's weight sum has enough factors of
+    two; keyed by position and mixed, the same change is unstructured.
+    -> (g1, g2) int32 [nblk] holding uint32 bits."""
+    w1 = weights[0].to(torch.int64) & _M32
+    return _lanes32(fmix32((_fp32_units(x) + w1[None, :]) & _M32), weights)
 
 
 def _fma32(a, b, c):

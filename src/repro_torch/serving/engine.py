@@ -12,12 +12,15 @@ decoding): the paper's "network applications" row.
     ...
     engine2 = ServeEngine(lm, params, max_len=64)
     engine2.resume_from(sess)                # verified, then continues
+    engine3.resume_from(sess, lazy=True)     # post-copy, verified at the end
 
-Prefill attention runs on K6 when the engine's tensors are on a card
-(``kernels/flash_attention``); decode runs ``decode_attention`` over the
-cache, which the model updates in place. Generated tokens live in one
-growing [B, cap] host buffer appended in place. Lazy (post-copy) resume
-is not ported yet.
+``checkpoint(mode="pre_dump")`` takes a pre-copy round of the session
+(the next sync checkpoint writes only what changed since); the async mode
+is not ported yet. Prefill attention runs on K6 when the engine's tensors
+are on a card (``kernels/flash_attention``); decode runs
+``decode_attention`` over the cache, which the model updates in place.
+Generated tokens live in one growing [B, cap] host buffer appended in
+place.
 """
 from __future__ import annotations
 
@@ -118,40 +121,74 @@ class ServeEngine:
 
     # --------------------------------------------------- service façade glue
     def checkpoint(self, session, *, step: int | None = None,
-                   arch: str = "", extra: dict | None = None):
+                   arch: str = "", mode: str = "sync",
+                   extra: dict | None = None, weights: bool = False):
         """Dump the live serving session through a CheckpointSession and
-        return the DumpReceipt. The session is captured to the host once;
-        under a lossless codec policy the meta carries a migration record
-        with the tree digest of that capture, so a resume verifies bit
-        identity before it places anything."""
+        return the DumpReceipt. ``mode`` is "sync" or "pre_dump" (a
+        pre-copy round; "async" is not ported yet). ``weights=True`` dumps
+        {"params", "session"}, an image that restarts the job on a machine
+        that does not hold the weights; resume_from adopts them.
+
+        The live tree goes to the session as it lies, so a pre-copy round
+        and the residual dump after it classify the leaves on the card
+        (K5, core/predump.py) and copy only the dirty ones to the host. A
+        sync dump under a lossless codec policy also carries a migration
+        record with the tree digest of the live state, taken from a host
+        capture that lives only as long as the digest takes, so an eager
+        resume verifies bit identity before it places anything and a lazy
+        resume verifies it when the tree fully materializes. Port
+        difference: a pre-copy round carries no such record (the JAX
+        engine captures the whole tree for one in every round); its
+        chunks are still verified on restore."""
         from repro_torch.api import DumpRequest
-        from repro_torch.core.dump import flatten_with_paths
-        from repro_torch.core.integrity import tree_digest
-        from repro_torch.core.migration import (MIGRATION_META_KEY,
-                                                MigrationManifest)
+        if mode not in ("sync", "pre_dump"):
+            raise NotImplementedError(
+                f'ServeEngine.checkpoint(mode="{mode}") is not ported to '
+                f'repro_torch yet')
         done = self._n
         step = done if step is None else int(step)
-        host = _host_tree(self.session_state())
+        tree = self.session_state()
+        if weights:
+            tree = {"params": self.params, "session": tree}
         meta = serve_meta(arch=arch, tokens_done=done, extra=extra)
-        if getattr(session, "codec_policy", None) is None:
+        if mode == "sync" and getattr(session, "codec_policy", None) is None:
+            from repro_torch.core.dump import host_tree_by_path
+            from repro_torch.core.integrity import tree_digest
+            from repro_torch.core.migration import (MIGRATION_META_KEY,
+                                                    MigrationManifest)
             meta[MIGRATION_META_KEY] = MigrationManifest(
                 step=step, arch=arch or "serve",
-                state_digest=tree_digest(flatten_with_paths(host)),
+                state_digest=tree_digest(host_tree_by_path(tree)),
                 reason="serve_checkpoint").to_meta()
-        return session.dump(DumpRequest(state=host, step=step, meta=meta))
+        return session.dump(DumpRequest(state=tree, step=step, meta=meta,
+                                        mode=mode))
 
-    def resume_from(self, session, *, image_id: str | None = None):
+    def resume_from(self, session, *, image_id: str | None = None,
+                    lazy: bool = False, prefetch_order: tuple | None = None):
         """Load a dumped serving session (latest image by default) into
         THIS engine — the "restore on another machine" half. Returns the
         RestoreResult (``digest_verified`` is True when the image carried
-        a digest and the decoded bytes matched it)."""
+        a digest and the decoded bytes matched it). An image taken with
+        ``checkpoint(weights=True)`` also replaces the engine's params.
+
+        lazy=True is the post-copy path: the image's leaves stream in
+        behind a skeleton (core/lazy.py), ``prefetch_order`` first, and
+        the engine materializes the tree; the full-tree materialize runs
+        the image's deferred digest check, so a migrated session gets the
+        eager path's bit-identity guarantee the moment every leaf has
+        arrived — and the result then reports ``digest_verified`` True, as
+        the eager path does."""
+        import dataclasses
+
         from repro_torch.api import RestoreRequest
-        res = session.restore(RestoreRequest(image_id=image_id))
-        self.restore_session(res.state)
+        res = session.restore(RestoreRequest(image_id=image_id, lazy=lazy,
+                                             prefetch_order=prefetch_order))
+        state = res.state.materialize() if lazy else res.state
+        if "params" in state:               # checkpoint(weights=True)
+            self.params = state["params"]
+            state = state["session"]
+        self.restore_session(state)
+        if lazy:
+            res = dataclasses.replace(res, digest_verified=(
+                True if res.state.server.expected_digest else None))
         return res
-
-
-def _host_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _host_tree(v) for k, v in tree.items()}
-    return to_host(tree)

@@ -1,6 +1,7 @@
 """repro_torch's Hopper kernels on the card: each codec kernel against its
 plain torch version, bitwise, plus the wrappers' checks and counters, a
-small dump/restore through the kernels (delta8 restores stay on the card)
+small dump/restore through the kernels (delta8 restores stay on the card),
+K5 and the pre-dump classifier on the card, a lazy restore onto the card
 and a tiny serving session through K6 (its own checks against the plain
 version are in tests/test_torch_flash.py). Marked ``cuda``: every test skips
 where there is no CUDA device. This file imports neither JAX nor
@@ -161,3 +162,80 @@ def test_serve_engine_on_the_card_goes_through_k6(dev):
     assert res.digest_verified is True
     assert c.cache["stack"]["b0"]["k"].device.type == "cuda"
     assert np.array_equal(c.generate(12), want)
+
+
+@pytest.mark.parametrize("n,dtype", [(16384 * 3, "float32"),
+                                     (1_000_003, "float32"),
+                                     (5, "float32"),
+                                     (16384 * 2 + 9, "bfloat16"),
+                                     (0, "float32")])
+def test_digest_blocks_bit_identical_to_plain(dev, n, dtype):
+    """K5 against its plain version (the CPU wrapper path), all four lanes,
+    ragged ends read in place; one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, generator=g, device=dev).to(getattr(torch, dtype))
+    if n > 4:
+        x[0], x[1], x[-1] = -0.0, float("inf"), 1e-40
+    ckpt_codec.reset_launches()
+    got = ops.classifier_lanes(x)
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 1
+    want = ops.classifier_lanes(x.cpu())
+    assert torch.equal(got.cpu(), want)
+    h1, h2 = ops.digest_blocks(x)
+    assert torch.equal(h1.cpu(), want[0]) and torch.equal(h2.cpu(), want[1])
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 2
+    torch.cuda.synchronize()
+
+
+def test_classifier_on_the_card_equals_the_cpu(dev):
+    """tensor_digest of a leaf on the card (K5) equals that of its CPU copy
+    (the plain version); a misaligned view is digested by its content;
+    other dtypes raise in the wrapper."""
+    from repro_torch.core.predump import digest_pairs, tensor_digest
+    g = torch.Generator(device=dev).manual_seed(2)
+    t = torch.randn((4, 16384 + 3), generator=g, device=dev)
+    assert tensor_digest(t) == tensor_digest(t.cpu())
+    view = t.reshape(-1)[1:]
+    assert view.data_ptr() % 16
+    assert tensor_digest(view) == tensor_digest(view.cpu())
+    kv = t.to(torch.bfloat16)
+    ckpt_codec.reset_launches()
+    d = digest_pairs([("t", t), ("kv", kv),
+                      ("pos", torch.tensor(3, dtype=torch.int32,
+                                           device=dev))])
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 2
+    assert d["kv"] == tensor_digest(kv.cpu())
+    with pytest.raises(TypeError):
+        ckpt_codec.digest_blocks(t.double().reshape(-1),
+                                 ops.digest_weights(16384, dev))
+
+
+def test_lazy_restore_places_leaves_on_the_card(dev):
+    """A pre-dumped session restored lazily: every served leaf is on the
+    card, equal to the eager restore, and the deferred digest holds."""
+    from repro_torch.api import CheckpointSession, DumpRequest, RestoreRequest
+    from repro_torch.core import (MigrationManifest, flatten_with_paths,
+                                  tree_digest)
+    g = torch.Generator(device=dev).manual_seed(3)
+    state = {"params": {"w": torch.randn(70000, generator=g, device=dev)},
+             "cache": {"k": torch.randn(5000, generator=g,
+                                        device=dev).to(torch.bfloat16)}}
+    sess = CheckpointSession("mem://card-lazy-test", device=dev)
+    ckpt_codec.reset_launches()
+    sess.dump(DumpRequest(state=state, step=1, mode="pre_dump"))
+    state["cache"]["k"][7] = 3.0
+    rec = MigrationManifest(step=2, state_digest=tree_digest(
+        flatten_with_paths(state)))
+    out = sess.dump(DumpRequest(state=state, step=2,
+                                meta={"migration": rec.to_meta()}))
+    assert out.stats["leaves_reused"] == 1
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 4
+    res = sess.restore(RestoreRequest(lazy=True,
+                                      prefetch_order=("params",)))
+    full = res.state.materialize()
+    assert res.state.server.verify_tree_digest() is True
+    eager = sess.restore(RestoreRequest()).state
+    for p, a in flatten_with_paths(full):
+        assert a.device.type == "cuda"
+        assert torch.equal(a, dict(flatten_with_paths(eager))[p])
+    assert torch.equal(full["cache"]["k"], state["cache"]["k"])

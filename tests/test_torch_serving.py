@@ -220,3 +220,126 @@ def test_port_image_resumes_in_jax_engine(pair, tmp_path):
     res = jeng.resume_from(JSession(root))
     assert res.digest_verified is True
     assert np.array_equal(np.asarray(jeng.generate(GEN)), want)
+
+
+def test_lazy_resume_after_pre_dump_continues_like_jax(pair, tmp_path):
+    """A pre-copy round, then the residual checkpoint, then a lazy resume
+    (post-copy): the port's engine continues with the tokens of an
+    uninterrupted run and of the JAX engine's lazy resume of the same flow,
+    and reports the deferred digest verified. fp32 compute on both sides."""
+    prompts = pair[5]
+    ref = _port_engine(pair)
+    ref.submit(prompts)
+    want = ref.generate(GEN).copy()
+
+    for kind in ("torch", "jax"):
+        eng = _port_engine(pair) if kind == "torch" else _jax_engine(pair)
+        sess = (CheckpointSession(str(tmp_path / kind), device="cpu")
+                if kind == "torch" else JSession(str(tmp_path / kind)))
+        eng.submit(prompts)
+        eng.generate(CUT - 2)
+        r0 = eng.checkpoint(sess, arch="qwen3-8b-tiny", mode="pre_dump")
+        assert r0.mode == "pre_dump" and r0.stats["leaves_clean"] == 0
+        eng.generate(CUT)
+        r1 = eng.checkpoint(sess, arch="qwen3-8b-tiny")
+        assert r1.stats["leaves_reused"] == 1          # prompt_len
+        if kind == "torch":
+            back = _port_engine(pair)
+            res = back.resume_from(CheckpointSession(str(tmp_path / kind),
+                                                     device="cpu"),
+                                   lazy=True)
+            assert res.lazy and res.digest_verified is True
+            assert res.image_id == r1.image_id
+        else:
+            back = _jax_engine(pair)
+            back.resume_from(JSession(str(tmp_path / kind)), lazy=True)
+        assert np.array_equal(np.asarray(back.generated()),
+                              want[:, :CUT])
+        assert np.array_equal(np.asarray(back.generate(GEN)), want), kind
+
+
+def test_checkpoint_modes(pair, tmp_path):
+    eng = _port_engine(pair)
+    eng.submit(pair[5])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        eng.checkpoint(CheckpointSession(str(tmp_path), device="cpu"),
+                       mode="async")
+
+
+def test_checkpoint_hands_the_live_tree_to_the_session(pair):
+    """The engine gives the session its live tensors, not a host copy, so
+    pre-copy rounds and the residual dump classify the leaves where they
+    lie. Only a sync dump takes a capture, for its migration record, whose
+    digest is that of the live tree."""
+    from repro_torch.core.dump import host_tree_by_path
+    from repro_torch.core.integrity import tree_digest
+    from repro_torch.core.migration import MIGRATION_META_KEY
+
+    class Recorder:
+        codec_policy = None
+
+        def dump(self, request):
+            return request
+
+    eng = _port_engine(pair)
+    eng.submit(pair[5])
+    eng.generate(CUT)
+    for mode in ("pre_dump", "sync"):
+        req = eng.checkpoint(Recorder(), mode=mode, weights=True)
+        assert req.mode == mode and req.step == CUT
+        assert req.state["params"] is eng.params
+        assert req.state["session"]["cache"] is eng.cache
+        assert (MIGRATION_META_KEY in req.meta) == (mode == "sync")
+    assert req.meta[MIGRATION_META_KEY]["state_digest"] == tree_digest(
+        host_tree_by_path(req.state))
+    req = eng.checkpoint(Recorder())
+    assert set(req.state) == {"cache", "generated", "prompt_len"}
+
+
+def test_pre_copy_with_weights_reuses_them_and_resumes_lazily(pair, tmp_path):
+    """checkpoint(weights=True) twice as pre-copy rounds, then the residual
+    dump: the rounds after the first and the residual reuse every params
+    leaf; a lazy resume into an engine built on zeroed weights adopts the
+    image's weights and continues with the uninterrupted run's tokens."""
+    from repro_torch.core.dump import flatten_with_paths
+    _, _, _, tlm, params, prompts = pair
+    ref = _port_engine(pair)
+    ref.submit(prompts)
+    want = ref.generate(GEN).copy()
+
+    eng = _port_engine(pair)
+    eng.submit(prompts)
+    n_params = len(flatten_with_paths(params))
+    sess = CheckpointSession(str(tmp_path), device="cpu")
+    for r, upto in enumerate((CUT - 2, CUT - 1)):
+        eng.generate(upto)
+        rec = eng.checkpoint(sess, mode="pre_dump", weights=True)
+        assert rec.image_id == f"step_{upto:010d}p{r:02d}"
+        assert rec.stats["leaves_clean"] == (0 if r == 0 else n_params + 1)
+    eng.generate(CUT)
+    fin = eng.checkpoint(sess, weights=True)
+    assert fin.image_id == f"step_{CUT:010d}"
+    assert fin.stats["leaves_reused"] == n_params + 1      # + prompt_len
+
+    zeroed = {q: torch.zeros_like(t) for q, t in
+              flatten_with_paths(params)}
+    back = ServeEngine(tlm, _unflatten(zeroed), max_len=SP + GEN + 1,
+                       compute_dtype=torch.float32)
+    res = back.resume_from(CheckpointSession(str(tmp_path), device="cpu"),
+                           lazy=True, prefetch_order=("params",))
+    assert res.image_id == fin.image_id and res.digest_verified is True
+    assert all(torch.equal(t, dict(flatten_with_paths(back.params))[q])
+               for q, t in flatten_with_paths(params))
+    assert np.array_equal(back.generated(), want[:, :CUT])
+    assert np.array_equal(back.generate(GEN), want)
+
+
+def _unflatten(flat):
+    tree = {}
+    for path, leaf in flat.items():
+        *head, last = path.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree

@@ -118,9 +118,12 @@ def test_unported_parts_raise(tmp_path, what):
     calls = {
         "async": lambda: sess.dump(DumpRequest(state=small_tree(), step=2,
                                                mode="async")),
-        "pre_dump": lambda: sess.dump(DumpRequest(state=small_tree(), step=2,
-                                                  mode="pre_dump")),
-        "lazy": lambda: sess.restore(RestoreRequest(lazy=True)),
+        # pre-dump rounds and lazy restore are ported; what stays unported
+        # of them is the orchestrator's budgeted rounds and a lazy restore
+        # onto a mesh
+        "pre_dump": lambda: sess.pre_dump_round(small_tree(), step=2),
+        "lazy": lambda: sess.restore(RestoreRequest(lazy=True,
+                                                    shardings={})),
         "migrate": lambda: sess.migrate(MigrateRequest(state=small_tree())),
         "signals": lambda: CheckpointSession(SessionConfig(
             root=root, preemption=PreemptionPolicy(install_signals=True)),
