@@ -17,8 +17,12 @@ Phases, one line each (plus details):
                -0.0, denormals and inf and the same with its last element
                changed), timed beside its bound; K6 at the serving shape in
                bf16 (2e-2), an fp32 case (2e-6), a ragged length, a query
-               offset and window + softcap, timed beside its bound and
-               scaled_dot_product_attention;
+               offset and window + softcap in fp32 and in bf16 at head_dim
+               128, each on the route route() gives it (wgmma for bf16 at
+               head_dim 64/128, SIMT otherwise) and bit-identical on
+               repeat; the serving shape timed beside its bound and
+               scaled_dot_product_attention; the wgmma kernels must show
+               0 spill bytes in ptxas's report;
   4. train path on qwen3-8b at full width (d_model 4096, 32/8 heads,
                head_dim 128, d_ff 12288, vocab 151936 padded to 152064)
                with num_layers cut from 36 to 2: train 3 steps -> image A
@@ -36,9 +40,10 @@ Phases, one line each (plus details):
                digest) and is deleted; engine C resumes the session
                (digest verified) and generates to 32. C's tokens must equal
                A's exactly, and K6 must have launched once per layer for
-               each of the two prefills (counters zeroed just before, read
-               just after). Then one decode step and one prefill run
-               under torch.profiler for the kernel-time breakdown;
+               each of the two prefills, every launch on the wgmma route
+               (counters zeroed just before, read just after). Then one
+               decode step and one prefill run under torch.profiler for the
+               kernel-time breakdown and K6's share of it;
   6. pre-copy path on qwen3-8b at full width with num_layers cut from 36
                to 8 (the image holds the weights): engine A generates 32
                tokens; engine P generates 8, then pre-dump round 0 through
@@ -121,6 +126,10 @@ FLASH_CASES = [
      2e-6),
     ("window 128 + softcap 30 fp32", 1, 512, 512, 2, 1, 128, "float32", 128,
      30.0, 2e-6),
+    ("q_offset Sq 128 Skv 384 bf16 x128", 1, 128, 384, 4, 2, 128, "bfloat16",
+     0, 0.0, 2e-2),
+    ("window 128 + softcap 30 bf16 x128", 1, 512, 512, 2, 1, 128, "bfloat16",
+     128, 30.0, 2e-2),
 ]
 
 
@@ -372,8 +381,9 @@ def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
 
 
 def flash_phase(torch, dev, seed):
-    """K6 against its plain version at FLASH_CASES; times at the first
-    (serving) case beside its bound and scaled_dot_product_attention."""
+    """K6 against its plain version at FLASH_CASES, each case on its route;
+    times at the first (serving) case beside its bound and
+    scaled_dot_product_attention."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as k6
@@ -388,21 +398,26 @@ def flash_phase(torch, dev, seed):
         k = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dt)
         v = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dt)
         kw = dict(causal=True, window=window, softcap=cap)
+        way = k6.route(dt, hd)
+        k6.reset_launches()
         got = k6.flash_attention_fwd(q, k, v, **kw)
         want = reference_attention(q.float(), k.float(), v.float(), **kw)
         err = float((got.float() - want).abs().max())
         again = k6.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         same = torch.equal(got, again)
-        log(f"kernels: flash_attention on {label}: max abs err {err:.3g} "
-            f"(tolerance {tol:g}); repeat bit-identical: {same}")
+        log(f"kernels: flash_attention on {label} ({way} route): max abs err "
+            f"{err:.3g} (tolerance {tol:g}); repeat bit-identical: {same}")
+        check(k6.ROUTE_LAUNCHES[way] == 2,
+              f"flash_attention on {label} did not take the {way} route: "
+              f"{k6.ROUTE_LAUNCHES}")
         check(err < tol, f"flash_attention differs from its plain version "
                          f"on {label}: max abs err {err} >= {tol}")
         check(same, f"flash_attention is not deterministic on {label}")
         del got, want, again
         if row is None:        # the serving shape: time it
             ms = cuda_ms(torch, lambda: k6.flash_attention_fwd(q, k, v, **kw),
-                         iters=10)
+                         iters=20)
             plain_ms = cuda_ms(torch, lambda: reference_attention(
                 q, k, v, **kw), iters=3)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -420,14 +435,17 @@ def flash_phase(torch, dev, seed):
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(t_ops, t_bytes) * 1e3,
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "library_ms": library_ms, "shape": [B, Sq, Skv, H, KV, hd],
+                   "library_ms": library_ms, "kernel_route": way,
+                   "shape": [B, Sq, Skv, H, KV, hd],
                    "ops": ops, "bytes": nbytes}
-            log(f"kernels: flash_attention on {label}: {ms:.3f} ms (bound "
-                f"{row['bound_ms']:.3f} ms by {row['bound_by']}: "
-                f"{ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
-                f"{nbytes / 1e6:.0f} MB at 3.35 TB/s; "
-                f"{row['bound_ms'] / ms:.1%} of bound), plain {plain_ms:.1f} "
-                f"ms, scaled_dot_product_attention {library_ms:.3f} ms")
+            log(f"kernels: flash_attention on {label}: {way} route "
+                f"{ms:.3f} ms (bound {row['bound_ms']:.3f} ms by "
+                f"{row['bound_by']}: {ops / 1e9:.1f} GFLOP at 989 TFLOP/s "
+                f"bf16, {nbytes / 1e6:.0f} MB at 3.35 TB/s; "
+                f"{row['bound_ms'] / ms:.1%} of bound), plain "
+                f"{plain_ms:.1f} ms, scaled_dot_product_attention "
+                f"{library_ms:.3f} ms "
+                f"({ms / library_ms:.2f}x its time)")
         del q, k, v
         torch.cuda.empty_cache()
     return row
@@ -697,32 +715,41 @@ def serve_path(torch, dev, args):
     same = bool(np.array_equal(got, want))
     torch.use_deterministic_algorithms(False)
     launches = dict(k6.LAUNCHES)               # read just after the path
+    routes = dict(k6.ROUTE_LAUNCHES)
     codec = dict(ckpt_codec.LAUNCHES)
     out["launches"] = launches
+    out["k6_routes"] = routes
     out["tokens_equal"] = same
     log(f"serve: engine C tokens {'equal' if same else 'DIFFER FROM'} "
         f"engine A's at all {SERVE_B}x{SERVE_GEN}; first row "
         f"{got[0, :8].tolist()}...")
     log(f"kernels: serve-path launches flash_attention="
-        f"{launches['flash_attention']} (codec kernels "
+        f"{launches['flash_attention']} (wgmma route {routes['wgmma']}, "
+        f"SIMT route {routes['simt']}; codec kernels "
         f"{sum(codec.values())}: the serve image is lossless)")
     check(same, "engine C's continuation differs from engine A's tokens")
     check(launches["flash_attention"] == 2 * cfg.num_layers,
           f"flash_attention launched {launches['flash_attention']} times on "
           f"the serve path, not {2 * cfg.num_layers} (one per layer for each "
           f"of the two prefills)")
+    check(routes == {"wgmma": 2 * cfg.num_layers, "simt": 0},
+          f"the serve path's flash_attention launches did not all take the "
+          f"wgmma route: {routes}")
     # where the time goes, after the counts were read: one decode step and
     # one prefill under torch.profiler, kernel time by name
     out["profile"] = {}
     for name, fn in (("decode step", c.step),
                      ("prefill", lambda: c.submit(prompts))):
-        wall_ms, busy_ms, top = device_breakdown(torch, fn)
+        wall_ms, busy_ms, rows = device_breakdown(torch, fn)
+        k6_ms = sum(ms for ms, k, _ in rows if "flash_fwd" in k)
+        k6_n = sum(n for _, k, n in rows if "flash_fwd" in k)
         out["profile"][name] = {"wall_ms": wall_ms, "device_ms": busy_ms,
-                                "top": top}
+                                "top": rows[:6], "k6_ms": k6_ms}
         log(f"serve: profile of one {name}: {wall_ms:.1f} ms wall under the "
             f"profiler, {busy_ms:.1f} ms of kernels ({busy_ms / wall_ms:.0%} "
-            f"busy); top: " + "; ".join(
-                f"{k[:48]} {ms:.2f} ms x{n}" for ms, k, n in top))
+            f"busy); K6 {k6_ms:.2f} ms x{k6_n} ({k6_ms / busy_ms:.1%} of the "
+            f"kernel time); top: " + "; ".join(
+                f"{k[:48]} {ms:.2f} ms x{n}" for ms, k, n in rows[:6]))
     del c, params
     as_tier(uri).delete("chunks")
     as_tier(uri).delete("images")
@@ -964,6 +991,7 @@ def precopy_path(torch, dev, args):
     torch.use_deterministic_algorithms(False)
     del eager, eager_flat
 
+    routes = dict(k6.ROUTE_LAUNCHES)
     launches = {"digest_blocks": ckpt_codec.LAUNCHES["digest_blocks"],
                 "flash_attention": k6.LAUNCHES["flash_attention"],
                 "codec K1-K4": sum(v for k, v in ckpt_codec.LAUNCHES.items()
@@ -973,7 +1001,8 @@ def precopy_path(torch, dev, args):
         f"{launches['digest_blocks']} ({n_lanes} fp32/bf16 leaves on the card"
         f" x 3 classification passes), flash_attention="
         f"{launches['flash_attention']} (2 prefills, A and P, x "
-        f"{cfg.num_layers} layers: D resumes a session and only decodes), "
+        f"{cfg.num_layers} layers: D resumes a session and only decodes; "
+        f"wgmma route {routes['wgmma']}, SIMT route {routes['simt']}), "
         f"codec K1-K4 {launches['codec K1-K4']} (lossless image)")
     check(launches["digest_blocks"] == 3 * n_lanes,
           f"digest_blocks launched {launches['digest_blocks']} times, not "
@@ -983,6 +1012,9 @@ def precopy_path(torch, dev, args):
     check(launches["flash_attention"] == 2 * cfg.num_layers,
           f"flash_attention launched {launches['flash_attention']} times, "
           f"not {2 * cfg.num_layers}")
+    check(routes == {"wgmma": 2 * cfg.num_layers, "simt": 0},
+          f"the pre-copy path's flash_attention launches did not all take "
+          f"the wgmma route: {routes}")
 
     # K5's classification of the same tree (the dumped one), timed after
     # the counts were read, beside the host route above
@@ -1038,9 +1070,9 @@ class RssPeak:
         self._thread.join()
 
 
-def device_breakdown(torch, fn, top: int = 6):
+def device_breakdown(torch, fn):
     """Run fn once under torch.profiler -> (wall ms, summed kernel ms,
-    [(ms, kernel name, launches)] of the ``top`` kernels by time)."""
+    [(ms, kernel name, launches)] of every kernel, by time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1059,7 +1091,24 @@ def device_breakdown(torch, fn, top: int = 6):
             us = getattr(e, "self_cuda_time_total", 0)
         rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
-    return wall_ms, sum(r[0] for r in rows), rows[:top]
+    return wall_ms, sum(r[0] for r in rows), rows
+
+
+def wgmma_spills(build_log: str) -> dict:
+    """{kernel: (spill store bytes, spill load bytes)} of the flash_fwd_wgmma
+    instances in an nvcc -Xptxas -v log."""
+    import re
+    out, name = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1) if "flash_fwd_wgmma" in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
 
 
 def _leaves(tree):
@@ -1110,6 +1159,13 @@ def main(argv=None) -> int:
     for lib in libs:
         for ln in lib.ptxas_lines():
             log(f"build: {lib.name}: {ln}")
+    spills = wgmma_spills(k6.LIB.build_log)
+    log(f"build: flash_attention wgmma kernels' spill bytes (stores, loads): "
+        f"{spills}")
+    check(len(spills) == len(k6.WGMMA_HEAD_DIMS)
+          and all(v == (0, 0) for v in spills.values()),
+          f"the wgmma kernels spill or are missing from ptxas's report: "
+          f"{spills}")
 
     rows = kernel_phase(torch, dev, args.seed)
     rows["flash_attention"] = flash_phase(torch, dev, args.seed)

@@ -61,11 +61,16 @@ class Library:
         self._lock = threading.Lock()
 
     def build(self) -> Path:
-        """Compile (once per source version) -> path of the .so."""
+        """Compile (once per source version) -> path of the .so. nvcc's
+        output is kept beside it (``.log``), so ``build_log`` holds the
+        ptxas report also when the library was built earlier."""
         src = self.src.read_bytes()
         tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         out = self.build_dir / f"lib{self.name}-{tag}.so"
+        log = out.with_suffix(".log")
         if out.exists():
+            if log.exists():
+                self.build_log = log.read_text()
             return out
         self.build_dir.mkdir(parents=True, exist_ok=True)
         tmp = self.build_dir / f".lib{self.name}-{tag}.{os.getpid()}.tmp.so"
@@ -75,6 +80,7 @@ class Library:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}): "
                                f"{' '.join(cmd)}\n{self.build_log}")
+        log.write_text(self.build_log)
         os.replace(tmp, out)
         return out
 

@@ -1,22 +1,25 @@
 """K6: flash-attention forward on Hopper, bound with ctypes.
 
-``flash_attention_fwd`` takes CUDA tensors to the hand-written kernel in
+``flash_attention_fwd`` takes CUDA tensors to the hand-written kernels in
 ``csrc/flash_attention.cu`` (built for ``sm_90a`` by ``nvcc`` at first use
 into ``<repo>/build/flash_attention/``; see ``kernels/_build.py``) and CPU
 tensors to the plain torch version in ``ref.py``. A CUDA tensor never
-reaches the plain version: the wrapper launches the kernel or raises.
+reaches the plain version: the wrapper launches a kernel or raises.
 
   kernel               replaces
   K6 flash_attention   src/repro/kernels/flash_attention/flash_attention.py
                        flash_attention_fwd (_kernel)
 
-Unlike the Pallas kernel it takes any Sq <= Skv (the ragged last tiles are
-masked by position). At the serving shape it is bound by operations (the
-card's bf16 tensor-core rate); this first version multiplies in fp32 on
-the CUDA cores — see the .cu file for the design.
+Two routes, chosen by ``route(dtype, head_dim)`` alone, never by a retry:
+``"wgmma"`` (bf16 at head dims 64 and 128: tensor cores, TMA-staged K/V
+tiles) and ``"simt"`` (fp32 at every head dim, whose 2e-6 tolerance rules
+out tensor cores, and bf16 at head dims 16 and 32: fp32 FMAs on the CUDA
+cores). Unlike the Pallas kernel both take any Sq <= Skv (the ragged last
+tiles are masked by position). See the .cu file for the designs.
 
-``LAUNCHES["flash_attention"]`` counts kernel launches (plain-version
-calls are not counted), so a run can show that its path went through it.
+``LAUNCHES["flash_attention"]`` counts kernel launches of either route and
+``ROUTE_LAUNCHES`` each route's (plain-version calls are not counted), so a
+run can show that its path went through the kernel and which one.
 """
 from __future__ import annotations
 
@@ -33,18 +36,32 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = Library(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    {"flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _F, _P]},
+    {"flash_attention_fwd_simt": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _F, _P],
+     "flash_attention_fwd_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _F, _P]},
     error_fn="flash_error_string")
 
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 LAUNCHES = {"flash_attention": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 _lock = threading.Lock()
 
 
 def reset_launches():
     with _lock:
         LAUNCHES["flash_attention"] = 0
+        for r in ROUTE_LAUNCHES:
+            ROUTE_LAUNCHES[r] = 0
+
+
+def route(dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at head dims 64
+    and 128, ``"simt"`` otherwise."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def _check(q, k, v):
@@ -84,12 +101,20 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    way = route(q.dtype, hd)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
-        LIB.call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KV, hd,
-                 int(q.dtype == torch.bfloat16), int(bool(causal)),
-                 int(window), float(softcap), hd ** -0.5, stream_of(q))
+        if way == "wgmma":
+            LIB.call("flash_attention_fwd_wgmma", *ptrs, out.data_ptr(), B,
+                     Sq, Skv, H, KV, hd, int(bool(causal)), int(window),
+                     float(softcap), hd ** -0.5, stream_of(q))
+        else:
+            LIB.call("flash_attention_fwd_simt", *ptrs, out.data_ptr(), B,
+                     Sq, Skv, H, KV, hd, int(q.dtype == torch.bfloat16),
+                     int(bool(causal)), int(window), float(softcap),
+                     hd ** -0.5, stream_of(q))
     with _lock:
         LAUNCHES["flash_attention"] += 1
+        ROUTE_LAUNCHES[way] += 1
     return out

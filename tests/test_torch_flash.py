@@ -1,6 +1,7 @@
 """repro_torch flash attention (K6's plain version, the CPU dispatch, the
-windowed path, decode attention) against the JAX package, and K6 against
-its plain version on the card.
+windowed path, decode attention) against the JAX package, K6's route
+choice and C entry points, and K6 (both routes) against its plain version
+on the card.
 
 Inputs are numpy-seeded and handed to both packages (bf16 inputs are the
 same round-to-nearest-even casts on both sides). Tolerances, as in
@@ -20,6 +21,8 @@ machine (which has no JAX) runs the ``cuda`` tests of this file alone:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_flash.py
 """
 import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -180,6 +183,27 @@ def test_decode_attention_matches_jax(KV, window, cap, dtype, J):
         assert _err(got, np.asarray(ref)) < 2e-6
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_depends_on_dtype_and_head_dim_alone(dtype, hd):
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "simt"
+    assert k6.route(getattr(torch, dtype), hd) == want
+    assert want in k6.ROUTE_LAUNCHES
+
+
+def test_every_bound_entry_point_is_extern_c_in_the_source():
+    """A renamed or re-typed C entry point fails here, not only on the
+    card: every name in LIB's signature map (and its error function) is
+    defined inside the source's extern "C" block with as many parameters
+    as ctypes will pass."""
+    src = Path(k6.LIB.src).read_text()
+    block = src[src.index('extern "C" {'):]
+    for fn, argtypes in [*k6.LIB.sigs.items(), (k6.LIB.error_fn, [int])]:
+        m = re.search(rf"\b(?:int|const char\*) {fn}\(([^)]*)\)", block)
+        assert m, f"{fn} is not an extern \"C\" function of {k6.LIB.src}"
+        assert len(m.group(1).split(",")) == len(argtypes), fn
+
+
 # ----------------------------------------------------------------- on card
 @pytest.fixture
 def dev():
@@ -194,6 +218,8 @@ CARD = SWEEP + [
     (1, 200, 200, 2, 2, 32, False, 0, 0.0),      # not causal
     (2, 320, 320, 4, 2, 128, True, 100, 20.0),   # window not a tile multiple
     (2, 40, 40, 4, 2, 16, True, 0, 0.0),         # qwen3 tiny's head_dim
+    (1, 2048, 2048, 32, 8, 128, True, 0, 0.0),   # a serving prompt's shape
+    (2, 384, 384, 4, 2, 64, True, 96, 30.0),     # window + softcap at hd 64
 ]
 
 
@@ -210,6 +236,9 @@ def test_k6_matches_plain_version_on_card(case, dtype, dev):
                                  softcap=cap)
     torch.cuda.synchronize()
     assert k6.LAUNCHES["flash_attention"] == 1
+    way = k6.route(q.dtype, q.shape[-1])
+    assert k6.ROUTE_LAUNCHES == {"wgmma": int(way == "wgmma"),
+                                 "simt": int(way == "simt")}
     assert got.dtype == q.dtype and got.shape == q.shape
     assert float((got.float() - want).abs().max()) < TOL[dtype]
     again = k6.flash_attention_fwd(q, k, v, causal=causal, window=window,
