@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--ckpt-dir DIR] [--out FILE]
+                          [--lifecycle-dir DIR]
 
 Phases, one line each (plus details):
   1. card    — nvidia-smi name and power limit, torch and CUDA versions;
@@ -65,6 +66,21 @@ Phases, one line each (plus details):
                K5's classification of the tree is timed beside the JAX
                package's host route (blake2b of the digest's host capture),
                and the path's own host peak RSS is sampled.
+  7. lifecycle path: preempt-to-migrate of a training job through the
+               port's CLI (python -m repro_torch.launch.train --full
+               --layers 2 --device cuda), each run a fresh process under a
+               small wrapper that reads the child's launch counters, clocks
+               and memory peaks (runpy + atexit): a reference run of 10
+               steps; the same with --ckpt-dir file://... and
+               --predump-rounds 1, SIGTERMed after the line of step 3, which
+               must print the pre-dump round, the preemption and the durable
+               image and exit 85; then --resume, which must report
+               "(migrated: SIGTERM)", verify the digest and log losses
+               within 1e-5 relative of the reference's. K5 must classify
+               every fp32 leaf of the train state once in the round and once
+               in the residual dump, K1-K4 and K6 not run. The images go to
+               a temporary directory (--lifecycle-dir), checked first for
+               room for two images, removed afterwards.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 the last line. Without a CUDA device it exits 2 at once.
@@ -1039,6 +1055,291 @@ def precopy_path(torch, dev, args):
     return out
 
 
+# ---------------------------------------------------------- lifecycle path
+# path 7: the training CLI in fresh processes, at the train path's width and
+# depth (the same cut, for the same reason), K steps in all three runs (the
+# LR schedule's total_steps depends on K); SIGTERM after the line of step
+# LIFECYCLE_SIGNAL_AT, one pre-copy round
+LIFECYCLE_STEPS, LIFECYCLE_SIGNAL_AT = 10, 3
+LIFECYCLE_MODEL = ["--full", "--layers", str(LAYERS)]
+LIFECYCLE_BATCH = ["--global-batch", "2", "--seq-len", "512"]
+# the child's own counters and clocks, read by a wrapper this script owns:
+# the launcher runs unchanged under runpy, and an atexit hook prints what
+# it measured as one JSON line on stderr (after sys.exit(85) too)
+LIFECYCLE_WRAPPER = r"""
+import atexit, json, os, runpy, sys, threading, time
+import torch
+from repro_torch.api.session import CheckpointSession as S
+from repro_torch.kernels.ckpt_codec import ckpt_codec
+from repro_torch.kernels.flash_attention import flash_attention as k6
+rec = {"calls": {}}
+# this process's own host peak, sampled every 20 ms from /proc/self/statm
+# (ru_maxrss would carry the parent's peak across fork)
+peak = [0]
+
+def sample(page=os.sysconf("SC_PAGE_SIZE")):
+    while True:
+        with open("/proc/self/statm") as f:
+            peak[0] = max(peak[0], int(f.read().split()[1]) * page)
+        time.sleep(0.02)
+
+threading.Thread(target=sample, daemon=True).start()
+
+def timed(name, fn):
+    def run(*a, **kw):
+        t0 = time.time()
+        out = fn(*a, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        row = {"s": time.time() - t0}
+        st = out.get("stats") if isinstance(out, dict) else None
+        if st:
+            row.update(bytes_stored=st["bytes_stored"],
+                       leaves_reused=st.get("leaves_reused"),
+                       image_id=out["image_id"])
+        if hasattr(out, "digest_verified"):
+            row.update(digest_verified=out.digest_verified,
+                       image_id=out.image_id)
+        rec["calls"].setdefault(name, []).append(row)
+        return out
+    return run
+
+for name in ("pre_dump_round", "save", "restore", "migrate"):
+    setattr(S, name, timed(name, getattr(S, name)))
+
+@atexit.register
+def report():
+    rec["launches"] = {**ckpt_codec.LAUNCHES, **k6.LAUNCHES}
+    rec["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                if torch.cuda.is_available() else 0)
+    rec["host_peak_rss_bytes"] = peak[0]
+    print("LIFECYCLE " + json.dumps(rec), file=sys.stderr, flush=True)
+
+sys.argv = ["repro_torch.launch.train"] + sys.argv[1:]
+runpy.run_module("repro_torch.launch.train", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+class Child:
+    """One launcher process under the wrapper: stdout lines stamped on
+    arrival, stderr to a file, the wrapper's record parsed at the end."""
+
+    def __init__(self, flags, tmp, name, device, started: list):
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        self.err_path = os.path.join(tmp, f"{name}.stderr")
+        self.metrics = os.path.join(tmp, f"{name}.json")
+        self.t0 = time.time()
+        with open(self.err_path, "w") as err:
+            self.p = subprocess.Popen(
+                [sys.executable, "-u", "-c", LIFECYCLE_WRAPPER, *flags,
+                 "--device", str(device), "--metrics-file", self.metrics],
+                env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+                cwd=tmp)
+        started.append(self.p)          # the caller kills what is left
+        self.lines = []                 # (seconds since start, line)
+
+    def __iter__(self):
+        for ln in self.p.stdout:
+            self.lines.append((time.time() - self.t0, ln.rstrip("\n")))
+            log(f"  [{self.lines[-1][0]:7.2f} s] {self.lines[-1][1]}")
+            yield ln
+
+    def finish(self, timeout=900):
+        for _ in self:
+            pass
+        rc = self.p.wait(timeout=timeout)
+        self.wall_s = time.time() - self.t0
+        with open(self.err_path) as f:
+            err = f.read()
+        recs = [ln[len("LIFECYCLE "):] for ln in err.splitlines()
+                if ln.startswith("LIFECYCLE ")]
+        check(recs, f"no wrapper record from the child (rc {rc}); stderr "
+                    f"ends: {err[-3000:]}")
+        self.rec = json.loads(recs[-1])
+        self.rc = rc
+        return rc
+
+    def at(self, text):
+        """Seconds since start of the first line holding ``text``."""
+        for t, ln in self.lines:
+            if text in ln:
+                return t
+        raise CheckFailed(f"no line with {text!r}")
+
+    def losses(self) -> dict:
+        with open(self.metrics) as f:
+            return {r["step"]: r["loss"] for r in json.load(f)}
+
+
+def lifecycle_path(torch, dev, args):
+    """Preempt-to-migrate of a training job through the port's CLI
+    (python -m repro_torch.launch.train), in fresh processes: a reference
+    run; a run SIGTERMed after step LIFECYCLE_SIGNAL_AT's line, which must
+    take a pre-dump round, dump the migration image and exit 85; a
+    --resume in a new process, which must verify the digest and continue
+    with the reference's losses. K5 must classify every fp32 leaf of the
+    train state on the card in the round and in the residual dump."""
+    import shutil
+    import signal as _signal
+    import tempfile
+
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.models.model import LM
+    from repro_torch.training import abstract_train_state
+
+    cfg = CONFIG.replace(num_layers=LAYERS)
+    struct = flatten_with_paths(abstract_train_state(LM(cfg)))
+    state_bytes = sum(t.numel() * t.element_size() for _, t in struct)
+    n_fp32 = sum(1 for _, t in struct if t.dtype == torch.float32)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-lifecycle-",
+                           dir=args.lifecycle_dir)
+    out = {"leaves": len(struct), "fp32_leaves": n_fp32,
+           "state_bytes": state_bytes, "dir": tmp}
+    started = []
+    try:
+        # two full images (the round and the residual) on local disk
+        need = 2 * state_bytes * 1.1 + 2e9
+        free = shutil.disk_usage(tmp).free
+        log(f"lifecycle: {cfg.name} at full width, num_layers {CONFIG.num_layers}"
+            f" -> {cfg.num_layers} (the train path's cut); train state "
+            f"{state_bytes / 1e9:.2f} GB in {len(struct)} leaves ({n_fp32} "
+            f"fp32); {tmp}: {free / 1e9:.1f} GB free, the two images need "
+            f"{need / 1e9:.1f} GB")
+        check(free >= need, f"{tmp} has {free / 1e9:.1f} GB free, the "
+                            f"lifecycle's two images need {need / 1e9:.1f} GB; "
+                            f"pass --lifecycle-dir on a larger disk")
+        base = (LIFECYCLE_MODEL + LIFECYCLE_BATCH
+                + ["--steps", str(LIFECYCLE_STEPS), "--log-every", "1",
+                   "--data-dir", os.path.join(tmp, "data")])
+        ck = ["--ckpt-dir", "file://" + os.path.join(tmp, "ck")]
+
+        log("lifecycle: reference run (no checkpoint dir)")
+        ref = Child(base, tmp, "reference", dev, started)
+        check(ref.finish() == 0, f"the reference run exited {ref.rc}")
+        want = ref.losses()
+        check(sorted(want) == list(range(1, LIFECYCLE_STEPS + 1)),
+              f"the reference logged steps {sorted(want)}")
+
+        log(f"lifecycle: preempted run (SIGTERM after the line of step "
+            f"{LIFECYCLE_SIGNAL_AT}, --predump-rounds 1)")
+        pre = Child(base + ck + ["--predump-rounds", "1"], tmp, "preempted",
+                    dev, started)
+        t_sig = None
+        for ln in pre:
+            if t_sig is None and f'"step": {LIFECYCLE_SIGNAL_AT},' in ln:
+                pre.p.send_signal(_signal.SIGTERM)
+                t_sig = time.time() - pre.t0
+        rc = pre.finish()
+        check(t_sig is not None, "the preempted run never logged step "
+                                 f"{LIFECYCLE_SIGNAL_AT}")
+        out["signal_to_exit_s"] = pre.wall_s - t_sig
+        text = "\n".join(ln for _, ln in pre.lines)
+        check(rc == 85, f"the preempted run exited {rc}, not 85")
+        i_round = text.find("pre-dump round ->")
+        i_pre = text.find("preemption (SIGTERM)")
+        i_dur = text.find("migration image durable")
+        check(0 <= i_round < i_pre < i_dur,
+              "the preempted run did not print the pre-dump round, then the "
+              "preemption, then the durable image")
+        calls = pre.rec["calls"]
+        rnd, (res_dump,) = calls["pre_dump_round"], calls["save"]
+        check(len(rnd) == 1, f"{len(rnd)} pre-dump rounds, not 1")
+        (mig,) = calls["migrate"]
+        out.update(round_s=rnd[0]["s"], round_bytes=rnd[0]["bytes_stored"],
+                   residual_s=res_dump["s"],
+                   residual_bytes=res_dump["bytes_stored"],
+                   residual_reused=res_dump["leaves_reused"],
+                   migrate_s=mig["s"],
+                   digest_s=mig["s"] - res_dump["s"],
+                   preempted_peak_device_gb=pre.rec["peak_device_bytes"] / 1e9,
+                   preempted_host_peak_gb=pre.rec["host_peak_rss_bytes"] / 1e9)
+        launches = pre.rec["launches"]
+        out["launches"] = launches
+        log(f"lifecycle: signal -> exit 85: {out['signal_to_exit_s']:.2f} s")
+        log(f"lifecycle: pre-dump round: {out['round_s']:.2f} s, "
+            f"{out['round_bytes'] / 1e9:.3f} GB stored")
+        log(f"lifecycle: residual dump: {out['residual_s']:.2f} s, "
+            f"{out['residual_bytes'] / 1e9:.3f} GB stored, "
+            f"{out['residual_reused']} leaves reused")
+        log(f"lifecycle: residual bytes / round 0's: "
+            f"{out['residual_bytes'] / out['round_bytes']:.4f} (every leaf "
+            f"of a training state changes every step)")
+        log(f"lifecycle: migrate {out['migrate_s']:.2f} s, of it the "
+            f"migration digest's host capture and SHA-256 "
+            f"{out['digest_s']:.2f} s")
+        log("kernels: lifecycle-path launches (preempted child) " + " ".join(
+            f"{k}={v}" for k, v in launches.items()))
+        check(launches["digest_blocks"] == 2 * n_fp32,
+              f"digest_blocks launched {launches['digest_blocks']} times in "
+              f"the preempted child, not {2 * n_fp32} (each of the {n_fp32} "
+              f"fp32 leaves in the round and in the residual dump)")
+        check(all(v == 0 for k, v in launches.items()
+                  if k != "digest_blocks"),
+              f"a kernel other than K5 ran on the lossless lifecycle path: "
+              f"{launches}")
+
+        log("lifecycle: resume (--resume, a fresh process)")
+        res = Child(base + ck + ["--resume"], tmp, "resumed", dev, started)
+        check(res.finish() == 0, f"the resumed run exited {res.rc}")
+        line = next((ln for _, ln in res.lines if "resumed from" in ln), "")
+        check("(migrated: SIGTERM)" in line,
+              f"the resume did not report the migration: {line!r}")
+        (rst,) = res.rec["calls"]["restore"]
+        check(rst["digest_verified"] is True,
+              "the resume did not verify the migration image's digest")
+        got = res.losses()
+        at = int(line.split(" at step ")[1].split()[0])
+        check(sorted(got) == list(range(at + 1, LIFECYCLE_STEPS + 1)),
+              f"the resumed run logged steps {sorted(got)} after step {at}")
+        pre_losses = pre.losses()
+        worst = 0.0
+        for s_, loss in list(got.items()) + list(pre_losses.items()):
+            rel = abs(loss - want[s_]) / abs(want[s_])
+            worst = max(worst, rel)
+            check(rel <= 1e-5, f"step {s_}: loss {loss} vs the reference's "
+                               f"{want[s_]} ({rel:.2e} relative)")
+        t_resumed = res.at("resumed from")
+        t_first = res.at(f'"step": {at + 1},')
+        out.update(resume_step=at, restore_s=rst["s"],
+                   resume_to_first_step_s=t_first,
+                   resumed_line_to_first_step_s=t_first - t_resumed,
+                   resumed_peak_device_gb=res.rec["peak_device_bytes"] / 1e9,
+                   resumed_host_peak_gb=res.rec["host_peak_rss_bytes"] / 1e9,
+                   reference_peak_device_gb=ref.rec["peak_device_bytes"] / 1e9,
+                   reference_host_peak_gb=ref.rec["host_peak_rss_bytes"] / 1e9,
+                   worst_rel_loss=worst, resumed_losses=got,
+                   reference_losses=want)
+        log(f"lifecycle: resumed {rst['image_id']} at step {at} (digest "
+            f"verified); its {len(got)} losses and the preempted run's "
+            f"{len(pre_losses)} within {worst:.2e} relative of the "
+            f"reference's (limit 1e-5)")
+        log(f"lifecycle: resume -> first step: {t_first:.2f} s from process "
+            f"start (the restore {rst['s']:.2f} s, first step line "
+            f"{out['resumed_line_to_first_step_s']:.2f} s after the resumed "
+            f"line)")
+        log(f"lifecycle: peak device memory (max_memory_allocated) reference "
+            f"{out['reference_peak_device_gb']:.1f} GB, preempted "
+            f"{out['preempted_peak_device_gb']:.1f} GB, resumed "
+            f"{out['resumed_peak_device_gb']:.1f} GB; host peak RSS "
+            f"{out['reference_host_peak_gb']:.1f} / "
+            f"{out['preempted_host_peak_gb']:.1f} / "
+            f"{out['resumed_host_peak_gb']:.1f} GB")
+        check(res.rec["launches"]["digest_blocks"] == 0
+              and ref.rec["launches"]["digest_blocks"] == 0,
+              "K5 ran in a run without pre-copy")
+    finally:
+        for p in started:               # a failed check leaves none running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def _rss_gb() -> float:
     """The process's peak RSS so far, GB (ru_maxrss is in KiB on Linux)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
@@ -1124,6 +1425,9 @@ def main(argv=None) -> int:
                     help="train-path image directory (default: an in-memory "
                          "mem:// tier)")
     ap.add_argument("--out", default=None, help="write the run's record here")
+    ap.add_argument("--lifecycle-dir", default=None,
+                    help="where the lifecycle path's images go (default: "
+                         "the system's temporary directory)")
     args = ap.parse_args(argv)
 
     # cuBLAS picks deterministic algorithms only with a fixed workspace;
@@ -1189,8 +1493,12 @@ def main(argv=None) -> int:
     record["precopy"]["host_peak_rss_gb"] = rss.peak_gb
     record["precopy"]["peak_device_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["lifecycle"] = lifecycle_path(torch, dev, args)
     rows["digest_blocks"]["launches"] = \
-        record["precopy"]["launches"]["digest_blocks"]
+        record["precopy"]["launches"]["digest_blocks"] \
+        + record["lifecycle"]["launches"]["digest_blocks"]
     record["kernels"] = list(rows.values())
     record["card"] = card
     record["wall_s"] = time.time() - t_start
@@ -1205,7 +1513,9 @@ def main(argv=None) -> int:
         f"{record['host_peak_rss_gb']:.1f} GB; peak device memory: train "
         f"{record['train_peak_device_gb']:.1f} GB, serve "
         f"{record['serve']['peak_device_gb']:.1f} GB, pre-copy "
-        f"{record['precopy']['peak_device_gb']:.1f} GB")
+        f"{record['precopy']['peak_device_gb']:.1f} GB, lifecycle children "
+        f"{record['lifecycle']['preempted_peak_device_gb']:.1f} GB "
+        f"(preempted)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

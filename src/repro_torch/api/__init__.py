@@ -2,18 +2,23 @@
 stack, mirroring the JAX package's repro.api:
 
     from repro_torch.api import (CheckpointSession, SessionConfig,
-                                 DumpRequest, RestoreRequest)
+                                 DumpRequest, MigrateRequest, RestoreRequest)
 
-    sess = CheckpointSession(SessionConfig(root="file:///ckpts/run17"),
-                             device="cuda")
-    sess.dump(DumpRequest(state=state, step=s, meta=meta))
+    with CheckpointSession(SessionConfig(root="file:///ckpts/run17"),
+                           device="cuda") as sess:
+        sess.dump(DumpRequest(state=state, step=s, meta=meta))
+        if sess.should_migrate():             # SIGTERM flagged at a step
+            sys.exit(sess.migrate(MigrateRequest(state=state)).exit_code)
     res = sess.restore(RestoreRequest())      # latest image, digest-checked
     state = res.state
 
 The configuration, request and receipt types are copies of the JAX
 package's (same fields, same wire schema ``WIRE_SCHEMA_VERSION``), so a
-request built by either package decodes in the other. Async and pre-dump
-modes, ``migrate``, lazy restore and ``capabilities`` are not ported yet.
+request built by either package decodes in the other. Sync, async and
+pre-dump modes, ``migrate`` and its polls (``should_migrate``,
+``should_predump``, ``pre_dump_round``, ``observe_step``), signal
+handlers and eager and lazy restore are ported; ``capabilities`` is not
+yet.
 """
 from __future__ import annotations
 

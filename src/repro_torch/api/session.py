@@ -3,26 +3,39 @@
 Ported from the JAX package's api/session.py. A session is opened from a
 typed SessionConfig (or a root URI) on an explicit device — where codecs
 run and restored leaves are placed, "cuda" by default — owns the storage
-tiers, the registry and the plan/execute engine, and exposes the typed
-operations:
+tiers, the registry, the plan/execute engine and the preemption/migration
+machinery, and exposes the typed operations:
 
-    sess = CheckpointSession("mem://serve", device="cuda")
-    receipt = sess.dump(DumpRequest(state=state, step=s, meta=meta))
-    res = sess.restore(RestoreRequest())          # latest image, verified
-    tree, man = sess.load_latest()                # raw restore
+    with CheckpointSession(SessionConfig(root="file:///ckpts"),
+                           device="cuda") as sess:
+        receipt = sess.dump(DumpRequest(state=state, step=s, meta=meta))
+        ...
+        if sess.should_predump():
+            sess.pre_dump_round(state)           # pre-copy, keep training
+        elif sess.should_migrate():
+            ticket = sess.migrate(MigrateRequest(state=state, iterator=it))
+            sys.exit(ticket.exit_code)
 
-What is ported: sync dumps (``dump`` with mode="sync", ``save``),
-pre-copy rounds (``dump`` with mode="pre_dump", ``pre_dump``) and the
-residual dump after them, eager and lazy restore (``restore``,
-``load_latest``, ``load``), dry-run ``plan``, retention and gc after every
-dump, incremental delta8 chains. Not yet: the async mode and the
-migration orchestrator (``migrate``, ``pre_dump_round``,
-``should_predump`` and the preemption machinery) raise
-NotImplementedError; ``capabilities`` does not exist yet.
+    # next incarnation, any machine / topology / framework:
+    res = CheckpointSession(cfg, device="cuda").restore(RestoreRequest())
+
+Ported: sync, async and pre-copy dumps (``dump`` with mode="sync" /
+"async" / "pre_dump"; ``save``, ``save_async``, ``pre_dump``, ``wait``)
+and the residual dump after pre-copy rounds; eager and lazy restore
+(``restore``, ``load_latest``, ``load``); dry-run ``plan``; retention and
+gc after every dump; incremental delta8 chains; and the migration
+lifecycle (``migrate``, ``should_migrate``, ``should_predump``,
+``pre_dump_round``, ``observe_step``, signal handlers installed by
+``__enter__`` under PreemptionPolicy(install_signals=True)). Not yet:
+``capabilities``, and restore onto a mesh.
 
 The dirty classifier of pre-copy runs on the card: an fp32 or bf16 leaf
 on the card is digested there by K5 (core/predump.py), and a leaf whose
-record a dump re-emits is never copied to the host.
+record a dump re-emits is never copied to the host. ``migrate`` hands the
+dump the live tensors too. An async dump instead takes a finished host
+copy of every leaf before it returns and encodes that copy with the host
+codec (core/async_engine.py), because the train step updates the live
+tensors in place while the job runs.
 
 One tier object is shared between the dumper and its registry: gc must
 update the same in-memory chunk index the dump path dedups against."""
@@ -34,6 +47,7 @@ from repro_torch.api.config import SessionConfig
 from repro_torch.api.requests import (DumpReceipt, DumpRequest, MigrateRequest,
                                       MigrationTicket, RestoreRequest,
                                       RestoreResult)
+from repro_torch.core.async_engine import AsyncCheckpointer as _AsyncEngine
 from repro_torch.core.dump import dump as _dump
 from repro_torch.core.dump import flatten_with_paths, host_tree_by_path
 from repro_torch.core.executor import CheckpointExecutor, get_default_executor
@@ -48,15 +62,27 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
+def _step_of(image_id: str) -> int | None:
+    try:
+        return int(image_id.rsplit("_", 1)[-1])
+    except (ValueError, AttributeError):
+        return None
+
+
 class CheckpointSession:
     """Typed facade over the plan/execute engine (see module docstring).
 
     Example::
 
-        sess = CheckpointSession(SessionConfig(root="file:///ckpts"),
-                                 device="cuda")
-        sess.dump(DumpRequest(state=state, step=1))
-        res = sess.restore(RestoreRequest())
+        with CheckpointSession(SessionConfig(root="file:///ckpts"),
+                               device="cuda") as s:
+            s.dump(DumpRequest(state=state, step=1))
+            if s.should_predump():
+                s.pre_dump_round(state)          # pre-copy, keep training
+            elif s.should_migrate():
+                sys.exit(s.migrate(MigrateRequest(state=state)).exit_code)
+        res = CheckpointSession("file:///ckpts", device="cuda").restore(
+            RestoreRequest(lazy=True))           # post-copy resume
     """
 
     def __init__(self, config: SessionConfig | str, *, device="cuda",
@@ -88,23 +114,63 @@ class CheckpointSession:
         self._prev_step = None  # step whose image _prev_host belongs to
         self._prev_image = None  # image id _prev_host is the content of
         self._tracker = None    # lazy DirtyLeafTracker (pre-dump rounds)
+        self._async = None
+        self._drained = []      # async results consumed by sync-save drains
+        self._orch = None       # lazy MigrationOrchestrator
+        self._installed = False
+        self._closed = False
 
     # ------------------------------------------------------------ lifecycle
+    def _orchestrator(self):
+        if self._orch is None:
+            from repro_torch.core.migration import MigrationOrchestrator
+            from repro_torch.core.preempt import PreemptionHandler
+            mig = self.config.migration
+            self._orch = MigrationOrchestrator(
+                self,
+                handler=PreemptionHandler(
+                    signals=self.config.preemption.signals),
+                monitor=mig.monitor, arch=mig.arch, mesh=mig.mesh,
+                topology=mig.topology,
+                predump_rounds=mig.predump_rounds)
+        return self._orch
+
+    @property
+    def handler(self):
+        """The session's PreemptionHandler (flag-only signal recorder)."""
+        return self._orchestrator().handler
+
     def __enter__(self):
         if self.config.preemption.install_signals:
-            raise _not_ported("signal-driven preemption (PreemptionPolicy."
-                              "install_signals)")
+            self._orchestrator().install()
+            self._installed = True
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        """Nothing to drain: every dump of a port session is sync."""
+        self.close(drain=exc_type is None)
+
+    def close(self, drain: bool = True):
+        """Drain in-flight async dumps (unless ``drain=False`` — e.g. the
+        body raised and durability is moot) and release signal handlers."""
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            if drain and self._async is not None:
+                self._wait_raw()
+        finally:
+            if self._installed:
+                self._orch.uninstall()
+                self._installed = False
 
     # ------------------------------------------------------- typed requests
     def dump(self, request: DumpRequest) -> DumpReceipt:
-        """DumpRequest -> DumpReceipt (the image is durable when this
-        returns). mode="pre_dump" runs one iterative pre-copy round (see
-        pre_dump()) and returns a committed receipt whose stats carry the
-        dirty/clean split; mode="async" is not ported yet.
+        """DumpRequest -> DumpReceipt. mode="sync" returns once the image
+        is durable; mode="async" returns an uncommitted receipt once the
+        state is captured (the committed ones come back from wait());
+        mode="pre_dump" runs one iterative pre-copy round (see pre_dump())
+        and returns a committed receipt whose stats carry the dirty/clean
+        split.
 
         Example::
 
@@ -125,8 +191,15 @@ class CheckpointSession:
                                committed=True, image_id=out["image_id"],
                                stats=out["stats"],
                                duration_s=time.monotonic() - t0)
-        if request.mode != "sync":
-            raise _not_ported(f'DumpRequest(mode="{request.mode}")')
+        if request.mode == "async":
+            if not self.config.async_dumps.enabled:
+                raise RuntimeError("async dumps are disabled by this "
+                                   "session's AsyncPolicy")
+            self.save_async(request.state, step=request.step,
+                            meta=request.meta, topology=request.topology)
+            return DumpReceipt(step=int(request.step), mode="async",
+                               committed=False,
+                               duration_s=time.monotonic() - t0)
         out = self.save(request.state, step=request.step, meta=request.meta,
                         topology=request.topology)
         return DumpReceipt(step=int(request.step), mode="sync",
@@ -167,16 +240,66 @@ class CheckpointSession:
             digest_verified=rep.digest_verified, report=rep,
             lazy=req.lazy)
 
+    def wait(self) -> list:
+        """Barrier: every async dump enqueued since the last barrier is
+        durable (or this raises). Returns their committed DumpReceipts."""
+        return [DumpReceipt(step=_step_of(o["image_id"]), mode="async",
+                            committed=True, image_id=o["image_id"],
+                            stats=o["stats"])
+                for o in self._wait_raw()]
+
     def migrate(self, request: MigrateRequest) -> MigrationTicket:
-        raise _not_ported("migrate() (the preempt-to-migrate dump side)")
+        """MigrateRequest -> MigrationTicket: quiesce -> drain -> dump of
+        the live tensors with the migration record -> durable. The caller
+        owns the actual sys.exit(ticket.exit_code)."""
+        if not isinstance(request, MigrateRequest):
+            raise TypeError(f"migrate() takes a MigrateRequest, got "
+                            f"{type(request).__name__}")
+        orch = self._orchestrator()
+        if not orch.handler.preempt_requested():
+            orch.handler.request(request.reason or "request")
+        orch.migrate(request.state, request.iterator, step=request.step,
+                     data_state=request.data_state, rng=request.rng,
+                     meta_extra=request.meta_extra, opt_cfg=request.opt_cfg)
+        rec = orch.last_migration
+        return MigrationTicket(
+            exit_code=self.config.preemption.exit_code,
+            image_id=orch.last_image_id, step=rec.step, reason=rec.reason,
+            latency_s=orch.migrate_latency_s, record=rec)
+
+    # -------------------------------------------------- preemption / fleet
+    def should_migrate(self) -> bool:
+        """Poll at the step boundary: did a signal / escalation ask this
+        job to go away? (The dump itself always happens here, never in the
+        signal handler.)"""
+        return self._orchestrator().should_migrate()
 
     def should_predump(self) -> bool:
-        raise _not_ported("should_predump() (the migration orchestrator)")
+        """True while a preemption is pending and MigrationPolicy's
+        pre-copy budget (``predump_rounds``) has rounds left: run
+        pre_dump_round() and keep training instead of migrating yet.
+
+        Example::
+
+            if sess.should_predump():
+                sess.pre_dump_round(state)       # stream, keep stepping
+            elif sess.should_migrate():
+                ticket = sess.migrate(MigrateRequest(state=state))
+                sys.exit(ticket.exit_code)       # residual freeze only
+        """
+        return self._orchestrator().should_predump()
 
     def pre_dump_round(self, state, *, step: int | None = None) -> dict:
-        raise _not_ported("pre_dump_round() (the migration orchestrator's "
-                          "budgeted rounds; the bare engine entry point "
-                          "pre_dump() is ported)")
+        """One orchestrated pre-copy round on the way to migration
+        (counts against MigrationPolicy.predump_rounds; the bare engine
+        entry point is pre_dump())."""
+        return self._orchestrator().pre_dump_round(state, step=step)
+
+    def observe_step(self, host_times) -> dict:
+        """Feed per-host step times to the straggler policy (configured via
+        MigrationPolicy.monitor); persistent stragglers escalate into a
+        preemption request whose record pre-plans the shrunken fleet."""
+        return self._orchestrator().observe_step(host_times)
 
     # --------------------------------------------------------- engine: save
     def _save_kw(self, step, meta, topology, with_parent: bool = True):
@@ -223,6 +346,7 @@ class CheckpointSession:
             out = sess.save(state, step=7)
             print(out["image_id"], out["stats"]["bytes_stored"])
         """
+        self._drain_async()
         # residual-dump path: after pre-dump rounds, digest-unchanged
         # leaves re-emit their cached records — the freeze window pays
         # only for the dirty set (plus the classification pass itself)
@@ -236,6 +360,15 @@ class CheckpointSession:
                                  pre_dump=False)
         self._committed(tree, step, out)
         return out
+
+    def _drain_async(self):
+        """Drain in-flight async dumps before a sync dump or a pre-copy
+        round: the submit-time parent scan must see them committed (causal
+        chain), and retain/gc must never run while a dump is still writing
+        — gc would reap its not-yet-manifest-referenced chunks. The drained
+        results are kept: the next wait() still owes them to the caller."""
+        if self._async is not None:
+            self._drained.extend(self._async.wait())
 
     def _committed(self, tree, step, out):
         """After a dump of ``tree`` committed as ``out``: advance the delta8
@@ -273,6 +406,7 @@ class CheckpointSession:
                                               DirtyLeafTracker, digest_pairs)
         if self._tracker is None:
             self._tracker = DirtyLeafTracker()
+        self._drain_async()
         pairs = flatten_with_paths(tree)
         digests = digest_pairs(pairs, executor=self.executor)
         reuse = self._tracker.reuse_for(digests)
@@ -302,6 +436,50 @@ class CheckpointSession:
         out["stats"]["leaves_dirty"] = len(pairs) - len(reuse)
         out["stats"]["leaves_clean"] = len(reuse)
         return out
+
+    def save_async(self, tree, *, step: int, meta: dict | None = None,
+                   topology: dict | None = None):
+        """Raw-dict async dump (the engine under DumpRequest(mode=
+        "async")): takes a finished host copy of every leaf now, writes it
+        in the background on the ordered lane with the host codec; wait()
+        is the durability barrier. The next train step may update the live
+        tensors in place as soon as this returns.
+
+        Example::
+
+            sess.save_async(state, step=7)   # returns once captured
+            ...                              # training continues
+            sess.wait()                      # durable (or raises)
+        """
+        if self._async is None:
+            self._async = _AsyncEngine(
+                self.tier, replicas=self.replicas,
+                max_pending=self.config.async_dumps.max_pending,
+                executor=self.executor)
+        # parent=None here: the incremental link is resolved when the
+        # ordered job runs (a submit-time registry scan would both block
+        # the step and miss still-in-flight parents)
+        kw = self._save_kw(step, meta, topology, with_parent=False)
+        # one capture: the job's input and the next call's delta baseline
+        host = self._async.dump_async(tree, resolve_parent=self.incremental,
+                                      baseline_step=self._prev_step,
+                                      baseline_image=self._prev_image, **kw)
+        if self.codec_policy is not None and self.incremental:
+            # mirror save(): job N's delta baseline (kw's prev_host_tree,
+            # the tree of the PRECEDING save call) must equal the content
+            # of the image the job resolves as parent at run time, so the
+            # next call's baseline becomes this tree
+            self._prev_host = host
+            self._prev_step = step
+            self._prev_image = f"step_{int(step):010d}"  # dump()'s default
+
+    def _wait_raw(self) -> list:
+        if self._async is not None:
+            out, self._drained = self._drained + self._async.wait(), []
+            self.registry.retain(self.keep_last, self.keep_every)
+            self.registry.gc()
+            return out
+        return []
 
     # --------------------------------------------------------- engine: plan
     def plan(self, tree_or_abstract, *, step: int = 0) -> DumpPlan:

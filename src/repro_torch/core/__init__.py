@@ -5,7 +5,10 @@ core/executor.py), content-addressed storage tiers (file:// and mem://),
 integrity + replica repair, leaf codecs with the Hopper codec kernels
 (core/compression.py, core/device_codec.py), the image registry, pre-copy
 dirty tracking (core/predump.py, K5 on the card), lazy post-copy restore
-(core/lazy.py) and the restore side of migration (core/migration.py). Images are byte-compatible
+(core/lazy.py), async dumps (core/async_engine.py) and the
+preempt-to-migrate lifecycle (core/preempt.py, core/migration.py: signal
+-> pre-copy rounds -> migration dump -> exit 85 -> resume). Images are
+byte-compatible
 with the JAX package's: the same state dumps to the same chunks and
 manifest, and an image written by either package restores in the other.
 
@@ -22,11 +25,14 @@ from repro_torch.core.executor import CheckpointExecutor, get_default_executor
 from repro_torch.core.integrity import CorruptionError, tree_digest
 from repro_torch.core.lazy import LazyState, LeafServer, lazy_restore
 from repro_torch.core.migration import (MIGRATION_META_KEY, MigrationManifest,
-                                        ResumeReport, resume)
+                                        MigrationOrchestrator, ResumeReport,
+                                        generator_from_record, resume,
+                                        rng_record)
 from repro_torch.core.plan import (DumpPlan, LeafPlan, RestorePlan, plan_dump,
                                    plan_restore)
 from repro_torch.core.predump import (DirtyLeafTracker, digest_pairs,
                                       leaf_digest, tensor_digest)
+from repro_torch.core.preempt import EXIT_CHECKPOINTED, PreemptionHandler
 from repro_torch.core.registry import Registry
 from repro_torch.core.restore import (latest_image_id, place, read_manifest,
                                       restore, restore_pairs)
@@ -42,14 +48,16 @@ __all__ = [
     "Registry", "MIGRATION_META_KEY", "MigrationManifest", "ResumeReport",
     "resume", "serve_meta", "train_meta", "Checkpointer", "LazyState",
     "LeafServer", "lazy_restore", "DirtyLeafTracker", "digest_pairs",
-    "leaf_digest", "tensor_digest",
+    "leaf_digest", "tensor_digest", "MigrationOrchestrator",
+    "EXIT_CHECKPOINTED", "PreemptionHandler", "AsyncCheckpointer",
+    "rng_record", "generator_from_record",
 ]
 
 
 def __getattr__(name):
-    # the facade imports repro_torch.api, which imports this package:
+    # the facades import repro_torch.api, which imports this package:
     # resolve it on first use (PEP 562) so neither import order cycles
-    if name == "Checkpointer":
-        from repro_torch.core.facade import Checkpointer
-        return Checkpointer
+    if name in ("Checkpointer", "AsyncCheckpointer"):
+        from repro_torch.core import facade
+        return getattr(facade, name)
     raise AttributeError(name)

@@ -15,8 +15,9 @@ decoding): the paper's "network applications" row.
     engine3.resume_from(sess, lazy=True)     # post-copy, verified at the end
 
 ``checkpoint(mode="pre_dump")`` takes a pre-copy round of the session
-(the next sync checkpoint writes only what changed since); the async mode
-is not ported yet. Prefill attention runs on K6 when the engine's tensors
+(the next sync checkpoint writes only what changed since);
+``checkpoint(mode="async")`` returns once the session is copied to the
+host and writes it in the background (``session.wait()`` commits). Prefill attention runs on K6 when the engine's tensors
 are on a card (``kernels/flash_attention``); decode runs
 ``decode_attention`` over the cache, which the model updates in place.
 Generated tokens live in one growing [B, cap] host buffer appended in
@@ -124,41 +125,43 @@ class ServeEngine:
                    arch: str = "", mode: str = "sync",
                    extra: dict | None = None, weights: bool = False):
         """Dump the live serving session through a CheckpointSession and
-        return the DumpReceipt. ``mode`` is "sync" or "pre_dump" (a
-        pre-copy round; "async" is not ported yet). ``weights=True`` dumps
+        return the DumpReceipt. ``mode`` is "sync", "pre_dump" (a pre-copy
+        round) or "async" (uncommitted receipt; the committed ones come
+        back from ``session.wait()``). ``weights=True`` dumps
         {"params", "session"}, an image that restarts the job on a machine
         that does not hold the weights; resume_from adopts them.
 
         The live tree goes to the session as it lies, so a pre-copy round
         and the residual dump after it classify the leaves on the card
         (K5, core/predump.py) and copy only the dirty ones to the host. A
-        sync dump under a lossless codec policy also carries a migration
-        record with the tree digest of the live state, taken from a host
-        capture that lives only as long as the digest takes, so an eager
-        resume verifies bit identity before it places anything and a lazy
-        resume verifies it when the tree fully materializes. Port
+        sync or async dump under a lossless codec policy also carries a
+        migration record with the tree digest of the live state, hashed
+        from a host copy of one leaf at a time, so an eager resume verifies
+        bit identity before it places anything and a lazy resume verifies
+        it when the tree fully materializes. (An async dump's session
+        copies the tree to the host before ``dump`` returns, so decoding
+        cannot move it between the digest and the copy.) Port
         difference: a pre-copy round carries no such record (the JAX
-        engine captures the whole tree for one in every round); its
-        chunks are still verified on restore."""
+        engine captures the whole tree for one in every round); its chunks
+        are still verified on restore."""
         from repro_torch.api import DumpRequest
-        if mode not in ("sync", "pre_dump"):
-            raise NotImplementedError(
-                f'ServeEngine.checkpoint(mode="{mode}") is not ported to '
-                f'repro_torch yet')
+        if mode not in ("sync", "pre_dump", "async"):
+            raise ValueError(f"unknown checkpoint mode {mode!r}")
         done = self._n
         step = done if step is None else int(step)
         tree = self.session_state()
         if weights:
             tree = {"params": self.params, "session": tree}
         meta = serve_meta(arch=arch, tokens_done=done, extra=extra)
-        if mode == "sync" and getattr(session, "codec_policy", None) is None:
-            from repro_torch.core.dump import host_tree_by_path
+        if mode != "pre_dump" \
+                and getattr(session, "codec_policy", None) is None:
+            from repro_torch.core.dump import flatten_with_paths
             from repro_torch.core.integrity import tree_digest
             from repro_torch.core.migration import (MIGRATION_META_KEY,
                                                     MigrationManifest)
             meta[MIGRATION_META_KEY] = MigrationManifest(
                 step=step, arch=arch or "serve",
-                state_digest=tree_digest(host_tree_by_path(tree)),
+                state_digest=tree_digest(flatten_with_paths(tree)),
                 reason="serve_checkpoint").to_meta()
         return session.dump(DumpRequest(state=tree, step=step, meta=meta,
                                         mode=mode))

@@ -5,7 +5,6 @@ nested dict of tensors with the JAX package's leaf paths, shapes and dtypes
 (``abstract_train_state`` matches ``repro.training.train_loop``'s), which
 is exactly what repro_torch.core dumps and restores. The step updates the
 state's tensors in place (see optim/adamw.py) and returns the state.
-Microbatching is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,26 +31,80 @@ def abstract_train_state(lm: LM, dtype=torch.float32):
             "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
-def make_train_step(lm: LM, opt_cfg: OptConfig):
-    """-> train_step(state, batch) -> (state, metrics)."""
+def _grads(lm: LM, params, batch, *, accumulate_into=None):
+    """(loss, metrics, grads) of ``lm.loss`` on one batch. With
+    ``accumulate_into`` (a grads tree from an earlier call) the new grads
+    are added to it in place, as autograd accumulates ``.grad``."""
+    leaves = tree_map(lambda _, p: p.detach().requires_grad_(True), params)
+    if accumulate_into is not None:
+        for p, g in zip(tree_leaves(leaves), tree_leaves(accumulate_into)):
+            p.grad = g
+    with torch.enable_grad():
+        loss, metrics = lm.loss(leaves, batch)
+        loss.backward()
+    grads = tree_map(lambda _, p: p.grad, leaves)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _apply(state, grads, opt_cfg: OptConfig, metrics: dict):
+    """clip -> schedule -> AdamW in place; -> (state, metrics)."""
+    step1 = state["step"] + 1
+    grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm)
+    lr = warmup_cosine(step1, opt_cfg.lr, opt_cfg.warmup_steps,
+                       opt_cfg.total_steps).to(step1.device)
+    adamw_update(grads, state["opt"], state["params"], step1, opt_cfg, lr=lr)
+    metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+    return {"params": state["params"], "opt": state["opt"],
+            "step": step1}, metrics
+
+
+def make_per_example_step_fns(lm: LM, opt_cfg: OptConfig):
+    """Topology-invariant training pair for elastic data parallelism
+    (training/elastic_dp.py): a single-example grad function plus an
+    update-apply function, as in the JAX package. Every example runs the
+    same single-example program and the caller sums the grads in global
+    example order, so neither the per-example compute nor the fold depends
+    on how examples are split over hosts.
+
+    grad_fn(params, tokens[S+1]) -> (loss, grads)
+    apply_fn(state, grads_sum, loss_sum, n) -> (state, metrics); params,
+    m and v are updated in place.
+    """
+
+    def per_example(params, tokens):
+        loss, _, grads = _grads(lm, params, {"tokens": tokens[None]})
+        return loss, grads
+
+    @torch.no_grad()
+    def apply(state, grads_sum, loss_sum, n):
+        grads = tree_map(lambda _, g: g / n, grads_sum)
+        return _apply(state, grads, opt_cfg, {"loss": loss_sum / n})
+
+    return per_example, apply
+
+
+def make_train_step(lm: LM, opt_cfg: OptConfig, microbatches: int = 1):
+    """-> train_step(state, batch) -> (state, metrics). ``microbatches`` > 1
+    accumulates grads over batch slices (axis 0), cutting activation memory
+    by the microbatch factor; the summed grads are divided by the count, as
+    the JAX package's scan does. As there, the metrics are the last
+    microbatch's (``metrics["loss"]`` too), beside grad_norm and lr."""
 
     def train_step(state, batch):
-        step1 = state["step"] + 1
-        params = tree_map(lambda _, p: p.detach().requires_grad_(True),
-                          state["params"])
-        with torch.enable_grad():
-            loss, metrics = lm.loss(params, batch)
-            loss.backward()
-        grads = tree_map(lambda _, p: p.grad, params)
-        del params
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm)
-        lr = warmup_cosine(step1, opt_cfg.lr, opt_cfg.warmup_steps,
-                           opt_cfg.total_steps).to(step1.device)
-        adamw_update(grads, state["opt"], state["params"], step1, opt_cfg,
-                     lr=lr)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(grad_norm=gnorm, lr=lr)
-        state = {"params": state["params"], "opt": state["opt"],
-                 "step": step1}
-        return state, metrics
+        if microbatches == 1:
+            _, metrics, grads = _grads(lm, state["params"], batch)
+        else:
+            b = batch["tokens"].shape[0]
+            assert b % microbatches == 0, (b, microbatches)
+            k = b // microbatches
+            grads = None
+            for i in range(microbatches):
+                mb = {n: v[i * k:(i + 1) * k] for n, v in batch.items()}
+                _, metrics, grads = _grads(lm, state["params"], mb,
+                                           accumulate_into=grads)
+            with torch.no_grad():
+                for g in tree_leaves(grads):
+                    g.div_(microbatches)
+        with torch.no_grad():
+            return _apply(state, grads, opt_cfg, metrics)
     return train_step

@@ -259,11 +259,28 @@ def test_lazy_resume_after_pre_dump_continues_like_jax(pair, tmp_path):
 
 
 def test_checkpoint_modes(pair, tmp_path):
+    """mode="async" returns an uncommitted receipt once the session is on
+    the host; decoding goes on (the cache updates in place) while the job
+    writes, and the image wait() commits is the session at the cut,
+    digest-verified, continuing token for token. An unknown mode raises."""
+    ref = _port_engine(pair)
+    ref.submit(pair[5])
+    want = ref.generate(GEN).copy()
     eng = _port_engine(pair)
     eng.submit(pair[5])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.checkpoint(CheckpointSession(str(tmp_path), device="cpu"),
-                       mode="async")
+    eng.generate(CUT)
+    sess = CheckpointSession(str(tmp_path), device="cpu")
+    r = eng.checkpoint(sess, arch="qwen3-8b-tiny", mode="async")
+    assert r.mode == "async" and not r.committed and r.step == CUT
+    eng.generate(GEN)                         # the cache moves on in place
+    (done,) = sess.wait()
+    assert done.committed and done.step == CUT
+    back = _port_engine(pair)
+    res = back.resume_from(CheckpointSession(str(tmp_path), device="cpu"))
+    assert res.image_id == done.image_id and res.digest_verified is True
+    assert np.array_equal(back.generate(GEN), want)
+    with pytest.raises(ValueError, match="unknown checkpoint mode"):
+        eng.checkpoint(sess, mode="lazy")
 
 
 def test_checkpoint_hands_the_live_tree_to_the_session(pair):

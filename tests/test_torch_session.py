@@ -1,6 +1,7 @@
 """repro_torch.api and the restore side of migration: the sync parts of
 tests/test_api_session.py and tests/test_migration.py's resume digest
-checks, on the port; the unported modes raise; and the wire contract,
+checks, on the port; the unported parts (restore onto a mesh) raise; and
+the wire contract,
 which must be the JAX package's frame for frame (the same dicts encode
 and decode in both packages). Exact comparisons throughout: restores are
 bit-identical, digests and wire dicts equal."""
@@ -17,14 +18,13 @@ import repro.api as japi  # noqa: E402
 from repro.core.integrity import tree_digest as jtree_digest  # noqa: E402
 from repro_torch.api import (CheckpointSession, CodecPolicy,  # noqa: E402
                              DumpReceipt, DumpRequest, MigrateRequest,
-                             MigrationTicket, PreemptionPolicy,
+                             MigrationTicket,
                              RestoreRequest, RetentionPolicy, SessionConfig,
                              WireCodingError, WireVersionError)
 from repro_torch.api import wire  # noqa: E402
 from repro_torch.core import (CorruptionError, MigrationManifest,  # noqa: E402
                               as_tier, read_manifest, resume, train_meta,
                               tree_digest)
-from repro_torch.core.migration import MigrationOrchestrator  # noqa: E402
 from repro_torch.core.storage import MemoryTier  # noqa: E402
 
 
@@ -109,27 +109,18 @@ def test_sync_dump_receipt_and_restore_result(tmp_path):
     assert set(res.state) == {"params"} and set(res.state["params"]) == {"w"}
 
 
-@pytest.mark.parametrize("what", ["async", "pre_dump", "lazy", "migrate",
-                                  "signals", "mesh", "orchestrator"])
+@pytest.mark.parametrize("what", ["lazy", "mesh"])
 def test_unported_parts_raise(tmp_path, what):
+    """What stays unported: restore onto a mesh, eagerly or lazily. (Async
+    dumps, the orchestrator's rounds, migrate and signal handlers are
+    ported and tested in tests/test_torch_migration.py.)"""
     root = str(tmp_path / "ck")
     sess = cpu_session(root)
     sess.dump(DumpRequest(state=small_tree(), step=1))
     calls = {
-        "async": lambda: sess.dump(DumpRequest(state=small_tree(), step=2,
-                                               mode="async")),
-        # pre-dump rounds and lazy restore are ported; what stays unported
-        # of them is the orchestrator's budgeted rounds and a lazy restore
-        # onto a mesh
-        "pre_dump": lambda: sess.pre_dump_round(small_tree(), step=2),
         "lazy": lambda: sess.restore(RestoreRequest(lazy=True,
                                                     shardings={})),
-        "migrate": lambda: sess.migrate(MigrateRequest(state=small_tree())),
-        "signals": lambda: CheckpointSession(SessionConfig(
-            root=root, preemption=PreemptionPolicy(install_signals=True)),
-            device="cpu").__enter__(),
         "mesh": lambda: sess.restore(RestoreRequest(mesh=object())),
-        "orchestrator": lambda: MigrationOrchestrator(sess),
     }
     with pytest.raises(NotImplementedError, match="not ported"):
         calls[what]()
@@ -263,8 +254,6 @@ def test_resume_adopts_pre_migration_images(tmp_path):
     assert rep.migration.host_count == 2    # synthesized from topology
     assert rep.changes["host_count"] == [2, 1]
     assert trees_equal(rep.state, small_tree(4))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        rep.make_iterator(None)
 
 
 def test_resume_image_without_data_pipeline(tmp_path):
