@@ -81,6 +81,28 @@ Phases, one line each (plus details):
                in the residual dump, K1-K4 and K6 not run. The images go to
                a temporary directory (--lifecycle-dir), checked first for
                room for two images, removed afterwards.
+  8. remote path: the train path's configuration through a faulty
+               simulated object store (remote://chip-remote?latency_ms=2
+               &bw_mbps=1000&fail_rate=0.02&max_consecutive=1&seed=<seed>,
+               virtual clock: network time simulated, not slept): train 3
+               steps -> image A (lossless) -> 1 step -> image B (opt/m
+               delta8 against A, opt/v bf16) -> restore B on the card
+               through cache+remote://chip-remote?front=hostB&cache=<dir>, a
+               fresh hot front on local disk standing for another compute
+               resource -> the train path's bit rules -> 2 steps from the
+               restored and from the live state; then a lazy restore of B
+               through front=hostC faulting params/embed/tok (a 1 MiB ranged
+               read, then the whole leaf) and the same fault again on
+               hostC's warm front, which must cost 0 remote GETs. Multipart
+               parts and retried transient faults must both be > 0; K1-K4
+               must have launched (counters zeroed just before). The
+               store's objects and the fronts' directories are released
+               at the end;
+  9. capabilities: `criu check` of the port on the card
+               (repro_torch.api.capabilities, one line each): Table-1 rows
+               7, 11-14 and 18 must be supported, and fleet_coordination,
+               socket_transport and live_serving unsupported, naming the
+               module the port lacks.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 the last line. Without a CUDA device it exits 2 at once.
@@ -498,6 +520,66 @@ def m_within_half_scale(got, live, prev):
     return ok, worst
 
 
+def check_restored_b(torch, state, tree, prev) -> float:
+    """Image B's restore against the live state, by the train path's
+    rules: params and step bit-identical, opt/v the bf16 round trip of the
+    live v bitwise, opt/m within each block's scale/2 of the live m (prev:
+    A's m, the delta8 baseline). -> worst opt/m error / (scale/2)."""
+    from repro_torch.core import flatten_with_paths
+    live = dict(flatten_with_paths(state))
+    got = dict(flatten_with_paths(tree))
+    check(set(live) == set(got), "restored leaves differ from the live ones")
+    worst = 0.0
+    for p, t in live.items():
+        g = got[p]
+        if p.startswith("opt/v/"):
+            check(torch.equal(g.view(torch.int32),
+                              t.to(torch.bfloat16).float().view(torch.int32)),
+                  f"{p}: not the bf16 round trip of the live value")
+        elif p.startswith("opt/m/"):
+            ok, ratio = m_within_half_scale(g.reshape(-1), t.reshape(-1),
+                                            prev[p].reshape(-1))
+            check(ok, f"{p}: delta8 error above the block's scale/2 "
+                      f"(worst error / (scale/2) = {ratio})")
+            worst = max(worst, ratio)
+        else:
+            check(torch.equal(g, t), f"{p}: not bit-identical after restore")
+    return worst
+
+
+def continue_both(torch, step, tree, state, batches, label):
+    """Train 2 steps from the restored tree (at step 4) and from the live
+    state on the same batches -> ({"restored", "live"} losses, tree,
+    state). Step 5's loss is computed from bit-identical params: it must
+    agree to 1e-5 relative (the kernels are deterministic; the slack is for
+    a cuBLAS algorithm choice). Step 6 starts from params updated with the
+    lossy moments, which move a parameter by ~lr * 1e-2 relative; its loss
+    must agree to 1e-3 relative."""
+    import numpy as np
+    cont = {"restored": [], "live": []}
+    for name, s in (("restored", tree), ("live", state)):
+        for b in batches:
+            s, m = step(s, b)
+            cont[name].append(float(m["loss"]))
+        if name == "restored":
+            tree = s
+        else:
+            state = s
+    log(f"{label}: continue 2 steps: restored losses {cont['restored']}, "
+        f"live losses {cont['live']} (held to 1e-5 relative at step 5, "
+        f"whose params are bit-identical, and 1e-3 at step 6, after one "
+        f"update with the lossy moments)")
+    r0, l0 = cont["restored"][0], cont["live"][0]
+    r1, l1 = cont["restored"][1], cont["live"][1]
+    check(abs(r0 - l0) <= 1e-5 * abs(l0), f"step 5 losses {r0} vs {l0}")
+    check(abs(r1 - l1) <= 1e-3 * abs(l1), f"step 6 losses {r1} vs {l1}")
+    check(all(np.isfinite(v) for v in cont["restored"] + cont["live"]),
+          "non-finite loss after restore")
+    check(int(tree["step"]) == 6 and tree["step"].dtype == torch.int32,
+          "restored step counter did not continue")
+    return cont, tree, state
+
+
 def train_path(torch, dev, args):
     import numpy as np
 
@@ -584,59 +666,14 @@ def train_path(torch, dev, args):
         f"digests re-derived from the stored bytes and verified")
     check(digests > 0, "image B carries no payload digest")
 
-    live = dict(flatten_with_paths(state))
-    got = dict(flatten_with_paths(tree))
-    check(set(live) == set(got), "restored leaves differ from the live ones")
-    worst = 0.0
-    for p, t in live.items():
-        g = got[p]
-        if p.startswith("opt/v/"):
-            check(torch.equal(g.view(torch.int32),
-                              t.to(torch.bfloat16).float().view(torch.int32)),
-                  f"{p}: not the bf16 round trip of the live value")
-        elif p.startswith("opt/m/"):
-            ok, ratio = m_within_half_scale(g.reshape(-1), t.reshape(-1),
-                                            prev[p].reshape(-1))
-            check(ok, f"{p}: delta8 error above the block's scale/2 "
-                      f"(worst error / (scale/2) = {ratio})")
-            worst = max(worst, ratio)
-        else:
-            check(torch.equal(g, t), f"{p}: not bit-identical after restore")
-    out["m_err_over_half_scale"] = worst
+    out["m_err_over_half_scale"] = check_restored_b(torch, state, tree, prev)
     log("train: params and step bit-identical; opt/v equals the bf16 round "
         "trip of the live v bitwise; opt/m within each block's scale/2 "
-        f"(worst error / (scale/2) = {worst:.4f})")
-    del prev, got, live
+        f"(worst error / (scale/2) = {out['m_err_over_half_scale']:.4f})")
+    del prev
 
-    # continue 2 steps from the restored and from the live state
-    batches = [batch() for _ in range(2)]
-    cont = {"restored": [], "live": []}
-    for name, s in (("restored", tree), ("live", state)):
-        for b in batches:
-            s, m = step(s, b)
-            cont[name].append(float(m["loss"]))
-        if name == "restored":
-            tree = s
-        else:
-            state = s
-    out["continue"] = cont
-    log(f"train: continue 2 steps: restored losses {cont['restored']}, live "
-        f"losses {cont['live']} (held to 1e-5 relative at step 5, whose "
-        f"params are bit-identical, and 1e-3 at step 6, after one update "
-        f"with the lossy moments)")
-    # step 5's loss is computed from bit-identical params: it must agree to
-    # 1e-5 relative (the kernels are deterministic; the slack is for a
-    # cuBLAS algorithm choice). Step 6 starts from params updated with the
-    # lossy moments, which move a parameter by ~lr * 1e-2 relative; its loss
-    # must agree to 1e-3 relative.
-    r0, l0 = cont["restored"][0], cont["live"][0]
-    r1, l1 = cont["restored"][1], cont["live"][1]
-    check(abs(r0 - l0) <= 1e-5 * abs(l0), f"step 5 losses {r0} vs {l0}")
-    check(abs(r1 - l1) <= 1e-3 * abs(l1), f"step 6 losses {r1} vs {l1}")
-    check(all(np.isfinite(v) for v in cont["restored"] + cont["live"]),
-          "non-finite loss after restore")
-    check(int(tree["step"]) == 6 and tree["step"].dtype == torch.int32,
-          "restored step counter did not continue")
+    out["continue"], tree, state = continue_both(
+        torch, step, tree, state, [batch() for _ in range(2)], "train")
 
     # read just after the train path: its kernels are K1-K4 (K5 runs on
     # the pre-copy path)
@@ -1340,6 +1377,249 @@ def lifecycle_path(torch, dev, args):
     return out
 
 
+# ------------------------------------------------------------- remote path
+REMOTE_URI = ("remote://chip-remote?latency_ms=2&bw_mbps=1000&fail_rate=0.02"
+              "&max_consecutive=1&seed={seed}")
+FRONT_URI = "cache+remote://chip-remote?front={front}&cache={cache}"
+# capabilities the card must report supported: Table-1 rows 7, 11-14, 18
+CARD_ROWS = (7, 11, 12, 13, 14, 18)
+
+
+def remote_path(torch, dev, args):
+    """The train path's state through a faulty object store onto a fresh
+    host front: train 3 steps -> image A (lossless) into remote:// -> 1
+    step -> image B (opt/m delta8 against A, opt/v bf16) into the same
+    store -> restore B through cache+remote://...?front=hostB (a fresh hot
+    front on local disk, standing for another compute resource) -> the
+    train path's bit rules -> 2 steps from the restored and the live state
+    -> a lazy restore of B through front=hostC faulting params/embed/tok,
+    then the same fault again on hostC's warm front (0 remote GETs). The
+    store's clock is virtual: its network seconds are simulated, never
+    slept. K1-K4 must have launched (counters zeroed just before)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.core import as_tier, dump, flatten_with_paths, restore
+    from repro_torch.core.lazy import lazy_restore
+    from repro_torch.core.remote import reset_tier_registry
+    from repro_torch.core.restore import read_manifest
+    from repro_torch.device import to_host
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.models.model import LM
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import (abstract_train_state, init_train_state,
+                                      make_train_step)
+
+    cfg = CONFIG.replace(num_layers=LAYERS)
+    lm = LM(cfg)
+    uri = REMOTE_URI.format(seed=args.seed)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-remote-",
+                           dir=args.lifecycle_dir)
+    out = {"uri": uri}
+    try:
+        state_bytes = sum(t.numel() * t.element_size() for _, t in
+                          flatten_with_paths(abstract_train_state(lm)))
+        # hostB's front holds B and A's opt/m (the delta8 baseline), hostC's
+        # the embedding
+        need = 1.1 * state_bytes + 2e9
+        free = shutil.disk_usage(tmp).free
+        log(f"remote: {cfg.name} at full width, num_layers "
+            f"{CONFIG.num_layers} -> {cfg.num_layers} (the train path's cut); "
+            f"store {uri}; hot fronts under {tmp}: {free / 1e9:.1f} GB free, "
+            f"they need {need / 1e9:.1f} GB")
+        check(free >= need, f"{tmp} has {free / 1e9:.1f} GB free, the hot "
+                            f"fronts need {need / 1e9:.1f} GB")
+        remote = as_tier(uri)
+        store = remote.store
+        rng = np.random.default_rng(args.seed + 8)
+
+        def batch():
+            t = rng.integers(0, cfg.vocab_size, (2, 512)).astype(np.int64)
+            return {"tokens": torch.from_numpy(t).to(dev)}
+
+        state = init_train_state(lm, torch.Generator().manual_seed(args.seed),
+                                 device=dev)
+        step = make_train_step(lm, OptConfig())
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch())
+            losses.append(float(m["loss"]))
+        check(all(np.isfinite(v) for v in losses), f"losses {losses}")
+
+        ckpt_codec.reset_launches()      # the path's counts start here
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ra = dump(state, remote, step=3, device=dev, device_codec="auto")
+        out["dump_a_s"] = time.time() - t0
+        out["a_gb"] = ra["stats"]["bytes_stored"] / 1e9
+        log(f"remote: image A {ra['image_id']} lossless in "
+            f"{out['dump_a_s']:.2f} s wall: {out['a_gb']:.3f} GB stored")
+        prev = {p: to_host(t) for p, t in flatten_with_paths(state)
+                if p.startswith("opt/m/")}
+        state, m = step(state, batch())
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rb = dump(state, remote, step=4, parent=ra["image_id"],
+                  codec_policy=policy_b, prev_host_tree=prev, device=dev,
+                  device_codec="auto")
+        out["dump_b_s"] = time.time() - t0
+        out["b_gb"] = rb["stats"]["bytes_stored"] / 1e9
+        log(f"remote: image B {rb['image_id']} (parent {ra['image_id']}) in "
+            f"{out['dump_b_s']:.2f} s wall: {out['b_gb']:.3f} GB stored, "
+            f"{rb['stats']['leaves_device']} leaves through the device "
+            f"codec stage")
+        check(rb["stats"]["leaves_device"] > 0,
+              "no leaf went through the device stage")
+        rs, ss = dict(remote.stats), dict(store.stats)
+        out.update(parts=rs["parts_uploaded"],
+                   multipart_uploads=rs["multipart_uploads"],
+                   faults_injected=ss["faults_injected"],
+                   retries=rs["retries"], store_gb=ss["bytes_in"] / 1e9,
+                   simulated_dump_s=store.clock.now)
+        log(f"remote: store after A and B: {out['parts']} multipart parts in "
+            f"{out['multipart_uploads']} uploads, {out['faults_injected']} "
+            f"transient faults injected, {out['retries']} retried; "
+            f"{out['store_gb']:.3f} GB in; simulated network time "
+            f"{out['simulated_dump_s']:.2f} s (simulated, not slept)")
+        check(out["parts"] > 1, "no multipart upload")
+        check(out["faults_injected"] > 0 and out["retries"] > 0,
+              "no transient fault was injected and retried")
+        prev = {p: torch.from_numpy(a).to(dev) for p, a in prev.items()}
+
+        front_b = as_tier(FRONT_URI.format(front="hostB",
+                                           cache=os.path.join(tmp, "hostB")))
+        gets0, clock0 = store.stats["gets"], store.clock.now
+        t0 = time.time()
+        tree, man = restore(front_b, rb["image_id"], device=dev,
+                            expected=abstract_train_state(lm))
+        torch.cuda.synchronize()
+        out["restore_b_s"] = time.time() - t0
+        out["restore_gets"] = store.stats["gets"] - gets0
+        out["simulated_restore_s"] = store.clock.now - clock0
+        payload = sum(1 for r in man["leaves"] if "digest" in r["codec_meta"])
+        manifests = [read_manifest(front_b, i)["image_id"]
+                     for i in (rb["image_id"], ra["image_id"])]
+        nchunks = sum(len(r["chunks"]) for r in man["leaves"])
+        log(f"remote: restore B through front=hostB (empty hot front on "
+            f"local disk) in {out['restore_b_s']:.2f} s wall, "
+            f"{out['restore_gets']} remote GETs, simulated network time "
+            f"{out['simulated_restore_s']:.2f} s; {payload} payload digests "
+            f"re-derived from the stored bytes and verified, the manifest "
+            f"digests of {' and '.join(manifests)} verified on read, "
+            f"{nchunks} chunks' SHA-256 verified")
+        check(payload > 0, "image B carries no payload digest")
+        check(front_b.stats["cold_reads"] > 0, "restore B never read the "
+                                               "remote store")
+        out["m_err_over_half_scale"] = check_restored_b(torch, state, tree,
+                                                        prev)
+        log("remote: params and step bit-identical; opt/v equals the bf16 "
+            "round trip of the live v bitwise; opt/m within each block's "
+            f"scale/2 (worst error / (scale/2) = "
+            f"{out['m_err_over_half_scale']:.4f})")
+        del prev
+        # B's embedding, for the lazy faults below (the steps update the
+        # live tensors in place)
+        want_tok = state["params"]["embed"]["tok"].clone()
+        out["continue"], tree, state = continue_both(
+            torch, step, tree, state, [batch() for _ in range(2)], "remote")
+        out["continue_equal"] = out["continue"]["restored"] == \
+            out["continue"]["live"]
+        out["launches"] = {k: v for k, v in ckpt_codec.LAUNCHES.items()
+                           if k != "digest_blocks"}
+        log("kernels: remote-path launches " + " ".join(
+            f"{k}={v}" for k, v in out["launches"].items()))
+        for k, v in out["launches"].items():
+            check(v > 0, f"kernel {k} was not launched on the remote path")
+        del tree, state
+
+        # post-copy onto a third host: skeleton, a ranged fault and the
+        # embedding, then the same fault again on the now-warm front
+        front_c = as_tier(FRONT_URI.format(front="hostC",
+                                           cache=os.path.join(tmp, "hostC")))
+        gets0 = store.stats["gets"]
+        t0 = time.time()
+        lazy, _, srv = lazy_restore(front_c, rb["image_id"], prefetch=False,
+                                    device=dev)
+        out["lazy_skeleton_s"] = time.time() - t0
+        t0 = time.time()
+        head = srv.read_range("params/embed/tok", 0, 1 << 20)
+        out["lazy_range_s"] = time.time() - t0
+        check(head == to_host(want_tok).tobytes()[:1 << 20],
+              "the ranged read of params/embed/tok differs from the live "
+              "leaf")
+        t0, clock0 = time.time(), store.clock.now
+        tok = lazy["params"]["embed"]["tok"]
+        torch.cuda.synchronize()
+        out["lazy_fault_s"] = time.time() - t0
+        out["simulated_fault_s"] = store.clock.now - clock0
+        out["lazy_gets"] = store.stats["gets"] - gets0
+        check(torch.equal(tok, want_tok), "the faulted params/embed/tok is "
+                                          "not bit-identical")
+        del tok, lazy, srv
+        gets0 = store.stats["gets"]
+        lazy, _, srv = lazy_restore(front_c, rb["image_id"], prefetch=False,
+                                    device=dev)
+        t0 = time.time()
+        tok = lazy["params"]["embed"]["tok"]
+        torch.cuda.synchronize()
+        out["warm_fault_s"] = time.time() - t0
+        out["warm_gets"] = store.stats["gets"] - gets0
+        check(torch.equal(tok, want_tok), "the warm fault of "
+                                          "params/embed/tok is not "
+                                          "bit-identical")
+        log(f"remote: lazy restore of B through front=hostC: skeleton "
+            f"{out['lazy_skeleton_s']:.3f} s, a 1 MiB ranged read of "
+            f"params/embed/tok {out['lazy_range_s']:.3f} s, first fault of "
+            f"params/embed/tok ({want_tok.numel() * 4 / 1e9:.2f} GB) "
+            f"{out['lazy_fault_s']:.2f} s wall with {out['lazy_gets']} "
+            f"remote GETs (simulated network time "
+            f"{out['simulated_fault_s']:.2f} s); the same fault on hostC's "
+            f"warm front "
+            f"{out['warm_fault_s']:.2f} s with {out['warm_gets']} remote GETs "
+            f"(skeleton included)")
+        check(out["lazy_gets"] > 0, "the first fault read nothing remote")
+        check(out["warm_gets"] == 0, f"the warm fault cost "
+                                     f"{out['warm_gets']} remote GETs, not 0")
+        out["gets"] = store.stats["gets"]
+        out["simulated_total_s"] = store.clock.now
+        del tok, lazy, srv, want_tok
+    finally:
+        reset_tier_registry()             # the store's objects go with it
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def capability_phase(torch, dev):
+    """`criu check` on the card: every capability, one line each; the
+    Table-1 rows of ported modules (CARD_ROWS) must be supported, the
+    unported ones unsupported with their missing module named."""
+    from repro_torch.api.capabilities import NOT_PORTED, TABLE1, capabilities
+    t0 = time.time()
+    rep = capabilities(device=dev)
+    out = {"s": time.time() - t0,
+           "supported": [c.name for c in rep if c.supported],
+           "unsupported": [c.name for c in rep if not c.supported]}
+    for c in rep:
+        row = f" [Table-1 row {c.paper_row}]" if c.paper_row else ""
+        log(f"capability: {c.name} {'ok' if c.supported else 'NO'}: "
+            f"{c.detail}{row}")
+    log(f"capability: {len(out['supported'])} supported, "
+        f"{len(out['unsupported'])} not, in {out['s']:.1f} s")
+    for row in CARD_ROWS:
+        name = TABLE1[row][2]
+        check(rep.supported(name), f"Table-1 row {row} ({name}) is not "
+                                   f"supported on the card: "
+                                   f"{rep[name].detail}")
+    for name, mods in NOT_PORTED.items():
+        check(not rep.supported(name) and mods in rep[name].detail,
+              f"{name} must report unsupported, naming {mods}")
+    return out
+
+
 def _rss_gb() -> float:
     """The process's peak RSS so far, GB (ru_maxrss is in KiB on Linux)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
@@ -1426,8 +1706,9 @@ def main(argv=None) -> int:
                          "mem:// tier)")
     ap.add_argument("--out", default=None, help="write the run's record here")
     ap.add_argument("--lifecycle-dir", default=None,
-                    help="where the lifecycle path's images go (default: "
-                         "the system's temporary directory)")
+                    help="where the lifecycle path's images and the remote "
+                         "path's hot fronts go (default: the system's "
+                         "temporary directory)")
     args = ap.parse_args(argv)
 
     # cuBLAS picks deterministic algorithms only with a fixed workspace;
@@ -1499,6 +1780,23 @@ def main(argv=None) -> int:
     rows["digest_blocks"]["launches"] = \
         record["precopy"]["launches"]["digest_blocks"] \
         + record["lifecycle"]["launches"]["digest_blocks"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with RssPeak() as rss_remote:
+        record["remote"] = remote_path(torch, dev, args)
+    record["remote"].update(
+        host_peak_rss_gb=rss_remote.peak_gb, wall_s=time.time() - t0,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"remote: path {record['remote']['wall_s']:.1f} s; peak device "
+        f"memory {record['remote']['peak_device_gb']:.1f} GB; host peak RSS "
+        f"of the path {rss_remote.peak_gb:.1f} GB (sampled every 20 ms)")
+    for k, n in record["remote"]["launches"].items():
+        rows[k]["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["capabilities"] = capability_phase(torch, dev)
     record["kernels"] = list(rows.values())
     record["card"] = card
     record["wall_s"] = time.time() - t_start
@@ -1507,15 +1805,15 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
-    log(f"precopy: host peak RSS of the path {rss.peak_gb:.1f} GB "
-        f"(sampled every 20 ms)")
+    log(f"precopy: host peak RSS of the path "
+        f"{record['precopy']['host_peak_rss_gb']:.1f} GB (sampled every 20 ms)")
     log(f"done in {record['wall_s']:.0f} s; host peak RSS "
         f"{record['host_peak_rss_gb']:.1f} GB; peak device memory: train "
         f"{record['train_peak_device_gb']:.1f} GB, serve "
         f"{record['serve']['peak_device_gb']:.1f} GB, pre-copy "
         f"{record['precopy']['peak_device_gb']:.1f} GB, lifecycle children "
         f"{record['lifecycle']['preempted_peak_device_gb']:.1f} GB "
-        f"(preempted)")
+        f"(preempted), remote {record['remote']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -17,11 +17,19 @@ package's (same fields, same wire schema ``WIRE_SCHEMA_VERSION``), so a
 request built by either package decodes in the other. Sync, async and
 pre-dump modes, ``migrate`` and its polls (``should_migrate``,
 ``should_predump``, ``pre_dump_round``, ``observe_step``), signal
-handlers and eager and lazy restore are ported; ``capabilities`` is not
-yet.
+handlers and eager and lazy restore are ported, and so is the `criu check`
+probe ``capabilities`` (``capabilities(device="cpu")`` probes the plain
+versions; its names and ``TABLE1``, the paper's Table-1 row registry, are
+the JAX package's). ``API_VERSION`` is the JAX package's too, and
+tests/test_torch_capabilities.py holds the names, fields, signatures and
+wire schema to its snapshot. Tiers are URI-addressed: file://, mem://, remote://
+and cache+remote:// (a simulated object store with retried multipart
+transfers, and a write-through hot front over it).
 """
 from __future__ import annotations
 
+from repro_torch.api.capabilities import (TABLE1, Capability,
+                                          CapabilityReport, capabilities)
 from repro_torch.api.config import (AsyncPolicy, CodecPolicy, MigrationPolicy,
                                     PreemptionPolicy, RetentionPolicy,
                                     SessionConfig)
@@ -47,4 +55,6 @@ __all__ = [
     "MigrateRequest", "MigrationTicket",
     # wire contract (to_wire/from_wire on every type above)
     "WIRE_SCHEMA_VERSION", "WireVersionError", "WireCodingError",
+    # `criu check`: environment probe + the paper's Table-1 registry
+    "capabilities", "Capability", "CapabilityReport", "TABLE1",
 ]

@@ -15,8 +15,8 @@ object here, so callers compose exactly the concerns they care about:
         preemption=PreemptionPolicy(install_signals=True),
         migration=MigrationPolicy(arch="qwen3-8b"))
 
-Tiers are URI-addressed (file://, mem:// or a plain path — see
-core.storage.as_tier; remote:// and cache+remote:// are not ported yet);
+Tiers are URI-addressed (file://, mem://, remote://, cache+remote:// or a
+plain path — see core.storage.as_tier);
 replica entries may also be pre-built Tier objects. All policies are
 frozen: a session's behavior is fixed at open time.
 

@@ -26,8 +26,8 @@ and the residual dump after pre-copy rounds; eager and lazy restore
 gc after every dump; incremental delta8 chains; and the migration
 lifecycle (``migrate``, ``should_migrate``, ``should_predump``,
 ``pre_dump_round``, ``observe_step``, signal handlers installed by
-``__enter__`` under PreemptionPolicy(install_signals=True)). Not yet:
-``capabilities``, and restore onto a mesh.
+``__enter__`` under PreemptionPolicy(install_signals=True)), and the
+`criu check` probe ``capabilities``. Not yet: restore onto a mesh.
 
 The dirty classifier of pre-copy runs on the card: an fp32 or bf16 leaf
 on the card is digested there by K5 (core/predump.py), and a leaf whose
@@ -119,6 +119,12 @@ class CheckpointSession:
         self._orch = None       # lazy MigrationOrchestrator
         self._installed = False
         self._closed = False
+
+    def capabilities(self):
+        """`criu check` for this session's environment, configuration and
+        device: every probe runs the port's own code there."""
+        from repro_torch.api.capabilities import capabilities
+        return capabilities(self.config, device=self.device)
 
     # ------------------------------------------------------------ lifecycle
     def _orchestrator(self):
@@ -493,26 +499,32 @@ class CheckpointSession:
                          chunking=self.config.codec.chunking)
 
     # --------------------------------------------------------- engine: load
-    def load_latest(self, target_struct=None):
+    def load_latest(self, target_struct=None, shardings=None):
         """Raw restore of the newest image -> (tree, manifest) on the
         session's device. The typed path (RestoreRequest) adds the
-        migration record and digest check on top.
+        migration record and digest check on top. ``shardings`` (restore
+        onto a mesh) is not ported and raises when given.
 
         Example::
 
             tree, man = sess.load_latest()
         """
+        if shardings is not None:
+            raise _not_ported("restore onto a mesh (shardings)")
         return _restore(self.tier, device=self.device,
                         expected=target_struct, replicas=self.replicas,
                         executor=self.executor)
 
-    def load(self, image_id: str, target_struct=None):
+    def load(self, image_id: str, target_struct=None, shardings=None):
         """Raw restore of a specific image id -> (tree, manifest).
+        ``shardings`` is not ported and raises when given.
 
         Example::
 
             tree, man = sess.load("step_0000000040")
         """
+        if shardings is not None:
+            raise _not_ported("restore onto a mesh (shardings)")
         return _restore(self.tier, image_id, device=self.device,
                         expected=target_struct, replicas=self.replicas,
                         executor=self.executor)

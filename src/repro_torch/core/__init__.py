@@ -1,7 +1,10 @@
 """repro_torch.core — CRIU-style userspace checkpoint/restore for torch jobs.
 
 The engine room of the port: plan/execute pipeline (core/plan.py,
-core/executor.py), content-addressed storage tiers (file:// and mem://),
+core/executor.py), content-addressed storage tiers (file://, mem://, and
+remote:// and cache+remote:// over a simulated object store, with the
+cross-job chunk pool and its refcount journal: core/remote.py,
+core/chunkindex.py),
 integrity + replica repair, leaf codecs with the Hopper codec kernels
 (core/compression.py, core/device_codec.py), the image registry, pre-copy
 dirty tracking (core/predump.py, K5 on the card), lazy post-copy restore
@@ -34,6 +37,8 @@ from repro_torch.core.predump import (DirtyLeafTracker, digest_pairs,
                                       leaf_digest, tensor_digest)
 from repro_torch.core.preempt import EXIT_CHECKPOINTED, PreemptionHandler
 from repro_torch.core.registry import Registry
+from repro_torch.core.remote import (CachingTier, RemoteTier,
+                                     SimulatedObjectStore, TransferError)
 from repro_torch.core.restore import (latest_image_id, place, read_manifest,
                                       restore, restore_pairs)
 from repro_torch.core.state import serve_meta, train_meta
@@ -50,14 +55,39 @@ __all__ = [
     "LeafServer", "lazy_restore", "DirtyLeafTracker", "digest_pairs",
     "leaf_digest", "tensor_digest", "MigrationOrchestrator",
     "EXIT_CHECKPOINTED", "PreemptionHandler", "AsyncCheckpointer",
-    "rng_record", "generator_from_record",
+    "rng_record", "generator_from_record", "CachingTier", "RemoteTier",
+    "SimulatedObjectStore", "TransferError",
 ]
+
+# Names resolved through repro_torch.api on first access, and the legacy
+# facades (which subclass api.CheckpointSession). Lazy because
+# repro_torch.api imports repro_torch.core submodules: a top-level import
+# here would cycle whichever package is imported second into a
+# partially-initialized first.
+_API_EXPORTS = (
+    "API_VERSION", "CheckpointSession",
+    "SessionConfig", "RetentionPolicy", "CodecPolicy", "AsyncPolicy",
+    "PreemptionPolicy", "MigrationPolicy",
+    "DumpRequest", "DumpReceipt", "RestoreRequest", "RestoreResult",
+    "MigrateRequest", "MigrationTicket",
+    "capabilities", "Capability", "CapabilityReport", "TABLE1",
+)
+_FACADE_EXPORTS = ("Checkpointer", "AsyncCheckpointer")
 
 
 def __getattr__(name):
-    # the facades import repro_torch.api, which imports this package:
-    # resolve it on first use (PEP 562) so neither import order cycles
-    if name in ("Checkpointer", "AsyncCheckpointer"):
+    if name in _API_EXPORTS:
+        import repro_torch.api
+        obj = getattr(repro_torch.api, name)
+    elif name in _FACADE_EXPORTS:
         from repro_torch.core import facade
-        return getattr(facade, name)
-    raise AttributeError(name)
+        obj = getattr(facade, name)
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    globals()[name] = obj       # cache: one class object per process
+    return obj
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_API_EXPORTS) | set(_FACADE_EXPORTS))

@@ -48,6 +48,11 @@ def flatten_with_paths(tree, prefix: str = "") -> list:
     return out
 
 
+def leaf_paths_of(tree) -> list:
+    """Leaf paths of ``tree`` in flatten order — what a manifest lists."""
+    return [p for p, _ in flatten_with_paths(tree)]
+
+
 def dump(tree, root, *, step: int, image_id: str | None = None,
          meta: dict | None = None, parent: str | None = None,
          codec_policy=None, prev_host_tree: dict | None = None,
@@ -101,9 +106,9 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
                       {p: a for p, a in live if p in reused})
     del live
     # the writer guard spans probe->write->commit: a concurrent gc on the
-    # SAME tier object (sessions sharing a mem:// URI) waits here instead
-    # of reaping chunks this dump has written but not yet referenced from
-    # a committed manifest
+    # SAME tier object (sessions sharing a mem://, remote:// or
+    # cache+remote:// URI) waits here instead of reaping chunks this dump
+    # has written but not yet referenced from a committed manifest
     with tier.writer():
         out = ex.run_dump(plan, arrays, tier, replicas,
                           prev_host_tree=prev_host_tree, encoded=encoded,
@@ -113,6 +118,16 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
                              meta=meta or {}, parent=parent,
                              env=manifest.env_fingerprint(dev),
                              topology=topology)
+        journal = tier.ref_journal()
+        if journal is not None and num_processes == 1:
+            # refcount journal entry lands BEFORE the manifest (both
+            # inside the writer guard): a crash between the two leaves an
+            # orphan ref (bounded leak, swept later), never a committed
+            # manifest whose chunks a peer job's gc may reap
+            journal.publish(
+                plan.image_id,
+                {h for rec in out["records"] for h in rec["chunks"]},
+                manifest_rel=tier.manifest_path(plan.image_id))
         if num_processes > 1:
             part = f"images/{plan.image_id}/manifest.part{process_index}.json"
             tier.write_bytes(part, manifest.to_json(man))
@@ -159,6 +174,14 @@ def merge_parts(tier: Tier, image_id: str, num_processes: int, replicas=()):
     man = manifest.build(image_id, step=base["step"], leaves=leaves,
                          meta=base["meta"], parent=base["parent"],
                          env=base["env"], topology=base["topology"])
+    journal = tier.ref_journal()
+    if journal is not None:
+        # the merged manifest is the whole distributed image — publish
+        # its full chunk set before the commit point (same crash
+        # ordering as the single-process path)
+        journal.publish(image_id,
+                        {h for r in leaves for h in r["chunks"]},
+                        manifest_rel=tier.manifest_path(image_id))
     blob = manifest.to_json(man)
     tier.write_bytes(tier.manifest_path(image_id), blob, atomic=True)
     for r in replicas:

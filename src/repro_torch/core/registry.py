@@ -1,9 +1,9 @@
 """Checkpoint catalog: retention policy + content-pool garbage collection.
 
 A copy of the JAX package's core/registry.py (framework-free), over the
-port's tiers and manifests. The port's tiers have no cross-job refcount
-journal yet (``ref_journal()`` is None), so gc reaps by this root's own
-manifests alone."""
+port's tiers and manifests. On a tier with a cross-job refcount journal
+(core/chunkindex.py; shared-pool remote tiers always have one) gc keeps
+every chunk any job's journal record references."""
 from __future__ import annotations
 
 import os

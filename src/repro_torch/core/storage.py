@@ -206,17 +206,21 @@ class Tier:
                 self._chunk_index.update(present)
         return present
 
-    # ---- cross-job refcount journal (the JAX package's core/chunkindex.py)
+    # ---- cross-job refcount journal (see core/chunkindex.py)
     def ref_journal(self):
-        """The RefJournal for this tier's pool: always None until
-        core/chunkindex.py is ported."""
+        """The RefJournal for this tier's pool, or None when cross-job
+        accounting is not enabled. Shared-pool remote tiers create one
+        automatically; other tiers opt in via enable_ref_journal()."""
         return self._ref_journal
 
     def enable_ref_journal(self):
-        """Cross-job refcount journals are not ported yet."""
-        raise NotImplementedError(
-            "cross-job refcount journals (core/chunkindex.py) are not "
-            "ported to repro_torch yet")
+        """Attach (once) a refcount journal to this tier: dumps publish
+        per-image chunk references, Registry.gc unions them into its
+        live set. Returns the journal."""
+        if self._ref_journal is None:
+            from repro_torch.core.chunkindex import RefJournal
+            self._ref_journal = RefJournal(self)
+        return self._ref_journal
 
     def write_chunk(self, h: str, data):
         if not self.has_chunk(h):  # dedup
@@ -388,6 +392,20 @@ _MEM_TIERS_LOCK = threading.Lock()
 TIER_SCHEMES = ("file", "mem", "remote", "cache+remote")
 
 
+def registered_tiers() -> dict:
+    """Public snapshot of every live process-local tier registration:
+    URI string -> Tier object (``mem://name``, ``remote://name``,
+    ``cache+remote://name[?front=...]``). file:// tiers are constructed
+    fresh per resolution and therefore never appear."""
+    out = {}
+    with _MEM_TIERS_LOCK:
+        for name, tier in _MEM_TIERS.items():
+            out[f"mem://{name}"] = tier
+    from repro_torch.core import remote
+    out.update(remote.registered_tiers())
+    return out
+
+
 def as_tier(t) -> Tier:
     """Resolve a tier reference: a Tier instance passes through; a string
     (or PathLike) is interpreted as
@@ -395,10 +413,16 @@ def as_tier(t) -> Tier:
       file:///abs/path | file://rel/path   explicit local-directory tier
       mem://<name>                         process-local in-memory tier
                                            (same name -> same tier object)
+      remote://<name>[?params]             simulated object store with
+                                           retried, multipart transfers
+      cache+remote://<name>[?params]       write-through local cache over
+                                           the same remote back end
       plain path                           local-directory tier (back-compat)
 
-    remote:// and cache+remote:// (the JAX package's core/remote.py) are
-    not ported yet and raise NotImplementedError.
+    remote:// and cache+remote:// are process-registered like mem:// (the
+    same URI is the same tier object) and configured by query parameters
+    — latency/bandwidth/fault model, retry budget, multipart geometry;
+    see core.remote.tier_from_uri.
 
     An unknown ``scheme://`` is an error — previously a typo'd URI such as
     ``s3://bucket/ck`` silently became a LocalDirTier at ``./s3:/bucket/ck``
@@ -418,9 +442,8 @@ def as_tier(t) -> Tier:
                     _MEM_TIERS[name] = MemoryTier()
                 return _MEM_TIERS[name]
         if scheme in ("remote", "cache+remote"):
-            raise NotImplementedError(
-                f"{scheme}:// tiers (core/remote.py) are not ported to "
-                f"repro_torch yet; use file:// or mem://")
+            from repro_torch.core.remote import tier_from_uri
+            return tier_from_uri(scheme, rest)
         raise ValueError(
             f"unknown tier URI scheme {scheme!r} in {s!r}; supported "
             f"schemes: {', '.join(f'{x}://' for x in TIER_SCHEMES)} "

@@ -35,6 +35,14 @@ def scale_ones(dim) -> ParamSpec:
     return ParamSpec((dim,), (None,), "ones")
 
 
+def zeros(shape, axes=None) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes or (None,) * len(shape)), "zeros")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def tree_map(fn, tree, path: str = ""):
     """Map ``fn(path, leaf)`` over a nested dict, keeping its structure."""
     if isinstance(tree, dict):
@@ -110,3 +118,27 @@ def count(tree) -> int:
             n *= s
         total += n
     return total
+
+
+def tree_bytes(params) -> int:
+    """Bytes of a tree of tensors (or host arrays)."""
+    return sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+               else x.size * x.dtype.itemsize for x in tree_leaves(params))
+
+
+def leaf_paths(tree) -> list[str]:
+    """Leaf paths in sorted-key order (the JAX flatten order); a
+    ParamSpec is a leaf, other lists and tuples contribute their index."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}" if path else str(k))
+        elif isinstance(node, (list, tuple)) and not is_spec(node):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}" if path else str(i))
+        elif node is not None:
+            out.append(path)
+    walk(tree, "")
+    return out

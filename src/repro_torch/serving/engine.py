@@ -97,6 +97,12 @@ class ServeEngine:
                 on_token(self)
         return self.generated()
 
+    @property
+    def out_tokens(self) -> list:
+        """Compat view of the seed API: list of [B] per-token arrays.
+        Read-only — mutate through submit()/step()."""
+        return [self._gen[:, i] for i in range(self._n)]
+
     def generated(self) -> np.ndarray:
         """[B, n] tokens generated so far — a VIEW into the live buffer
         (no copy; treat as read-only)."""

@@ -31,6 +31,15 @@ def abstract_train_state(lm: LM, dtype=torch.float32):
             "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
+def train_state_paths(lm: LM, dtype=torch.float32) -> list:
+    """Leaf paths of the train-state tree — exactly what a checkpoint
+    manifest will contain. Useful for authoring codec policies and for
+    dry-run dump planning (CheckpointSession.plan) before any step has
+    run."""
+    from repro_torch.core.dump import leaf_paths_of
+    return leaf_paths_of(abstract_train_state(lm, dtype))
+
+
 def _grads(lm: LM, params, batch, *, accumulate_into=None):
     """(loss, metrics, grads) of ``lm.loss`` on one batch. With
     ``accumulate_into`` (a grads tree from an earlier call) the new grads

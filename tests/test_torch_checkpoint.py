@@ -179,9 +179,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
 
 
 def test_unported_tiers_raise_clearly():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        as_tier("remote://bucket")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        as_tier("mem://x").enable_ref_journal()
+    """The object-store tiers and the refcount journal, once unported, now
+    resolve (tests/test_torch_remote.py covers them); an unknown scheme
+    still raises."""
+    from repro_torch.core.chunkindex import RefJournal
+    from repro_torch.core.remote import CachingTier, RemoteTier
+    assert isinstance(as_tier("remote://bucket"), RemoteTier)
+    assert isinstance(as_tier("cache+remote://bucket"), CachingTier)
+    assert isinstance(as_tier("mem://x").enable_ref_journal(), RefJournal)
+    with pytest.raises(ValueError, match="unknown tier URI scheme"):
+        as_tier("s3://bucket")
     assert set(env_fingerprint("cpu")) == {
         "torch", "cuda", "backend", "device_count", "python", "machine"}

@@ -260,3 +260,40 @@ def test_params_after_two_adamw_steps(pair):
     wrong, _ = run_port(OptConfig(b2=0.999, **FAST))
     assert all(e > STEP_REL for p, e in errors(wrong).items()
                if p.startswith("opt/v/"))
+
+
+def test_public_path_and_spec_helpers_match_jax(pair):
+    """core.dump.leaf_paths_of, training.train_loop.train_state_paths and
+    models.params' zeros / is_spec / tree_bytes / leaf_paths agree with
+    the JAX package's on the same trees (sorted-key order, as both
+    packages flatten)."""
+    from repro.core.dump import leaf_paths_of as jleaf_paths_of
+    from repro.models import params as jpm
+    from repro.training.train_loop import train_state_paths as jpaths
+    from repro_torch.core.dump import leaf_paths_of
+    from repro_torch.models import params as pm
+    from repro_torch.training.train_loop import train_state_paths
+
+    cfg, jlm, jstate, tlm, params = pair
+    for get, tget in ((get_tiny, tconfigs.get_tiny),
+                      (get_config, tconfigs.get_config)):
+        want = jpaths(JLM(get("qwen3-8b")))
+        assert train_state_paths(LM(tget("qwen3-8b"))) == want
+        assert want == sorted(want)
+    host = jax.tree.map(np.asarray, jstate)
+    assert leaf_paths_of(host) == jleaf_paths_of(host)
+    assert leaf_paths_of(init_train_state(
+        tlm, torch.Generator().manual_seed(0), device="cpu")) == \
+        jleaf_paths_of(host)
+    # spec helpers: the model's own spec tree plus a zeros() leaf
+    spec, jspec = tlm.specs(), jlm.specs()
+    spec["extra"], jspec["extra"] = pm.zeros((3, 4)), jpm.zeros((3, 4))
+    assert tuple(pm.zeros((3, 4))) == tuple(jpm.zeros((3, 4)))
+    assert pm.zeros((2,), ("embed",)) == tuple(jpm.zeros((2,), ("embed",)))
+    assert pm.is_spec(spec["extra"]) and not pm.is_spec((3, 4))
+    assert jpm.is_spec(jspec["extra"])
+    assert pm.leaf_paths(spec) == jpm.leaf_paths(jspec)
+    assert pm.tree_bytes(params) == jpm.tree_bytes(
+        jax.tree.map(np.asarray, jstate["params"]))
+    bf = {"a": torch.zeros(5, dtype=torch.bfloat16), "b": np.zeros(3)}
+    assert pm.tree_bytes(bf) == 5 * 2 + 3 * 8

@@ -360,3 +360,23 @@ def _unflatten(flat):
             node = node.setdefault(k, {})
         node[last] = leaf
     return tree
+
+
+def test_out_tokens_is_the_seed_api_view(pair):
+    """ServeEngine.out_tokens, the JAX engine's read-only compat view: a
+    list of [B] arrays, one per generated token, equal to the JAX
+    engine's on the same weights and prompts."""
+    cfg, jlm, jparams, tlm, params, prompts = pair
+    j = JEngine(jlm, jparams, max_len=SP + GEN, compute_dtype=jnp.float32)
+    j.submit(prompts)
+    j.generate(4)
+    t = ServeEngine(tlm, params, max_len=SP + GEN,
+                    compute_dtype=torch.float32)
+    t.submit(prompts)
+    t.generate(4)
+    got = t.out_tokens
+    assert isinstance(got, list) and len(got) == 4
+    assert all(a.shape == (B,) for a in got)
+    np.testing.assert_array_equal(np.stack(got, 1), t.generated())
+    for a, b in zip(got, j.out_tokens):
+        np.testing.assert_array_equal(a, np.asarray(b))

@@ -109,9 +109,10 @@ def test_sync_dump_receipt_and_restore_result(tmp_path):
     assert set(res.state) == {"params"} and set(res.state["params"]) == {"w"}
 
 
-@pytest.mark.parametrize("what", ["lazy", "mesh"])
+@pytest.mark.parametrize("what", ["lazy", "mesh", "load", "load_latest"])
 def test_unported_parts_raise(tmp_path, what):
-    """What stays unported: restore onto a mesh, eagerly or lazily. (Async
+    """What stays unported: restore onto a mesh, eagerly or lazily, by the
+    typed request or by ``load``/``load_latest(shardings=...)``. (Async
     dumps, the orchestrator's rounds, migrate and signal handlers are
     ported and tested in tests/test_torch_migration.py.)"""
     root = str(tmp_path / "ck")
@@ -121,6 +122,9 @@ def test_unported_parts_raise(tmp_path, what):
         "lazy": lambda: sess.restore(RestoreRequest(lazy=True,
                                                     shardings={})),
         "mesh": lambda: sess.restore(RestoreRequest(mesh=object())),
+        "load": lambda: sess.load(sess.registry.images()[-1]["image_id"],
+                                  shardings={}),
+        "load_latest": lambda: sess.load_latest(shardings={}),
     }
     with pytest.raises(NotImplementedError, match="not ported"):
         calls[what]()
