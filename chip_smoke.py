@@ -19,10 +19,13 @@ Phases, one line each (plus details):
                changed), timed beside its bound; K6 at the serving shape in
                bf16 (2e-2), an fp32 case (2e-6), a ragged length, a query
                offset and window + softcap in fp32 and in bf16 at head_dim
-               128, each on the route route() gives it (wgmma for bf16 at
-               head_dim 64/128, SIMT otherwise) and bit-identical on
-               repeat; the serving shape timed beside its bound and
-               scaled_dot_product_attention; the wgmma kernels must show
+               128, gemma2's long prefill (1 x 4608, window 4096, softcap
+               50), an fp32 case and a ragged one at head_dim 256, each on
+               the route route() gives it (wgmma for bf16 at head_dim
+               64/128, SIMT otherwise) and bit-identical on repeat; the
+               serving shape timed beside its bound and
+               scaled_dot_product_attention, the long prefill beside its
+               bound (no library call computes softcapped attention); the wgmma kernels must show
                0 spill bytes in ptxas's report;
   4. train path on qwen3-8b at full width (d_model 4096, 32/8 heads,
                head_dim 128, d_ff 12288, vocab 151936 padded to 152064)
@@ -98,11 +101,31 @@ Phases, one line each (plus details):
                must have launched (counters zeroed just before). The
                store's objects and the fronts' directories are released
                at the end;
-  9. capabilities: `criu check` of the port on the card
+  9. plane path: the live serving plane (Table-1 row 16) on gemma2-2b at
+               full width and depth (26 layers, 2,614,341,888 params, fp32
+               on the card, bf16 compute, head_dim 256, window 4096 on the
+               even layers, softcaps 50/30) through SessionManager (8 slots
+               of 4800 positions) under seeded Poisson traffic
+               (TrafficGenerator, rate 0.5 per tick, prompts 256-2048,
+               targets up to 32) plus long0 (a 4608-token prompt, past the
+               window): reference R runs 24 ticks with nov0 submitted at
+               tick 12; the source runs 12, drains and checkpoints into
+               mem:// (lossless, digest recorded); replica B restores
+               eagerly, submits nov0 and runs to 24; replica C restores
+               lazily, serves nov0 while the old sessions are restoring,
+               completes the restore (deferred digest check) and runs to
+               24. Every session's tokens in B and C must equal R's, and
+               K6 must have launched once per layer per prefill, all on the
+               SIMT route (counters zeroed just before, read just after);
+ 10. archs: deepseek-67b and mistral-large-123b (2 layers) and
+               musicgen-large (full depth) at full width: ServeEngine
+               prefill 1 x 2048 and 8 greedy tokens, K6 once per layer on
+               the wgmma route;
+ 11. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): Table-1 rows
-               7, 11-14 and 18 must be supported, and fleet_coordination,
-               socket_transport and live_serving unsupported, naming the
-               module the port lacks.
+               7, 11-14, 16 and 18 must be supported, and fleet_coordination
+               and socket_transport unsupported, naming the module the port
+               lacks.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 the last line. Without a CUDA device it exits 2 at once.
@@ -152,22 +175,50 @@ SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CUT = 4, 2048, 32, 16
 # dump after 16, the same prompts and 32 tokens as the serve path.
 PRECOPY_LAYERS = 8
 PRECOPY_ROUNDS, PRECOPY_CUT = (8, 12), 16
-# K6 cases: label, B, Sq, Skv, H, KV, hd, dtype, window, softcap, tolerance
+# K6 cases: label, B, Sq, Skv, H, KV, hd, dtype, window, softcap, tolerance,
+# qk (q and k are randn times qk), rel. With rel False the tolerance bounds
+# the max abs error; with rel True it bounds each element's error relative
+# to the attention-weighted |v| at that element (the plain version with |v|
+# in place of v): the scale of what bf16's rounding of p and of the output
+# can move, which does not shrink with Skv as the outputs do. Where a
+# softcap is on, qk 4 puts the logits (std 16) where the cap bends them.
+GEMMA2_LONG_CASE = "gemma2 long prefill 1x4608 8/4 heads x256 bf16 window " \
+    "4096 softcap 50"
 FLASH_CASES = [
     ("serving 4x2048 32/8 heads x128 bf16", 4, 2048, 2048, 32, 8, 128,
-     "bfloat16", 0, 0.0, 2e-2),
+     "bfloat16", 0, 0.0, 2e-2, 1.0, False),
     ("fp32 2x512 8/2 heads x128", 2, 512, 512, 8, 2, 128, "float32", 0, 0.0,
-     2e-6),
+     2e-6, 1.0, False),
     ("ragged 2x1000 32/8 heads x128 bf16", 2, 1000, 1000, 32, 8, 128,
-     "bfloat16", 0, 0.0, 2e-2),
+     "bfloat16", 0, 0.0, 2e-2, 1.0, False),
     ("q_offset Sq 128 Skv 384 fp32", 1, 128, 384, 4, 2, 64, "float32", 0, 0.0,
-     2e-6),
+     2e-6, 1.0, False),
     ("window 128 + softcap 30 fp32", 1, 512, 512, 2, 1, 128, "float32", 128,
-     30.0, 2e-6),
+     30.0, 2e-6, 1.0, False),
     ("q_offset Sq 128 Skv 384 bf16 x128", 1, 128, 384, 4, 2, 128, "bfloat16",
-     0, 0.0, 2e-2),
+     0, 0.0, 2e-2, 1.0, False),
     ("window 128 + softcap 30 bf16 x128", 1, 512, 512, 2, 1, 128, "bfloat16",
-     128, 30.0, 2e-2),
+     128, 30.0, 2e-2, 1.0, False),
+    # gemma2-2b's head dim 256 on the SIMT route: path 9's prefills on the
+    # even (window 4096) and odd (global) layers, attention softcap 50
+    (GEMMA2_LONG_CASE, 1, 4608, 4608, 8, 4, 256, "bfloat16", 4096, 50.0,
+     2e-2, 4.0, True),
+    ("gemma2 odd layers 1x4608 8/4 heads x256 bf16 softcap 50", 1, 4608,
+     4608, 8, 4, 256, "bfloat16", 0, 50.0, 2e-2, 4.0, True),
+    ("fp32 1x512 2/1 heads x256", 1, 512, 512, 2, 1, 256, "float32", 0, 0.0,
+     2e-6, 1.0, False),
+    ("fp32 1x512 2/1 heads x256 window 128 softcap 50", 1, 512, 512, 2, 1,
+     256, "float32", 128, 50.0, 2e-6, 1.0, False),
+    ("ragged 2x1000 8/4 heads x256 bf16", 2, 1000, 1000, 8, 4, 256,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    # the archs phase's prefills on the wgmma route: musicgen-large (MHA at
+    # head dim 64), deepseek-67b and mistral-large-123b (GQA groups 8, 12)
+    ("musicgen 1x2048 32/32 heads x64 bf16", 1, 2048, 2048, 32, 32, 64,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    ("deepseek 1x2048 64/8 heads x128 bf16", 1, 2048, 2048, 64, 8, 128,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    ("mistral 1x2048 96/8 heads x128 bf16", 1, 2048, 2048, 96, 8, 128,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
 ]
 
 
@@ -428,31 +479,49 @@ def flash_phase(torch, dev, seed):
     from repro_torch.kernels.flash_attention.ref import reference_attention
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    row = None
-    for (label, B, Sq, Skv, H, KV, hd, dtype, window, cap,
-         tol) in FLASH_CASES:
+    row = hd256 = None
+    for (label, B, Sq, Skv, H, KV, hd, dtype, window, cap, tol, qk,
+         rel) in FLASH_CASES:
         dt = getattr(torch, dtype)
-        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dt)
+        q = (qk * torch.randn((B, Sq, H, hd), generator=gen,
+                              device=dev)).to(dt)
+        k = (qk * torch.randn((B, Skv, KV, hd), generator=gen,
+                              device=dev)).to(dt)
         v = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dt)
         kw = dict(causal=True, window=window, softcap=cap)
         way = k6.route(dt, hd)
         k6.reset_launches()
         got = k6.flash_attention_fwd(q, k, v, **kw)
         want = reference_attention(q.float(), k.float(), v.float(), **kw)
-        err = float((got.float() - want).abs().max())
+        diff = (got.float() - want).abs()
+        err = float(diff.max())
+        if rel:                  # each element against its own scale
+            mag = reference_attention(q.float(), k.float(), v.float().abs(),
+                                      **kw)
+            worst = float((diff / mag.clamp_min(1e-30)).max())
+            what = (f"max abs err {err:.3g}, max err / attention-weighted "
+                    f"|v| {worst:.3g} (tolerance {tol:g}, element-wise)")
+            del mag
+        else:
+            worst = err
+            what = f"max abs err {err:.3g} (tolerance {tol:g})"
         again = k6.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         same = torch.equal(got, again)
-        log(f"kernels: flash_attention on {label} ({way} route): max abs err "
-            f"{err:.3g} (tolerance {tol:g}); repeat bit-identical: {same}")
+        log(f"kernels: flash_attention on {label} ({way} route"
+            f"{f', q and k x{qk:g}' if qk != 1 else ''}): {what}; repeat "
+            f"bit-identical: {same}")
         check(k6.ROUTE_LAUNCHES[way] == 2,
               f"flash_attention on {label} did not take the {way} route: "
               f"{k6.ROUTE_LAUNCHES}")
-        check(err < tol, f"flash_attention differs from its plain version "
-                         f"on {label}: max abs err {err} >= {tol}")
+        check(worst < tol, f"flash_attention differs from its plain version "
+                           f"on {label}: {what}")
         check(same, f"flash_attention is not deterministic on {label}")
-        del got, want, again
+        del got, want, again, diff
+        if label == GEMMA2_LONG_CASE:
+            hd256 = _time_long_prefill(torch, F, k6, reference_attention,
+                                       (q, k, v), kw, way, err)
+            hd256["max_rel_err"] = worst
         if row is None:        # the serving shape: time it
             ms = cuda_ms(torch, lambda: k6.flash_attention_fwd(q, k, v, **kw),
                          iters=20)
@@ -486,7 +555,45 @@ def flash_phase(torch, dev, seed):
                 f"({ms / library_ms:.2f}x its time)")
         del q, k, v
         torch.cuda.empty_cache()
+    row["hd256"] = hd256
     return row
+
+
+def _time_long_prefill(torch, F, k6, reference_attention, qkv, kw, way, err):
+    """K6 at gemma2's long prefill (SIMT route at head dim 256) beside its
+    bound and its plain version. No single PyTorch call computes softcapped
+    attention: SDPA is timed at the same shape without window and softcap,
+    and reported as that other function."""
+    q, k, v = qkv
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    ms = cuda_ms(torch, lambda: k6.flash_attention_fwd(q, k, v, **kw),
+                 iters=10)
+    plain_ms = cuda_ms(torch, lambda: reference_attention(q, k, v, **kw),
+                       iters=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    pairs = live_pairs(Sq, Skv, True, kw["window"])
+    ops = 4 * B * H * hd * pairs
+    nbytes = q.element_size() * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out = {"kernel_route": way, "shape": [B, Sq, Skv, H, KV, hd],
+           "window": kw["window"], "softcap": kw["softcap"],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None, "library_note": "none (softcap)",
+           "sdpa_causal_no_window_no_softcap_ms": sdpa_ms,
+           "live_pairs": pairs, "ops": ops, "bytes": nbytes}
+    log(f"kernels: flash_attention on {GEMMA2_LONG_CASE}: {way} route "
+        f"{ms:.3f} ms (bound {out['bound_ms']:.4f} ms by {out['bound_by']}: "
+        f"{pairs:,} live pairs, {ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
+        f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; {out['bound_ms'] / ms:.1%} of "
+        f"bound), plain {plain_ms:.1f} ms; library: none (softcap); "
+        f"scaled_dot_product_attention at the same shape without window "
+        f"and softcap (another function) {sdpa_ms:.3f} ms")
+    return out
 
 
 # -------------------------------------------------------------- train path
@@ -1381,8 +1488,9 @@ def lifecycle_path(torch, dev, args):
 REMOTE_URI = ("remote://chip-remote?latency_ms=2&bw_mbps=1000&fail_rate=0.02"
               "&max_consecutive=1&seed={seed}")
 FRONT_URI = "cache+remote://chip-remote?front={front}&cache={cache}"
-# capabilities the card must report supported: Table-1 rows 7, 11-14, 18
-CARD_ROWS = (7, 11, 12, 13, 14, 18)
+# capabilities the card must report supported: Table-1 rows 7, 11-14, 16,
+# 18
+CARD_ROWS = (7, 11, 12, 13, 14, 16, 18)
 
 
 def remote_path(torch, dev, args):
@@ -1593,6 +1701,370 @@ def remote_path(torch, dev, args):
     return out
 
 
+# -------------------------------------------------------------- plane path
+# path 9: gemma2-2b at full width and depth through SessionManager. Pool:
+# 8 slots of 4800 positions (8 x 4800 x 106,496 B of bf16 KV = 4.09 GB);
+# traffic as below (seed 0: the pool first fills at tick 17 and, after the
+# cut, stays full with a queue); one scripted 4608-token prompt passes the
+# 4096 window of the even layers; R runs PLANE_TICKS ticks, the source
+# PLANE_CUT, and the replicas the rest; at the cut every slot but one is
+# busy, and nov0, arriving then, takes the last.
+PLANE_SLOTS, PLANE_PAGE = 8, 4800
+PLANE_TRAFFIC = dict(rate=1.5, prompt_support=(256, 512, 1024, 2048),
+                     target_max=32)
+PLANE_LONG = (4608, 48)        # long0: prompt tokens, target
+PLANE_NOV = (300, 8)           # nov0, submitted at the cut
+PLANE_TICKS, PLANE_CUT = 28, 19
+
+
+class PlaneClock:
+    """Seconds of every prefill (a wrapper on ``lm.prefill``, synced) and of
+    every tick's decode (the wall of ``mgr.run(1)``, the tick's prefills
+    taken out), for each plane driven through ``drive``."""
+
+    def __init__(self, torch, lm):
+        self.prefills, self.ticks = [], []
+        self.plane, self.lm = None, lm
+        prefill = lm.prefill
+
+        def timed(params, *, tokens, **kw):
+            t0 = time.perf_counter()
+            res = prefill(params, tokens=tokens, **kw)
+            torch.cuda.synchronize()
+            self.prefills.append((self.plane, int(tokens.shape[1]),
+                                  time.perf_counter() - t0))
+            return res
+        lm.prefill = timed
+
+    def close(self):
+        del self.lm.prefill               # the class's method again
+
+    def drive(self, plane, mgr, gen, ticks):
+        self.plane = plane
+        for _ in range(ticks):
+            n0, b0 = len(self.prefills), mgr.stats["decode_batches"]
+            tok0 = mgr.tokens_done
+            t0 = time.perf_counter()
+            mgr.run(1, traffic=gen)
+            wall = time.perf_counter() - t0
+            pre = self.prefills[n0:]
+            # (plane, decode s, cohorts, sessions decoded: a prefill's
+            # first token is not a decode)
+            self.ticks.append((plane, wall - sum(x[2] for x in pre),
+                               mgr.stats["decode_batches"] - b0,
+                               mgr.tokens_done - tok0 - len(pre)))
+
+
+def _plane_outputs(mgr, skip=()):
+    return {sid: s.output().tolist() for sid, s in mgr.sessions.items()
+            if s.status != "rejected" and sid not in skip}
+
+
+def plane_path(torch, dev, args):
+    """The live serving plane (Table-1 row 16) on gemma2-2b at full width
+    and depth: reference R uninterrupted; the source plane to the cut, then
+    drain and checkpoint into mem://; replica B restored eagerly and
+    replica C lazily (nov0's first token before complete_restore), both
+    continued to PLANE_TICKS. Every session's tokens in B and C must equal
+    R's; every prefill attention through K6 (SIMT route at head dim 256)."""
+    import numpy as np
+
+    from repro_torch.api import CheckpointSession
+    from repro_torch.configs.gemma2_2b import CONFIG
+    from repro_torch.core.storage import as_tier
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import LM
+    from repro_torch.serving import Request, SessionManager, TrafficGenerator
+
+    cfg = CONFIG
+    lm = LM(cfg)
+    t0 = time.time()
+    params = lm.init(torch.Generator().manual_seed(args.seed), device=dev)
+    torch.cuda.synchronize()
+    pbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    slot_bytes = kvcache.cache_bytes(cfg, 1, PLANE_PAGE)
+    out = {"params": lm.n_params(), "layers": cfg.num_layers,
+           "params_gb": pbytes / 1e9,
+           "pool_gb": PLANE_SLOTS * slot_bytes / 1e9}
+    log(f"plane: {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"heads x {cfg.resolved_head_dim}, windows {cfg.windows}, softcaps "
+        f"{cfg.attn_softcap}/{cfg.final_softcap}, no cut); params="
+        f"{lm.n_params():,} ({pbytes / 1e9:.2f} GB fp32 on the card), init "
+        f"{time.time() - t0:.1f} s; pool {PLANE_SLOTS} slots x "
+        f"{PLANE_PAGE} = {out['pool_gb']:.2f} GB bf16")
+    rng = np.random.default_rng(args.seed + 9)
+    long0 = Request("long0", 0.0, rng.integers(
+        0, cfg.vocab_size, PLANE_LONG[0]).astype(np.int32), PLANE_LONG[1],
+        args.seed * 100_000 + 99_990)
+    nov0 = Request("nov0", float(PLANE_CUT), rng.integers(
+        0, cfg.vocab_size, PLANE_NOV[0]).astype(np.int32), PLANE_NOV[1],
+        args.seed * 100_000 + 99_991)
+
+    def traffic():
+        return TrafficGenerator(seed=args.seed, vocab_size=cfg.vocab_size,
+                                **PLANE_TRAFFIC)
+
+    def plane(p):
+        return SessionManager(lm, p, slots=PLANE_SLOTS, page_len=PLANE_PAGE,
+                              device=dev)
+    uri = f"mem://chip-smoke-plane-{args.seed}"
+    torch.use_deterministic_algorithms(True)   # R, B and C must agree
+    k6.reset_launches()                        # the path's counts
+    prefills = 0
+
+    # reference R: uninterrupted, nov0 at the cut
+    clock = PlaneClock(torch, lm)
+    r = plane(params)
+    gen = traffic()
+    t0 = time.time()
+    r.submit(long0)
+    clock.drive("R", r, gen, PLANE_CUT)
+    r.submit(nov0)
+    clock.drive("R", r, gen, PLANE_TICKS - PLANE_CUT)
+    out["reference_s"] = time.time() - t0
+    want = _plane_outputs(r)
+    prefills += r.stats["prefills"]
+    out["stats"] = dict(r.stats)
+    by_len: dict = {}
+    for _, n, sec in clock.prefills:          # R's so far
+        by_len.setdefault(n, []).append(sec)
+    out["prefill_s_by_len"] = {str(n): v for n, v in sorted(by_len.items())}
+    ticks = [t for t in clock.ticks if t[2]]
+    full = [t for t in ticks if t[3] == PLANE_SLOTS]
+    out["decode_s_per_tick"] = statistics.median(t[1] for t in ticks)
+    out["cohorts_per_tick"] = statistics.mean(t[2] for t in clock.ticks)
+    out["decode_s_per_cohort"] = (sum(t[1] for t in ticks)
+                                  / sum(t[2] for t in ticks))
+    out["full_pool_ticks"] = len(full)
+    check(full, "the pool was never full in R")
+    out["full_pool_decode_s_per_tick"] = statistics.median(t[1] for t in full)
+    out["full_pool_cohorts_per_tick"] = statistics.mean(t[2] for t in full)
+    long_pos = r.sessions["long0"].pos
+    check(all(0 <= t < cfg.vocab_size for v in want.values() for t in v),
+          "plane tokens out of range")
+    check(r.sessions["nov0"].n == PLANE_NOV[1], "nov0 did not finish in R")
+    check(long_pos > cfg.windows[0], f"long0 stopped at {long_pos}, inside "
+                                     f"the {cfg.windows[0]} window")
+    log(f"plane: reference R {PLANE_TICKS} ticks in {out['reference_s']:.1f} "
+        f"s: {r.stats['admitted']} admitted, {r.stats['completed']} "
+        f"completed, {r.stats['rejected']} rejected, "
+        f"{r.stats['decode_batches']} cohort decodes; long0 at position "
+        f"{long_pos} (window {cfg.windows[0]})")
+    log("plane: prefill s by prompt length: " + "; ".join(
+        f"{n}: " + ", ".join(f"{x:.3f}" for x in v)
+        for n, v in by_len.items()))
+    log(f"plane: decode {out['decode_s_per_tick']:.3f} s per tick (median "
+        f"of ticks with a cohort), {out['cohorts_per_tick']:.2f} cohorts per "
+        f"tick, {out['decode_s_per_cohort']:.3f} s per cohort decode; at a "
+        f"full pool ({PLANE_SLOTS} sessions decoded, {len(full)} ticks of R) "
+        f"{out['full_pool_decode_s_per_tick']:.3f} s per tick, "
+        f"{out['full_pool_cohorts_per_tick']:.2f} cohorts per tick")
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the source plane: to the cut, drain, dump; freed after the dump
+    src = plane(params)
+    gen = traffic()
+    src.submit(long0)
+    clock.drive("source", src, gen, PLANE_CUT)
+    src.drain()
+    prefills += src.stats["prefills"]
+    in_flight = set(src.live_sids())
+    out["in_flight_at_cut"] = len(in_flight)
+    # every slot busy but the one nov0 takes at the cut, nobody queued
+    check(src.used_slots == len(in_flight) == PLANE_SLOTS - 1,
+          f"at the cut {src.used_slots} slots are busy and {len(in_flight)} "
+          f"sessions in flight, not {PLANE_SLOTS - 1} each")
+    out["admitted_at_cut"] = src.stats["admitted"]
+    sess = CheckpointSession(uri, device=dev)
+    t0 = time.time()
+    receipt = src.checkpoint(sess, traffic=gen.state())
+    out["dump_s"] = time.time() - t0
+    out["image_gb"] = receipt.stats["bytes_stored"] / 1e9
+    out["image_logical_gb"] = (pbytes + PLANE_SLOTS * slot_bytes) / 1e9
+    log(f"plane: source drained at clock {src.clock} with "
+        f"{len(in_flight)} sessions in flight ({sorted(in_flight)}), "
+        f"{src.used_slots} of {PLANE_SLOTS} slots busy; "
+        f"checkpoint {receipt.image_id} in {out['dump_s']:.2f} s: "
+        f"{out['image_gb']:.3f} GB stored of {out['image_logical_gb']:.2f} "
+        f"GB (params + pool; unused pages dedup)")
+    check("long0" in in_flight, "long0 finished before the cut")
+    del src, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def continue_replica(mgr, res, label):
+        table = res.manifest["meta"]["serve_plane"]
+        gen = TrafficGenerator.from_state(table["traffic"])
+        clock.drive(label, mgr, gen, PLANE_TICKS - PLANE_CUT)
+        got = _plane_outputs(mgr, skip=set(table["completed"]))
+        bad = [sid for sid in sorted(got) if got[sid] != want.get(sid)]
+        mine = [t for t in clock.ticks if t[0] == label]
+        out[f"replica_{label[0]}_decode_s_per_tick"] = statistics.median(
+            t[1] for t in mine)
+        log(f"plane: replica {label}: {len(mine)} ticks, "
+            f"{sum(t[3] == PLANE_SLOTS for t in mine)} with every slot "
+            f"decoding, {statistics.mean(t[2] for t in mine):.2f} cohorts and "
+            f"{out[f'replica_{label[0]}_decode_s_per_tick']:.3f} s of decode "
+            f"per tick (median)")
+        log(f"plane: replica {label}: {len(got)} sessions ("
+            f"{len(in_flight & set(got))} in flight at the cut, nov0, "
+            f"{len(set(got) - in_flight - {'nov0'})} admitted after it) "
+            f"{'equal' if not bad else 'DIFFER FROM'} R's tokens")
+        check(in_flight <= set(got) and "nov0" in got,
+              f"replica {label} dropped sessions")
+        check(not bad, f"replica {label}'s tokens differ from R's: {bad}")
+        return mgr.stats["prefills"]
+
+    # replica B: eager
+    t0 = time.time()
+    b, res = SessionManager.restore_from(CheckpointSession(uri, device=dev),
+                                         lm)
+    torch.cuda.synchronize()
+    out["eager_restore_s"] = time.time() - t0
+    check(res.digest_verified is True, "replica B's digest not verified")
+    t0 = time.perf_counter()
+    nov = b.submit(nov0)
+    out["eager_nov0_ttft_s"] = nov.first_token_wall - t0
+    check(b.used_slots == PLANE_SLOTS, f"replica B's pool is not full with "
+                                       f"nov0: {b.used_slots} slots busy")
+    log(f"plane: replica B restored eagerly in {out['eager_restore_s']:.2f} "
+        f"s (digest verified); nov0 fills the pool ({b.used_slots} of "
+        f"{PLANE_SLOTS} slots), first token in "
+        f"{out['eager_nov0_ttft_s']:.3f} s")
+    prefills += continue_replica(b, res, "B (eager)")
+    del b, res, nov
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # replica C: lazy, nov0 served while the old pages are in flight
+    t0 = time.time()
+    c, res = SessionManager.restore_from(CheckpointSession(uri, device=dev),
+                                         lm, lazy=True)
+    torch.cuda.synchronize()
+    out["lazy_skeleton_s"] = time.time() - t0
+    held = [s for s in c.sessions.values() if s.status == "restoring"]
+    t0 = time.perf_counter()
+    nov = c.submit(nov0)
+    out["lazy_nov0_ttft_s"] = nov.first_token_wall - t0
+    served_early = nov.n >= 1 and bool(held) and all(
+        s.status == "restoring" for s in held)
+    check(len(held) == len(in_flight) and c.used_slots == PLANE_SLOTS,
+          f"replica C holds {len(held)} restoring sessions and "
+          f"{c.used_slots} busy slots with nov0")
+    t0 = time.time()
+    c.complete_restore()
+    torch.cuda.synchronize()
+    out["complete_restore_s"] = time.time() - t0
+    verified = res.state.server.verify_tree_digest()
+    log(f"plane: replica C lazy: skeleton with params materialized "
+        f"{out['lazy_skeleton_s']:.2f} s, {len(held)} sessions restoring; "
+        f"nov0 first token in {out['lazy_nov0_ttft_s']:.3f} s before the "
+        f"old pages landed: {served_early}; complete_restore "
+        f"{out['complete_restore_s']:.2f} s, deferred digest verified: "
+        f"{verified}")
+    check(served_early, "nov0 was not served before complete_restore")
+    check(verified is True, "replica C's digest not verified")
+    prefills += continue_replica(c, res, "C (lazy)")
+    torch.use_deterministic_algorithms(False)
+    routes = dict(k6.ROUTE_LAUNCHES)           # read just after the path
+    out["launches"] = dict(k6.LAUNCHES)
+    out["k6_routes"] = routes
+    out["prefills"] = prefills
+    # where a decode tick's time goes, after the counts were read: one
+    # tick of C under torch.profiler, the cohorts' page copies apart
+    active = sum(s.status == "active" for s in c.sessions.values())
+    wall_ms, busy_ms, rows = device_breakdown(torch, c.step)
+    copy_ms = sum(ms for ms, k, _ in rows if "index" in k.lower())
+    out["profile_tick"] = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                           "page_copy_ms": copy_ms, "active": active,
+                           "top": rows[:6]}
+    log(f"plane: profile of one decode tick ({active} active sessions): "
+        f"{wall_ms:.1f} ms wall under the profiler, {busy_ms:.1f} ms of "
+        f"kernels ({busy_ms / wall_ms:.0%} busy), of it the cohorts' page "
+        f"gathers and scatters {copy_ms:.2f} ms; top: " + "; ".join(
+            f"{k[:48]} {ms:.2f} ms x{n}" for ms, k, n in rows[:6]))
+    clock.close()
+    del c, res, nov, held
+    log(f"kernels: plane-path launches flash_attention="
+        f"{out['launches']['flash_attention']} (SIMT route {routes['simt']}, "
+        f"wgmma route {routes['wgmma']}) for {prefills} prefills x "
+        f"{cfg.num_layers} layers")
+    check(routes == {"simt": prefills * cfg.num_layers, "wgmma": 0},
+          f"the plane's K6 launches are not one SIMT launch per layer per "
+          f"prefill: {routes}, {prefills} prefills")
+    as_tier(uri).delete("chunks")
+    as_tier(uri).delete("images")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------- archs phase
+# the three other dense configs at full width: (arch, layers or None for
+# full depth); each prefills 1 x ARCH_PROMPT and decodes ARCH_GEN tokens
+ARCHS = (("deepseek-67b", 2), ("mistral-large-123b", 2),
+         ("musicgen-large", None))
+ARCH_PROMPT, ARCH_GEN = 2048, 8
+
+
+def archs_phase(torch, dev, args):
+    """deepseek-67b and mistral-large-123b at 2 layers, musicgen-large at
+    full depth: ServeEngine prefill + greedy decode through K6's wgmma
+    route, one launch per layer; tokens in range."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServeEngine
+
+    out = {}
+    for arch, layers in ARCHS:
+        full = get_config(arch)
+        cfg = full.replace(num_layers=layers) if layers else full
+        lm = LM(cfg)
+        t0 = time.time()
+        params = lm.init(torch.Generator().manual_seed(args.seed), device=dev)
+        prompts = np.random.default_rng(args.seed).integers(
+            0, cfg.vocab_size, (1, ARCH_PROMPT)).astype(np.int32)
+        k6.reset_launches()
+        eng = ServeEngine(lm, params, max_len=ARCH_PROMPT + ARCH_GEN + 1)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        eng.submit(prompts)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        toks = eng.generate(ARCH_GEN).copy()
+        t3 = time.time()
+        routes = dict(k6.ROUTE_LAUNCHES)
+        rec = {"layers": cfg.num_layers, "full_layers": full.num_layers,
+               "params": lm.n_params(), "init_s": t1 - t0,
+               "prefill_s": t2 - t1,
+               "decode_s_per_token": (t3 - t2) / (ARCH_GEN - 1),
+               "k6_routes": routes, "head_dim": cfg.resolved_head_dim}
+        out[arch] = rec
+        log(f"archs: {arch} ({cfg.num_layers} of {full.num_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"heads x {cfg.resolved_head_dim}, {lm.n_params():,} params): "
+            f"init {rec['init_s']:.1f} s, prefill 1x{ARCH_PROMPT} "
+            f"{rec['prefill_s']:.3f} s, decode "
+            f"{rec['decode_s_per_token']:.4f} s/token; K6 launches {routes}; "
+            f"tokens {toks[0].tolist()}")
+        check(toks.shape == (1, ARCH_GEN) and toks.min() >= 0
+              and toks.max() < cfg.vocab_size, f"{arch}: tokens out of range")
+        check(routes == {"wgmma": cfg.num_layers, "simt": 0},
+              f"{arch}: K6 did not launch once per layer on the wgmma "
+              f"route: {routes}")
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def capability_phase(torch, dev):
     """`criu check` on the card: every capability, one line each; the
     Table-1 rows of ported modules (CARD_ROWS) must be supported, the
@@ -1774,6 +2246,8 @@ def main(argv=None) -> int:
     record["precopy"]["host_peak_rss_gb"] = rss.peak_gb
     record["precopy"]["peak_device_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
+    rows["flash_attention"]["launches"] += \
+        record["precopy"]["launches"]["flash_attention"]
     gc.collect()
     torch.cuda.empty_cache()
     record["lifecycle"] = lifecycle_path(torch, dev, args)
@@ -1796,6 +2270,25 @@ def main(argv=None) -> int:
         rows[k]["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with RssPeak() as rss_plane:
+        record["plane"] = plane_path(torch, dev, args)
+    record["plane"].update(
+        host_peak_rss_gb=rss_plane.peak_gb, wall_s=time.time() - t0,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"plane: path {record['plane']['wall_s']:.1f} s; peak device memory "
+        f"{record['plane']['peak_device_gb']:.1f} GB; host peak RSS of the "
+        f"path {rss_plane.peak_gb:.1f} GB (sampled every 20 ms)")
+    t0 = time.time()
+    record["archs"] = archs_phase(torch, dev, args)
+    record["archs_s"] = time.time() - t0
+    log(f"archs: phase {record['archs_s']:.1f} s")
+    rows["flash_attention"]["launches"] += \
+        record["plane"]["launches"]["flash_attention"] + sum(
+            sum(a["k6_routes"].values()) for a in record["archs"].values())
+    gc.collect()
+    torch.cuda.empty_cache()
     record["capabilities"] = capability_phase(torch, dev)
     record["kernels"] = list(rows.values())
     record["card"] = card
@@ -1813,11 +2306,14 @@ def main(argv=None) -> int:
         f"{record['serve']['peak_device_gb']:.1f} GB, pre-copy "
         f"{record['precopy']['peak_device_gb']:.1f} GB, lifecycle children "
         f"{record['lifecycle']['preempted_peak_device_gb']:.1f} GB "
-        f"(preempted), remote {record['remote']['peak_device_gb']:.1f} GB")
+        f"(preempted), remote {record['remote']['peak_device_gb']:.1f} GB, "
+        f"plane {record['plane']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in record["kernels"]]}))
+    # K6's row also carries its SIMT-route numbers at gemma2's head dim 256
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + (("hd256",) if "hd256" in r else ())}
+        for r in record["kernels"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

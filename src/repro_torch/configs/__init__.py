@@ -16,10 +16,15 @@ from repro_torch.configs.base import (  # noqa: F401
     flops_per_token,
 )
 
-# arch-id -> module name. Only the architectures the port's models run
-# are here; the JAX package's other configs come with their blocks.
+# arch-id -> module name, in the JAX package's order. Only the
+# architectures the port's models run are here; the JAX package's other
+# configs come with their blocks (MoE, SSM, M-RoPE).
 _ARCH_MODULES = {
+    "deepseek-67b": "deepseek_67b",
     "qwen3-8b": "qwen3_8b",
+    "mistral-large-123b": "mistral_large_123b",
+    "gemma2-2b": "gemma2_2b",
+    "musicgen-large": "musicgen_large",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

@@ -48,7 +48,7 @@
 //   folded into the scale, the running max and its -1e9 floor kept in log2
 //   units.
 //
-// * SIMT (fp32 at every head dim, bf16 at hd 16 and 32): flash_fwd_kernel.
+// * SIMT (fp32 at every head dim, bf16 at hd 16, 32 and 256): flash_fwd_kernel.
 //   The fp32 tolerance of 2e-6 rules out TF32 and bf16 tensor cores, so it
 //   multiplies in fp32 on the CUDA cores (bf16 inputs are exact in fp32),
 //   in the Pallas kernel's order (q scaled first). One CTA per (query tile
@@ -61,7 +61,11 @@
 //   and row sum are reduced across the 16 lanes of a half-warp with
 //   shuffles, p goes through shared memory (transposed) and each thread
 //   accumulates a 4 x hd/16 slice of the output in registers. Query tiles
-//   are launched heaviest first.
+//   are launched heaviest first. At hd 256 (gemma2) a thread holds 64 fp32
+//   accumulators, and fp32 tiles take 214,016 bytes of shared memory (one
+//   CTA per SM; bf16 115,712), under the 232,448-byte opt-in limit. The
+//   wgmma route's tiles do not fit at 256 (Q 64 KB + a 3-stage K/V ring of
+//   192 KB), so bf16 at 256 runs here.
 //
 // Neither route uses atomics or splits the kv axis: every sum has a fixed
 // order, so the same inputs give the same bits on every run.
@@ -335,6 +339,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
            int KV, float scale, int causal, int window, float softcap, void* stream) {
   using S = typename D::S;
   constexpr size_t smem = smem_bytes<D, HD>();
+  static_assert(smem <= 232448, "over the sm_90 opt-in shared memory per block");
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -359,6 +364,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, in
       return launch<D, 64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap, stream);
     case 128:
       return launch<D, 128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap, stream);
+    case 256:
+      return launch<D, 256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -860,9 +867,9 @@ extern "C" {
 // cudaGetLastError() (0 on success). q, o: [B,Sq,H,hd]; k, v: [B,Skv,KV,hd];
 // contiguous, 16-byte aligned; Sq <= Skv; scale = hd^-0.5.
 
-// SIMT route: all fp32 (bf16 == 0) with hd in {16, 32, 64, 128}, or all
-// bf16 (bf16 == 1) with hd in {16, 32} (bf16 at 64 and 128 takes the wgmma
-// route); B*H < 65536.
+// SIMT route: all fp32 (bf16 == 0) with hd in {16, 32, 64, 128, 256}, or
+// all bf16 (bf16 == 1) with hd in {16, 32, 256} (bf16 at 64 and 128 takes
+// the wgmma route); B*H < 65536.
 int flash_attention_fwd_simt(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                              int Skv, int H, int KV, int hd, int bf16, int causal, int window,
                              float softcap, float scale, void* stream) {
@@ -877,6 +884,9 @@ int flash_attention_fwd_simt(const void* q, const void* k, const void* v, void* 
     case 32:
       return launch<BF16, 32>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap,
                               stream);
+    case 256:
+      return launch<BF16, 256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap,
+                               stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,7 +5,7 @@ Generate k tokens, dump the session (KV cache + output cursor), stop,
 restore in a fresh process, continue: the output equals an uninterrupted
 run's (tests/test_torch_serving.py).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --tiny --device cuda --prompt-len 16 --gen 32 --batch 4 \\
       --ckpt-dir /tmp/serve_ck --ckpt-at 10 [--stop-after-ckpt | --resume]
 
@@ -28,7 +28,7 @@ from repro_torch.serving import ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b", choices=configs.ARCH_NAMES)
+    ap.add_argument("--arch", default="gemma2-2b", choices=configs.ARCH_NAMES)
     ap.add_argument("--tiny", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--device", default="cuda",

@@ -300,7 +300,7 @@ def test_every_ported_capability_probes_supported_on_cpu(report):
     bad = [(c.name, c.detail) for c in report
            if not c.supported and c.name not in NOT_PORTED]
     assert not bad, bad
-    for row in (7, 11, 12, 13, 14, 18):
+    for row in (7, 11, 12, 13, 14, 16, 18):
         assert report.supported(api.TABLE1[row][2]), row
     assert "plain" in report["device_codec"].detail
     assert "bit for bit" in report["device_state_capture"].detail
@@ -313,6 +313,21 @@ def test_unported_capabilities_name_the_missing_module(report, name):
     assert "not ported" in cap.detail and NOT_PORTED[name] in cap.detail
     # the probe never reaches for the JAX package
     assert "repro." not in cap.detail.replace("repro_torch", "")
+
+
+def test_not_ported_is_fleet_and_socket_only():
+    assert set(NOT_PORTED) == {"fleet_coordination", "socket_transport"}
+
+
+def test_live_serving_probe_passes_on_cpu(report):
+    """Table-1 row 16 runs the port's own serving plane (SessionManager
+    and TrafficGenerator on gemma2-2b tiny): dumped at a decode boundary
+    and adopted on a fresh replica, digest verified."""
+    cap = report["live_serving"]
+    assert cap.supported, cap.detail
+    assert cap.paper_row == 16 and api.TABLE1[16][2] == "live_serving"
+    assert "plane on cpu" in cap.detail and "digest verified" in cap.detail
+    assert "in-flight" in cap.detail and "not ported" not in cap.detail
 
 
 def test_capabilities_need_a_card_unless_cpu_is_asked():

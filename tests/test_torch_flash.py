@@ -44,6 +44,13 @@ SWEEP = [
     (1, 512, 512, 2, 1, 128, True, 128, 30.0),  # window + softcap, MQA
     (3, 128, 128, 6, 6, 64, True, 0, 0.0),
 ]
+# head dim 256 (gemma2-2b), which the JAX package's kernel takes and its
+# sweep does not reach: GQA, and gemma2's window + attention softcap
+SWEEP_256 = [
+    (1, 128, 128, 2, 1, 256, True, 0, 0.0),
+    (1, 256, 256, 4, 2, 256, True, 64, 50.0),
+]
+CPU_CASES = SWEEP + SWEEP_256
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
@@ -96,7 +103,7 @@ def _err(t, want):
     return float(np.abs(t.to(torch.float32).numpy() - want).max())
 
 
-@pytest.mark.parametrize("case", SWEEP)
+@pytest.mark.parametrize("case", CPU_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_version_matches_jax_reference(case, dtype, J):
     _, _, _, _, _, _, causal, window, cap = case
@@ -107,7 +114,7 @@ def test_plain_version_matches_jax_reference(case, dtype, J):
     assert _err(out, ref) < TOL[dtype]
 
 
-@pytest.mark.parametrize("case", SWEEP)
+@pytest.mark.parametrize("case", CPU_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wrapper_on_cpu_matches_pallas_interpret(case, dtype, J):
     """K6's wrapper takes a CPU tensor to its plain version; that agrees
@@ -122,7 +129,7 @@ def test_wrapper_on_cpu_matches_pallas_interpret(case, dtype, J):
     assert _err(out, ref) < TOL[dtype]
 
 
-@pytest.mark.parametrize("case", SWEEP)
+@pytest.mark.parametrize("case", CPU_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cpu_dispatch_matches_jax(case, dtype, J):
     """ops.flash_attention on CPU tensors is the port's xla_flash with the
@@ -136,7 +143,7 @@ def test_cpu_dispatch_matches_jax(case, dtype, J):
     assert _err(out, pallas) < TOL[dtype]
 
 
-@pytest.mark.parametrize("case", [c for c in SWEEP if c[1] == c[2]])
+@pytest.mark.parametrize("case", [c for c in CPU_CASES if c[1] == c[2]])
 def test_xla_flash_matches_jax_xla_flash(case, J):
     """Small chunks, so the windowed path and multi-chunk online softmax
     run on both sides."""
@@ -183,12 +190,20 @@ def test_decode_attention_matches_jax(KV, window, cap, dtype, J):
         assert _err(got, np.asarray(ref)) < 2e-6
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_route_depends_on_dtype_and_head_dim_alone(dtype, hd):
     want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "simt"
     assert k6.route(getattr(torch, dtype), hd) == want
     assert want in k6.ROUTE_LAUNCHES
+    assert hd in k6.HEAD_DIMS
+
+
+def test_gemma2_head_dim_takes_the_simt_route():
+    """gemma2-2b's head dim 256: the wgmma route's tiles do not fit, so bf16
+    at 256 takes the SIMT route, like fp32."""
+    assert k6.route(torch.bfloat16, 256) == "simt"
+    assert 256 not in k6.WGMMA_HEAD_DIMS
 
 
 def test_every_bound_entry_point_is_extern_c_in_the_source():
@@ -212,7 +227,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-CARD = SWEEP + [
+CARD = CPU_CASES + [
     (2, 1000, 1000, 4, 2, 128, True, 0, 0.0),    # ragged: 1000 = 15 * 64 + 40
     (1, 77, 300, 4, 1, 64, True, 0, 0.0),        # ragged q and kv, q_offset
     (1, 200, 200, 2, 2, 32, False, 0, 0.0),      # not causal
@@ -220,6 +235,8 @@ CARD = SWEEP + [
     (2, 40, 40, 4, 2, 16, True, 0, 0.0),         # qwen3 tiny's head_dim
     (1, 2048, 2048, 32, 8, 128, True, 0, 0.0),   # a serving prompt's shape
     (2, 384, 384, 4, 2, 64, True, 96, 30.0),     # window + softcap at hd 64
+    (2, 1000, 1000, 8, 4, 256, True, 0, 0.0),    # ragged at gemma2's head dim
+    (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0),  # gemma2's long prefill
 ]
 
 

@@ -1,6 +1,8 @@
 """repro_torch model, optimizer and train state vs the JAX package, on
-qwen3-8b ``tiny()`` with the JAX package's weights carried across by
-``from_jax``. Tolerances:
+qwen3-8b ``tiny()`` (and, for param counts, hidden states and losses, on
+every architecture the port runs: deepseek-67b, qwen3-8b,
+mistral-large-123b, gemma2-2b and musicgen-large) with the JAX package's
+weights carried across by ``from_jax``. Tolerances:
 
   * fp32 compute: 1e-5 — the same math in float32, summed in another order;
   * bf16 compute: loss within 1e-2 — XLA and torch round bf16 matmul outputs
@@ -52,6 +54,35 @@ from repro_torch.training import (abstract_train_state,  # noqa: E402
                                   init_train_state, make_train_step)
 
 
+# the architectures the port's models run, in the JAX package's order
+ARCHS = ["deepseek-67b", "qwen3-8b", "mistral-large-123b", "gemma2-2b",
+         "musicgen-large"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch_pair(request):
+    """(cfg, JAX LM, JAX params, port LM, port params) for one arch's
+    ``tiny()``, the weights carried across by ``from_jax``."""
+    cfg = get_tiny(request.param)
+    jlm = JLM(cfg)
+    jparams = jlm.init(jax.random.PRNGKey(0))
+    tlm = LM(tconfigs.get_tiny(request.param))
+    return cfg, jlm, jparams, tlm, from_jax(jax.tree.map(np.asarray,
+                                                         jparams), "cpu")
+
+
+def test_arch_names_are_the_ported_jax_archs_in_order():
+    from repro.configs import ARCH_NAMES as JNAMES
+    assert list(tconfigs.ARCH_NAMES) == ARCHS
+    assert [a for a in JNAMES if a in ARCHS] == ARCHS
+    import dataclasses
+    for arch in ARCHS:
+        for tget, jget in ((tconfigs.get_config, get_config),
+                           (tconfigs.get_tiny, get_tiny)):
+            assert dataclasses.asdict(tget(arch)) == \
+                dataclasses.asdict(jget(arch)), arch
+
+
 @pytest.fixture(scope="module")
 def pair():
     cfg = get_tiny("qwen3-8b")
@@ -79,11 +110,12 @@ def test_abstract_train_state_matches_jax_full_width():
     assert all(t.device.type == "meta" for _, t in flatten_with_paths(st))
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("arch_cfg", ["tiny", "full"])
-def test_param_counts_match(arch_cfg):
+def test_param_counts_match(arch_cfg, arch):
     get = get_tiny if arch_cfg == "tiny" else get_config
     tget = tconfigs.get_tiny if arch_cfg == "tiny" else tconfigs.get_config
-    assert LM(tget("qwen3-8b")).n_params() == JLM(get("qwen3-8b")).n_params()
+    assert LM(tget(arch)).n_params() == JLM(get(arch)).n_params()
 
 
 def test_init_is_seeded_and_shaped(pair):
@@ -131,20 +163,22 @@ def test_flash_attention_matches_fp32(chunks):
     np.testing.assert_allclose(got, want, atol=2e-6)
 
 
-def test_hidden_states_fp32(pair):
-    cfg, jlm, jstate, tlm, params = pair
+def test_hidden_states_fp32(arch_pair):
+    """fp32 hidden states after the final norm, 32 tokens: past gemma2
+    tiny's 16-token window, through both softcaps and post norms."""
+    cfg, jlm, jparams, tlm, params = arch_pair
     toks = _tokens(cfg, 0)
-    hj, _, _ = jlm.forward(jstate["params"], tokens=jnp.asarray(toks),
+    hj, _, _ = jlm.forward(jparams, tokens=jnp.asarray(toks),
                            compute_dtype=jnp.float32)
     ht, _ = tlm.forward(params, tokens=torch.from_numpy(toks).long(),
                         compute_dtype=torch.float32)
     np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-5)
 
 
-def test_loss_bf16(pair):
-    cfg, jlm, jstate, tlm, params = pair
+def test_loss_bf16(arch_pair):
+    cfg, jlm, jparams, tlm, params = arch_pair
     toks = _tokens(cfg, 1)
-    lj, _ = jlm.loss(jstate["params"], {"tokens": jnp.asarray(toks)})
+    lj, _ = jlm.loss(jparams, {"tokens": jnp.asarray(toks)})
     lt, _ = tlm.loss(params, {"tokens": torch.from_numpy(toks).long()})
     assert lt.dtype == torch.float32
     assert abs(float(lj) - float(lt)) < 1e-2

@@ -3,7 +3,9 @@ the JAX package's weights carried across by ``from_jax`` and prompts from
 numpy:
 
   * prefill logits and KV cache, then 4 decode steps fed the same tokens,
-    against ``repro.models.LM`` — fp32 compute: logits within ``F32_TOL``
+    against ``repro.models.LM``, for every architecture the port runs
+    (deepseek-67b, qwen3-8b, mistral-large-123b, gemma2-2b with its
+    window and softcaps, musicgen-large) — fp32 compute: logits within ``F32_TOL``
     = 1e-5 absolute (the same math in float32, summed in another order;
     measured worst on this config 3.6e-6 of logits up to ~4), caches within
     1e-5; bf16 compute: logits within ``BF16_REL`` = 3e-2 of the largest
@@ -27,7 +29,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.api import CheckpointSession as JSession  # noqa: E402
-from repro.configs import get_tiny  # noqa: E402
+from repro.configs import get_config, get_tiny  # noqa: E402
 from repro.models.model import LM as JLM  # noqa: E402
 from repro.serving import ServeEngine as JEngine  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
@@ -41,6 +43,24 @@ from repro_torch.serving import ServeEngine  # noqa: E402
 F32_TOL = 1e-5
 BF16_REL = 3e-2
 B, SP, GEN, CUT = 2, 12, 12, 6
+# the arch cases' prompts: decode writes positions 14..17, past gemma2
+# tiny's 16-token window
+SP_ARCH, DECODE = 14, 4
+# the architectures the port's models run, in the JAX package's order
+ARCHS = ["deepseek-67b", "qwen3-8b", "mistral-large-123b", "gemma2-2b",
+         "musicgen-large"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch_pair(request):
+    cfg = get_tiny(request.param)
+    jlm = JLM(cfg)
+    jparams = jlm.init(jax.random.PRNGKey(0))
+    tlm = LM(tconfigs.get_tiny(request.param))
+    params = from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, SP_ARCH)).astype(np.int32)
+    return cfg, jlm, jparams, tlm, params, prompts
 
 
 @pytest.fixture(scope="module")
@@ -60,8 +80,8 @@ def _np(t):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_match_jax(pair, dtype):
-    cfg, jlm, jparams, tlm, params, prompts = pair
+def test_prefill_and_decode_match_jax(arch_pair, dtype):
+    cfg, jlm, jparams, tlm, params, prompts = arch_pair
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
 
     def close(tl, jl):
@@ -69,13 +89,13 @@ def test_prefill_and_decode_match_jax(pair, dtype):
         tol = F32_TOL if dtype == "float32" \
             else BF16_REL * np.abs(want).max()
         return np.abs(_np(tl) - want).max() < tol
-    S_max = SP + 5
+    S_max = SP_ARCH + DECODE + 1
     jl, jc = jlm.prefill(jparams, tokens=jnp.asarray(prompts), S_max=S_max,
                          compute_dtype=jd)
     tl, tc = tlm.prefill(params, tokens=torch.from_numpy(prompts).long(),
                          S_max=S_max, compute_dtype=td)
     assert tl.shape == (B, cfg.padded_vocab) and tl.dtype == torch.float32
-    assert int(tc["pos"]) == int(jc["pos"]) == SP
+    assert int(tc["pos"]) == int(jc["pos"]) == SP_ARCH
     assert tc["stack"]["b0"]["k"].shape == jc["stack"]["b0"]["k"].shape
     assert tc["stack"]["b0"]["k"].dtype == td
     assert close(tl, jl)
@@ -84,33 +104,40 @@ def test_prefill_and_decode_match_jax(pair, dtype):
             np.testing.assert_allclose(_np(tc["stack"]["b0"][name]),
                                        np.asarray(jc["stack"]["b0"][name]),
                                        atol=1e-5)
-    for _ in range(4):
+    for _ in range(DECODE):
         nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
         jl, jc = jlm.decode_step(jparams, jc, jnp.asarray(nxt),
                                  compute_dtype=jd)
         tl, tc = tlm.decode_step(params, tc, torch.from_numpy(nxt).long(),
                                  compute_dtype=td)
         assert close(tl, jl)
-    assert int(tc["pos"]) == int(jc["pos"]) == SP + 4
+    assert int(tc["pos"]) == int(jc["pos"]) == SP_ARCH + DECODE
     if dtype == "float32":
         np.testing.assert_allclose(_np(tc["stack"]["b0"]["v"]),
                                    np.asarray(jc["stack"]["b0"]["v"]),
                                    atol=1e-5)
 
 
-def test_cache_struct_and_bytes_match_jax(pair):
+def test_cache_struct_and_bytes_match_jax(arch_pair):
     from repro.models import kvcache as jkv
-    cfg = pair[0]
-    tcfg = tconfigs.get_tiny("qwen3-8b")
+    cfg = arch_pair[0]
+    tcfg = arch_pair[3].cfg
     want = jkv.cache_struct(cfg, 4, 33)
     got = kvcache.cache_struct(tcfg, 4, 33)
     assert tuple(got["stack"]["b0"]["k"].shape) == \
         tuple(want["stack"]["b0"]["k"].shape)
     assert got["stack"]["b0"]["k"].device.type == "meta"
     assert kvcache.cache_bytes(tcfg, 4, 33) == jkv.cache_bytes(cfg, 4, 33)
-    full = tconfigs.get_config("qwen3-8b")
-    assert kvcache.cache_bytes(full, 4, 2081) == \
-        36 * 2 * 4 * 2081 * 8 * 128 * 2 + 4      # bf16 k, v + int32 pos
+    full = tconfigs.get_config(tcfg.name.replace("-tiny", "")) \
+        if tcfg.name != "musicgen-tiny" else tconfigs.get_config(
+            "musicgen-large")
+    assert kvcache.cache_bytes(full, 4, 2081) == jkv.cache_bytes(
+        get_config(full.name), 4, 2081)
+    if full.name == "qwen3-8b":
+        assert kvcache.cache_bytes(full, 4, 2081) == \
+            36 * 2 * 4 * 2081 * 8 * 128 * 2 + 4  # bf16 k, v + int32 pos
+    if full.name == "gemma2-2b":     # 106,496 B of KV per token + pos
+        assert kvcache.cache_bytes(full, 1, 1) == 106_500
 
 
 def test_checkpointed_session_continues_token_for_token(pair, tmp_path):
