@@ -20,13 +20,16 @@ Phases, one line each (plus details):
                bf16 (2e-2), an fp32 case (2e-6), a ragged length, a query
                offset and window + softcap in fp32 and in bf16 at head_dim
                128, gemma2's long prefill (1 x 4608, window 4096, softcap
-               50), an fp32 case and a ragged one at head_dim 256, each on
-               the route route() gives it (wgmma for bf16 at head_dim
-               64/128, SIMT otherwise) and bit-identical on repeat; the
-               serving shape timed beside its bound and
-               scaled_dot_product_attention, the long prefill beside its
-               bound (no library call computes softcapped attention); the wgmma kernels must show
-               0 spill bytes in ptxas's report;
+               50), its odd layers, a query offset, a 256-token prefill,
+               window 128 + softcap 50, a ragged length and fp32 cases at
+               head_dim 256, each on the route route() gives it (wgmma for
+               bf16 at head_dim 64/128/256, SIMT otherwise) and
+               bit-identical on repeat; the serving shape timed beside its
+               bound and scaled_dot_product_attention, the long prefill
+               beside its bound (no library call computes softcapped
+               attention; at most 1.0 ms) and head_dim 256 at each of path
+               9's prefill lengths beside its bound; the three wgmma
+               kernels must show 0 spill bytes in ptxas's report;
   4. train path on qwen3-8b at full width (d_model 4096, 32/8 heads,
                head_dim 128, d_ff 12288, vocab 151936 padded to 152064)
                with num_layers cut from 36 to 2: train 3 steps -> image A
@@ -116,7 +119,7 @@ Phases, one line each (plus details):
                completes the restore (deferred digest check) and runs to
                24. Every session's tokens in B and C must equal R's, and
                K6 must have launched once per layer per prefill, all on the
-               SIMT route (counters zeroed just before, read just after);
+               wgmma route (counters zeroed just before, read just after);
  10. archs: deepseek-67b and mistral-large-123b (2 layers) and
                musicgen-large (full depth) at full width: ServeEngine
                prefill 1 x 2048 and 8 greedy tokens, K6 once per layer on
@@ -199,12 +202,20 @@ FLASH_CASES = [
      0, 0.0, 2e-2, 1.0, False),
     ("window 128 + softcap 30 bf16 x128", 1, 512, 512, 2, 1, 128, "bfloat16",
      128, 30.0, 2e-2, 1.0, False),
-    # gemma2-2b's head dim 256 on the SIMT route: path 9's prefills on the
-    # even (window 4096) and odd (global) layers, attention softcap 50
+    # gemma2-2b's head dim 256 on the wgmma route (a two-stage K/V ring):
+    # path 9's prefills on the even (window 4096) and odd (global) layers,
+    # attention softcap 50; a query offset, the 16-CTA grid of a 256-token
+    # prefill, a window that cuts inside the tiles
     (GEMMA2_LONG_CASE, 1, 4608, 4608, 8, 4, 256, "bfloat16", 4096, 50.0,
      2e-2, 4.0, True),
     ("gemma2 odd layers 1x4608 8/4 heads x256 bf16 softcap 50", 1, 4608,
      4608, 8, 4, 256, "bfloat16", 0, 50.0, 2e-2, 4.0, True),
+    ("q_offset Sq 128 Skv 384 8/4 heads x256 bf16", 1, 128, 384, 8, 4, 256,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    ("gemma2 short prefill 1x256 8/4 heads x256 bf16 softcap 50", 1, 256,
+     256, 8, 4, 256, "bfloat16", 0, 50.0, 2e-2, 4.0, True),
+    ("window 128 + softcap 50 1x512 8/4 heads x256 bf16", 1, 512, 512, 8, 4,
+     256, "bfloat16", 128, 50.0, 2e-2, 4.0, True),
     ("fp32 1x512 2/1 heads x256", 1, 512, 512, 2, 1, 256, "float32", 0, 0.0,
      2e-6, 1.0, False),
     ("fp32 1x512 2/1 heads x256 window 128 softcap 50", 1, 512, 512, 2, 1,
@@ -244,8 +255,10 @@ def smi_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
-    """Median of per-call CUDA-event times (ms)."""
+def cuda_ms(torch, fn, iters: int, warmup: int = 1, batch: int = 1) -> float:
+    """Median of per-call CUDA-event times (ms). With batch > 1, each of the
+    iters times batch back-to-back calls: the device's time per call, the
+    host's launch work hidden behind the calls before it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -254,10 +267,11 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -522,6 +536,7 @@ def flash_phase(torch, dev, seed):
             hd256 = _time_long_prefill(torch, F, k6, reference_attention,
                                        (q, k, v), kw, way, err)
             hd256["max_rel_err"] = worst
+            hd256["by_length"] = _time_plane_prefills(torch, k6, gen, dev)
         if row is None:        # the serving shape: time it
             ms = cuda_ms(torch, lambda: k6.flash_attention_fwd(q, k, v, **kw),
                          iters=20)
@@ -531,17 +546,13 @@ def flash_phase(torch, dev, seed):
             lib = F.scaled_dot_product_attention
             library_ms = cuda_ms(torch, lambda: lib(
                 qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
-            pairs = live_pairs(Sq, Skv, True, window)
-            ops = 4 * B * H * hd * pairs
-            es = q.element_size()
-            nbytes = es * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
-            t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+            bound_ms, bound_by, _, ops, nbytes = _bound(
+                B, Sq, Skv, H, KV, hd, window, q.element_size())
             row = {"name": "flash_attention", "route": "cuda",
                    "source": FLASH_SOURCE,
                    "replaces": REPLACES["flash_attention"], "launches": 0,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(t_ops, t_bytes) * 1e3,
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms, "kernel_route": way,
                    "shape": [B, Sq, Skv, H, KV, hd],
                    "ops": ops, "bytes": nbytes}
@@ -559,9 +570,26 @@ def flash_phase(torch, dev, seed):
     return row
 
 
+# K6 at gemma2's long prefill on the wgmma route may take at most this
+LONG_PREFILL_MAX_MS = 1.0
+# path 9's prefill lengths: the traffic's prompt support, nov0 and long0
+PLANE_PREFILL_LENGTHS = (256, 300, 512, 1024, 2048, 4608)
+
+
+def _bound(B, Sq, Skv, H, KV, hd, window, es=2):
+    """(bound ms, bound_by, live pairs, ops, bytes) of one causal K6 call."""
+    pairs = live_pairs(Sq, Skv, True, window)
+    ops = 4 * B * H * hd * pairs
+    nbytes = es * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", pairs, ops, nbytes)
+
+
 def _time_long_prefill(torch, F, k6, reference_attention, qkv, kw, way, err):
-    """K6 at gemma2's long prefill (SIMT route at head dim 256) beside its
-    bound and its plain version. No single PyTorch call computes softcapped
+    """K6 at gemma2's long prefill (the wgmma route at head dim 256) beside
+    its bound and its plain version; it must take at most
+    LONG_PREFILL_MAX_MS. No single PyTorch call computes softcapped
     attention: SDPA is timed at the same shape without window and softcap,
     and reported as that other function."""
     q, k, v = qkv
@@ -574,15 +602,12 @@ def _time_long_prefill(torch, F, k6, reference_attention, qkv, kw, way, err):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
-    pairs = live_pairs(Sq, Skv, True, kw["window"])
-    ops = 4 * B * H * hd * pairs
-    nbytes = q.element_size() * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
-    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound_ms, bound_by, pairs, ops, nbytes = _bound(
+        B, Sq, Skv, H, KV, hd, kw["window"], q.element_size())
     out = {"kernel_route": way, "shape": [B, Sq, Skv, H, KV, hd],
            "window": kw["window"], "softcap": kw["softcap"],
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "library_note": "none (softcap)",
            "sdpa_causal_no_window_no_softcap_ms": sdpa_ms,
            "live_pairs": pairs, "ops": ops, "bytes": nbytes}
@@ -593,7 +618,49 @@ def _time_long_prefill(torch, F, k6, reference_attention, qkv, kw, way, err):
         f"bound), plain {plain_ms:.1f} ms; library: none (softcap); "
         f"scaled_dot_product_attention at the same shape without window "
         f"and softcap (another function) {sdpa_ms:.3f} ms")
+    check(way == "wgmma" and ms <= LONG_PREFILL_MAX_MS,
+          f"K6 at gemma2's long prefill took {ms:.3f} ms on the {way} route "
+          f"(at most {LONG_PREFILL_MAX_MS} ms on wgmma)")
     return out
+
+
+def _time_plane_prefills(torch, k6, gen, dev):
+    """K6 at head dim 256 (bf16, 8/4 heads, softcap 50) at each of path 9's
+    prefill lengths, on the even layers (window 4096) and the odd (global),
+    each beside its live-pair bound: the device time of back-to-back calls,
+    taken in turns (even, odd, odd, even), and the time of one call alone,
+    the host's launch work included."""
+    rows, parts = [], []
+    for S in PLANE_PREFILL_LENGTHS:
+        q = (4 * torch.randn((1, S, 8, 256), generator=gen,
+                             device=dev)).bfloat16()
+        k, v = ((4 * torch.randn((1, S, 4, 256), generator=gen,
+                                 device=dev)).bfloat16() for _ in range(2))
+        row = {"S": S, "route": k6.route(q.dtype, 256)}
+        for layers, window in (("even", 4096), ("odd", 0), ("odd", 0),
+                               ("even", 4096)):
+            def fn(window=window):
+                return k6.flash_attention_fwd(q, k, v, causal=True,
+                                              window=window, softcap=50.0)
+            bound_ms, _, pairs, _, _ = _bound(1, S, S, 8, 4, 256, window)
+            r = row.setdefault(layers, {"window": window, "ms": [],
+                                        "call_ms": [], "bound_ms": bound_ms,
+                                        "live_pairs": pairs})
+            r["ms"].append(cuda_ms(torch, fn, iters=5, batch=20))
+            r["call_ms"].append(cuda_ms(torch, fn, iters=10))
+        rows.append(row)
+        parts.append(f"{S}: " + ", ".join(
+            f"{layers} {min(r['ms']):.4f}-{max(r['ms']):.4f} ms "
+            f"({r['bound_ms'] / max(r['ms']):.1%}-"
+            f"{r['bound_ms'] / min(r['ms']):.1%} of {r['bound_ms']:.4f}; "
+            f"one call {min(r['call_ms']):.4f}-{max(r['call_ms']):.4f})"
+            for layers, r in ((n, row[n]) for n in ("even", "odd"))))
+        del q, k, v
+    log(f"kernels: flash_attention at head_dim 256 by path 9's prefill "
+        f"length ({rows[0]['route']} route, 1 x S, 8/4 heads, softcap 50; "
+        f"even layers window 4096, odd layers global; back-to-back calls, "
+        f"% of the live-pair bound): " + "; ".join(parts))
+    return rows
 
 
 # -------------------------------------------------------------- train path
@@ -1766,7 +1833,8 @@ def plane_path(torch, dev, args):
     drain and checkpoint into mem://; replica B restored eagerly and
     replica C lazily (nov0's first token before complete_restore), both
     continued to PLANE_TICKS. Every session's tokens in B and C must equal
-    R's; every prefill attention through K6 (SIMT route at head dim 256)."""
+    R's; every prefill attention through K6 (the wgmma route at head dim
+    256)."""
     import numpy as np
 
     from repro_torch.api import CheckpointSession
@@ -1990,11 +2058,11 @@ def plane_path(torch, dev, args):
     clock.close()
     del c, res, nov, held
     log(f"kernels: plane-path launches flash_attention="
-        f"{out['launches']['flash_attention']} (SIMT route {routes['simt']}, "
-        f"wgmma route {routes['wgmma']}) for {prefills} prefills x "
-        f"{cfg.num_layers} layers")
-    check(routes == {"simt": prefills * cfg.num_layers, "wgmma": 0},
-          f"the plane's K6 launches are not one SIMT launch per layer per "
+        f"{out['launches']['flash_attention']} (wgmma route "
+        f"{routes['wgmma']}, SIMT route {routes['simt']}) for {prefills} "
+        f"prefills x {cfg.num_layers} layers")
+    check(routes == {"wgmma": prefills * cfg.num_layers, "simt": 0},
+          f"the plane's K6 launches are not one wgmma launch per layer per "
           f"prefill: {routes}, {prefills} prefills")
     as_tier(uri).delete("chunks")
     as_tier(uri).delete("images")
@@ -2310,7 +2378,7 @@ def main(argv=None) -> int:
         f"plane {record['plane']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K6's row also carries its SIMT-route numbers at gemma2's head dim 256
+    # K6's row also carries its numbers at gemma2's head dim 256
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + (("hd256",) if "hd256" in r else ())}
         for r in record["kernels"]]}))

@@ -20,35 +20,49 @@
 // Two routes, chosen by the wrapper from dtype and head dim alone (no
 // fallback at run time):
 //
-// * wgmma (bf16, hd 64 and 128): flash_fwd_wgmma below. Bound by operations
-//   (the card's bf16 tensor-core rate: ~137 GFLOP of live causal pairs
-//   against ~170 MB at the serving shape, ~0.14 ms), so the products run on
-//   the tensor cores. One CTA per (128-row query tile, b*H + h): two
-//   consumer warpgroups of 64 query rows each and one producer warp. The
-//   producer loads the Q tile once and a ring of STAGES K/V tiles of 64 keys
-//   with TMA (4-D tensor maps over [B, S, heads, hd], so rows past S are
-//   zero-filled within the batch; 128B swizzle, a 128-column row as two
-//   64-column boxes), signalling full/empty mbarriers per stage. Each
-//   consumer warpgroup computes S = Q K^T with wgmma.m64n64k16 from shared
-//   memory (fp32 accumulators), scales, caps and masks S in registers (masks
-//   only on tiles that straddle the diagonal, the window edge or Skv), runs
-//   the online softmax over the 4 lanes of a quad, rounds p to bf16 in
-//   registers and adds P V with wgmma.m64n{hd}k16, p as the register A
-//   operand (the accumulator fragment of S is the A fragment's layout) and V
-//   as the MN-major shared B operand. A warpgroup issues S_j and
-//   P_{j-1} V_{j-1} back to back and runs the softmax of S_j while the second
-//   product runs;
-//   the two warpgroups take turns issuing (named barriers), so one's
-//   products overlap the other's softmax. Tiles the masks empty for the
-//   whole CTA are never loaded; query tiles go heaviest first. Its
-//   deviations from the Pallas kernel: the scale is applied to the fp32
+// * wgmma (bf16, hd 64, 128 and 256): flash_fwd_wgmma below, one instance
+//   per head dim. Bound by operations (the card's bf16 tensor-core rate:
+//   ~137 GFLOP of live causal pairs against ~170 MB at the serving shape,
+//   ~0.14 ms; 85.9 GFLOP against 57 MB at gemma2's 4608-token prefill,
+//   ~0.087 ms), so the products run on the tensor cores. One CTA per
+//   (128-row query tile, b*H + h): two consumer warpgroups of 64 query rows
+//   each and a producer. The producer loads the Q tile once and a ring of
+//   K/V tiles of 64 keys with TMA (4-D tensor maps over [B, S, heads, hd],
+//   so rows past S are zero-filled within the batch; 128B swizzle, a row as
+//   hd/64 boxes of 64 columns), signalling full mbarriers per tile and
+//   empty ones per K and per V slot. Each consumer warpgroup computes
+//   S = Q K^T with wgmma.m64n64k16 from shared memory (fp32 accumulators),
+//   scales, caps and masks S in registers (masks only on tiles that
+//   straddle the diagonal, the window edge or Skv), runs the online softmax
+//   over the 4 lanes of a quad, rounds p to bf16 in registers and adds P V
+//   with wgmma.m64n{hd}k16, p as the register A operand (the accumulator
+//   fragment of S is the A fragment's layout) and V as the MN-major shared
+//   B operand. A warpgroup issues S_j and P_{j-1} V_{j-1} back to back and
+//   runs the softmax of S_j while the second product runs; it frees K_j's
+//   slot once S_j has landed and V_{j-1}'s once its product has, so the
+//   copy of a tile overlaps a whole step. The two warpgroups take turns
+//   issuing (named barriers), so one's products overlap the other's
+//   softmax. Tiles the masks empty for the whole CTA are never loaded;
+//   query tiles go heaviest first.
+//   Per head dim (Cfg, Smem): at 64 and 128 a 3-stage ring and a producer
+//   warp (288 threads). At 256 (gemma2) the Q tile is 64 KB and a K/V
+//   stage 64 KB, so the ring has 2 stages (192 KB with Q, under the
+//   232,448-byte limit); a thread holds 128 fp32 O accumulators, 32 of S
+//   and 16 bf16 pairs of P across the overlapped step, more than the 224
+//   registers 288 threads may each take (ptxas spills there), so the
+//   producer is a whole warpgroup (384 threads) that gives its registers
+//   to the consumers with setmaxnreg (24 for the producer, 240 for each
+//   consumer thread), and P V is one wgmma.m64n256k16.
+//   Its deviations from the Pallas kernel: the scale is applied to the fp32
 //   product (the Pallas kernel scales q first; the bf16 products are exact,
 //   so only the rounding of the sums differs); p is rounded to bf16
 //   (above); the sums are taken in tensor-core order; exp2 with log2(e)
 //   folded into the scale, the running max and its -1e9 floor kept in log2
-//   units.
+//   units; the softcap is computed as cap - 2 cap / (e^(2 s / cap) + 1)
+//   with ex2.approx and rcp.approx (within ~1e-6 of tanhf; __fdiv_rn and
+//   tanhf took about half the kernel's time at gemma2's prefill).
 //
-// * SIMT (fp32 at every head dim, bf16 at hd 16, 32 and 256): flash_fwd_kernel.
+// * SIMT (fp32 at every head dim, bf16 at hd 16 and 32): flash_fwd_kernel.
 //   The fp32 tolerance of 2e-6 rules out TF32 and bf16 tensor cores, so it
 //   multiplies in fp32 on the CUDA cores (bf16 inputs are exact in fp32),
 //   in the Pallas kernel's order (q scaled first). One CTA per (query tile
@@ -61,11 +75,9 @@
 //   and row sum are reduced across the 16 lanes of a half-warp with
 //   shuffles, p goes through shared memory (transposed) and each thread
 //   accumulates a 4 x hd/16 slice of the output in registers. Query tiles
-//   are launched heaviest first. At hd 256 (gemma2) a thread holds 64 fp32
-//   accumulators, and fp32 tiles take 214,016 bytes of shared memory (one
-//   CTA per SM; bf16 115,712), under the 232,448-byte opt-in limit. The
-//   wgmma route's tiles do not fit at 256 (Q 64 KB + a 3-stage K/V ring of
-//   192 KB), so bf16 at 256 runs here.
+//   are launched heaviest first. At hd 256 a thread holds 64 fp32
+//   accumulators, and the fp32 tiles take 214,016 bytes of shared memory
+//   (one CTA per SM), under the 232,448-byte opt-in limit.
 //
 // Neither route uses atomics or splits the kv axis: every sum has a fixed
 // order, so the same inputs give the same bits on every run.
@@ -74,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -377,20 +391,30 @@ namespace wg {
 
 constexpr int BQ = 128;          // query rows per CTA: two consumer warpgroups of 64
 constexpr int BK = 64;           // keys per tile
-constexpr int STAGES = 3;        // K/V ring depth
 constexpr int NCONS = 256;       // consumer threads
-constexpr int NT = NCONS + 32;   // + the producer warp
 constexpr int BOX = 64;          // columns per TMA box: 128 bytes, the 128B swizzle's width
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
+struct Cfg {
+  // K/V ring depth: at 256 a stage is 64 KB (K and V tiles of 32 KB), and
+  // the 64 KB Q tile leaves room for two
+  static constexpr int ST = HD == 256 ? 2 : 3;
+  // the producer: one warp, or at 256 a whole warpgroup, so that setmaxnreg
+  // can hand its registers to the consumers (128 x 24 + 256 x 240 <= 65,536)
+  static constexpr int NPROD = HD == 256 ? 128 : 32;
+  static constexpr int NT = NCONS + NPROD;
+};
+
+template <int HD>
 struct Smem {                                    // byte offsets from a 1024-aligned base
-  static constexpr int NH = HD / BOX;            // 64-column halves of a row
+  static constexpr int ST = Cfg<HD>::ST;
+  static constexpr int NH = HD / BOX;            // 64-column blocks of a row
   static constexpr int Q = 0;                    // [NH][BQ][64] bf16
-  static constexpr int K = Q + NH * BQ * BOX * 2;    // [STAGES][NH][BK][64]
-  static constexpr int V = K + STAGES * NH * BK * BOX * 2;
-  static constexpr int BAR = V + STAGES * NH * BK * BOX * 2;
-  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES);
+  static constexpr int K = Q + NH * BQ * BOX * 2;    // [ST][NH][BK][64]
+  static constexpr int V = K + ST * NH * BK * BOX * 2;
+  static constexpr int BAR = V + ST * NH * BK * BOX * 2;
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * ST);  // full_q; full and empty of K and V
   static constexpr uint32_t KV_TILE_BYTES = NH * BK * BOX * 2;   // one K (or V) tile
   static constexpr uint32_t Q_BYTES = NH * BQ * BOX * 2;
 };
@@ -544,6 +568,43 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// d[0:128] += A[64x16] (registers, bf16) . B[16x256] (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127"
+      "}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 template <int HD>
 struct PV;  // O[64 x HD] += P[64 x 16] . V[16 x HD]
 template <>
@@ -558,10 +619,22 @@ struct PV<128> {
     wgmma_rs_n128(d, a, db);
   }
 };
+template <>
+struct PV<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+    wgmma_rs_n256(d, a, db);
+  }
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -569,15 +642,17 @@ __device__ __forceinline__ float ex2(float x) {
 // issues S_j = Q K_j^T and O += P_{j-1} V_{j-1} back to back, so its softmax
 // of S_j overlaps its own P V product; named barriers 1 and 2 make the two
 // warpgroups take turns issuing, so one's products run while the other
-// computes its softmax.
+// computes its softmax. K_j's slot is freed once S_j has landed and V_j's
+// once its product has, so with two stages the copies of K_{j+2} and V_{j+1}
+// run during step j + 1.
 template <int HD>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(Cfg<HD>::NT, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, uint16_t* __restrict__ o, int Sq,
                     int Skv, int H, int KV, float scale, float scale_log2, int causal, int window,
                     float softcap) {
   using L = Smem<HD>;
-  constexpr int NH = L::NH, ST = STAGES;
+  constexpr int NH = L::NH, ST = L::ST;
   constexpr int NO = HD / 2;  // O accumulator registers per thread
   constexpr int NS = BK / 2;  // S accumulator registers per thread
 
@@ -589,7 +664,8 @@ __global__ void __launch_bounds__(NT, 1)
   uint64_t* full_q = reinterpret_cast<uint64_t*>(base + L::BAR);
   uint64_t* full_k = full_q + 1;
   uint64_t* full_v = full_k + ST;
-  uint64_t* empty = full_v + ST;
+  uint64_t* empty_k = full_v + ST;
+  uint64_t* empty_v = empty_k + ST;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
@@ -612,23 +688,26 @@ __global__ void __launch_bounds__(NT, 1)
     for (int s = 0; s < ST; ++s) {
       mbar_init(full_k + s, 1);
       mbar_init(full_v + s, 1);
-      mbar_init(empty + s, NCONS / 32);  // one arrival per consumer warp
+      mbar_init(empty_k + s, NCONS / 32);  // one arrival per consumer warp
+      mbar_init(empty_v + s, NCONS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == NCONS / 32) {  // the producer warp: one lane issues every copy
-    if (lane == 0) {
+  if (warp >= NCONS / 32) {  // the producer: one lane issues every copy
+    if constexpr (Cfg<HD>::NPROD == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (warp == NCONS / 32 && lane == 0) {
       mbar_expect_tx(full_q, L::Q_BYTES);
       for (int c = 0; c < NH; ++c) tma_load(Qs + c * BQ * BOX, &tq, full_q, c * BOX, h, q0, b);
       for (int t = t_begin; t < t_end; ++t) {
         const int i = t - t_begin, s = i % ST, r = i / ST;
-        if (r > 0) mbar_wait(empty + s, (r - 1) & 1);
+        if (r > 0) mbar_wait(empty_k + s, (r - 1) & 1);
         // the full box bytes, also where TMA zero-fills rows past Skv
         mbar_expect_tx(full_k + s, L::KV_TILE_BYTES);
         for (int c = 0; c < NH; ++c)
           tma_load(Ks + (s * NH + c) * BK * BOX, &tk, full_k + s, c * BOX, kvh, t * BK, b);
+        if (r > 0) mbar_wait(empty_v + s, (r - 1) & 1);
         mbar_expect_tx(full_v + s, L::KV_TILE_BYTES);
         for (int c = 0; c < NH; ++c)
           tma_load(Vs + (s * NH + c) * BK * BOX, &tv, full_v + s, c * BOX, kvh, t * BK, b);
@@ -642,6 +721,7 @@ __global__ void __launch_bounds__(NT, 1)
   // 8j + 2(lane%4) (the wgmma D fragment). Both warpgroups walk every tile
   // of the CTA (the masks empty what a warpgroup's rows cannot see), so
   // their turns pair up and no wgmma sits in a divergent branch.
+  if constexpr (Cfg<HD>::NPROD == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
   const int g = warp >> 2, w = warp & 3;
   const int cq = (lane & 3) * 2;
   const int wr = q0 + 64 * g;
@@ -658,6 +738,10 @@ __global__ void __launch_bounds__(NT, 1)
   float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
   float l[2] = {0.0f, 0.0f};            // this thread's part of the row sums
   const uint32_t q_base = smem_u32(Qs) + g * 64 * BOX * 2;
+  // the cap as softcap - 2 softcap / (e^(2 s / softcap) + 1): two MUFU ops
+  // (ex2, rcp) and three FP32 ops a score
+  const float cap_e = softcap != 0.0f ? 2.0f * kLog2e * scale / softcap : 0.0f;
+  const float cap_l = softcap * kLog2e, cap_m2 = -2.0f * cap_l;
 
   auto issue_s = [&](int j) {  // S_j = Q K_j^T; k-steps 0-3 read the first 64 columns
     const uint32_t k_base = smem_u32(Ks + (j % ST) * NH * BK * BOX);
@@ -690,28 +774,40 @@ __global__ void __launch_bounds__(NT, 1)
   auto softmax = [&](int j, float (&corr)[2]) {
     fence_regs(sacc);
     const int k0 = (t_begin + j) * BK;
-    // scale (log2 units), softcap, masks on tiles that straddle an edge
+    // scale (log2 units), softcap, masks on tiles that straddle an edge;
+    // one loop per case, so a tile without an edge or a cap runs none of
+    // their instructions (a test inside the unrolled loop is predicated,
+    // and its instructions issue on every tile)
     const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > wq_lo) ||
                       (window && k0 <= wq_hi - window);
     float mx[2] = {kNeg, kNeg};
+    auto scores = [&](auto with_edge, auto with_cap) {
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      float x = sacc[i];
-      if (softcap != 0.0f) {
-        x = __fmul_rn(tanhf(__fdiv_rn(__fmul_rn(x, scale), softcap)), softcap) * kLog2e;
-      } else {
-        x *= scale_log2;
+      for (int i = 0; i < NS; ++i) {
+        float x = sacc[i];
+        if constexpr (decltype(with_cap)::value) {  // softcap * tanh(s / softcap)
+          x = __fmaf_rn(rcp_approx(ex2(x * cap_e) + 1.0f), cap_m2, cap_l);
+        } else {
+          x *= scale_log2;
+        }
+        if constexpr (decltype(with_edge)::value) {
+          const int kp = k0 + (i >> 2) * 8 + cq + (i & 1);
+          const int qp = qp0 + ((i >> 1) & 1) * 8;
+          bool ok = kp < Skv;  // TMA zero-filled the keys past Skv: s = 0 there, not -inf
+          if (causal) ok = ok && qp >= kp;
+          if (window) ok = ok && qp - kp < window;
+          x = ok ? x : kNeg;
+        }
+        sacc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
       }
-      if (edge) {
-        const int kp = k0 + (i >> 2) * 8 + cq + (i & 1);
-        const int qp = qp0 + ((i >> 1) & 1) * 8;
-        bool ok = kp < Skv;  // TMA zero-filled the keys past Skv: s = 0 there, not -inf
-        if (causal) ok = ok && qp >= kp;
-        if (window) ok = ok && qp - kp < window;
-        x = ok ? x : kNeg;
-      }
-      sacc[i] = x;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    };
+    using Y = std::true_type;
+    using N = std::false_type;
+    if (softcap != 0.0f) {
+      if (edge) scores(Y{}, Y{}); else scores(N{}, Y{});
+    } else {
+      if (edge) scores(Y{}, N{}); else scores(N{}, N{});
     }
     float msafe[2];
 #pragma unroll
@@ -742,9 +838,9 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
     for (int i = 0; i < NO; ++i) oacc[i] *= corr[(i >> 1) & 1];
   };
-  auto release = [&](int j) {  // this warp is done with tile j's stage
+  auto release = [&](uint64_t* bar) {  // this warp is done with a K or V slot
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + j % ST);
+    if (lane == 0) mbar_arrive(bar);
   };
 
   mbar_wait(full_q, 0);
@@ -755,6 +851,7 @@ __global__ void __launch_bounds__(NT, 1)
   issue_s(0);
   named_arrive(2 - g);
   wgmma_wait<0>();
+  release(empty_k);
   softmax(0, corr);
   to_p(corr);
   for (int j = 1; j < n; ++j) {  // S_j and P_{j-1} V_{j-1} back to back
@@ -764,12 +861,13 @@ __global__ void __launch_bounds__(NT, 1)
     issue_s(j);
     issue_pv(j - 1);
     named_arrive(2 - g);
-    wgmma_wait<1>();
+    wgmma_wait<1>();  // S_j has landed: K_j's slot is free
+    release(empty_k + j % ST);
     softmax(j, corr);
     wgmma_wait<0>();
     fence_regs(oacc);
     fence_regs(pf);
-    release(j - 1);
+    release(empty_v + (j - 1) % ST);
     to_p(corr);
   }
   mbar_wait(full_v + (n - 1) % ST, ((n - 1) / ST) & 1);
@@ -778,7 +876,7 @@ __global__ void __launch_bounds__(NT, 1)
   named_arrive(2 - g);
   wgmma_wait<0>();
   fence_regs(oacc);
-  release(n - 1);
+  release(empty_v + (n - 1) % ST);
   if (g == 0) named_sync(1);  // warpgroup 1's last arrival
 
 #pragma unroll
@@ -847,11 +945,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
       !make_map(&tv, v, B, Skv, KV, HD, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Smem<HD>::BYTES + 1024;  // + room to align the base to 1024
+  static_assert(smem <= 232448, "over the sm_90 opt-in shared memory per block");
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_wgmma<HD><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_wgmma<HD><<<grid, Cfg<HD>::NT, smem, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<uint16_t*>(o), Sq, Skv, H, KV, scale, scale * kLog2e, causal,
       window, softcap);
   return static_cast<int>(cudaGetLastError());
@@ -868,7 +967,7 @@ extern "C" {
 // contiguous, 16-byte aligned; Sq <= Skv; scale = hd^-0.5.
 
 // SIMT route: all fp32 (bf16 == 0) with hd in {16, 32, 64, 128, 256}, or
-// all bf16 (bf16 == 1) with hd in {16, 32, 256} (bf16 at 64 and 128 takes
+// all bf16 (bf16 == 1) with hd in {16, 32} (bf16 at 64, 128 and 256 takes
 // the wgmma route); B*H < 65536.
 int flash_attention_fwd_simt(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                              int Skv, int H, int KV, int hd, int bf16, int causal, int window,
@@ -884,15 +983,12 @@ int flash_attention_fwd_simt(const void* q, const void* k, const void* v, void* 
     case 32:
       return launch<BF16, 32>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap,
                               stream);
-    case 256:
-      return launch<BF16, 256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap,
-                               stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// wgmma route: all bf16, hd in {64, 128}. Fails with cudaErrorInvalidValue
+// wgmma route: all bf16, hd in {64, 128, 256}. Fails with cudaErrorInvalidValue
 // if the driver's tensor-map encoder is missing or refuses a map.
 int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                               int Skv, int H, int KV, int hd, int causal, int window,
@@ -902,6 +998,9 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void*
       return wg::launch<64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap, stream);
     case 128:
       return wg::launch<128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap,
+                             stream);
+    case 256:
+      return wg::launch<256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window, softcap,
                              stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -11,11 +11,13 @@ reaches the plain version: the wrapper launches a kernel or raises.
                        flash_attention_fwd (_kernel)
 
 Two routes, chosen by ``route(dtype, head_dim)`` alone, never by a retry:
-``"wgmma"`` (bf16 at head dims 64 and 128: tensor cores, TMA-staged K/V
-tiles) and ``"simt"`` (fp32 at every head dim, whose 2e-6 tolerance rules
-out tensor cores, and bf16 at head dims 16, 32 and 256: fp32 FMAs on the
-CUDA cores; gemma2's head dim 256 does not fit the wgmma route's tiles). Unlike the Pallas kernel both take any Sq <= Skv (the ragged last
-tiles are masked by position). See the .cu file for the designs.
+``"wgmma"`` (bf16 at head dims 64, 128 and 256: tensor cores, TMA-staged
+K/V tiles; at 256, gemma2's head dim, a two-stage ring) and ``"simt"``
+(fp32 at every head dim, whose 2e-6 tolerance rules out tensor cores, and
+bf16 at head dims 16 and 32: fp32 FMAs on the CUDA cores). A failure of
+either to build or launch raises. Unlike the Pallas kernel both take any
+Sq <= Skv (the ragged last tiles are masked by position). See the .cu
+file for the designs.
 
 ``LAUNCHES["flash_attention"]`` counts kernel launches of either route and
 ``ROUTE_LAUNCHES`` each route's (plain-version calls are not counted), so a
@@ -43,7 +45,7 @@ LIB = Library(
     error_fn="flash_error_string")
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 LAUNCHES = {"flash_attention": 0}
 ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 _lock = threading.Lock()
@@ -57,8 +59,8 @@ def reset_launches():
 
 
 def route(dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at head dims 64
-    and 128, ``"simt"`` otherwise (fp32, and bf16 at 16, 32 and 256)."""
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at head dims 64,
+    128 and 256, ``"simt"`` otherwise (fp32, and bf16 at 16 and 32)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"

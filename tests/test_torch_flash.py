@@ -193,17 +193,19 @@ def test_decode_attention_matches_jax(KV, window, cap, dtype, J):
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_route_depends_on_dtype_and_head_dim_alone(dtype, hd):
-    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "simt"
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128, 256) else "simt"
     assert k6.route(getattr(torch, dtype), hd) == want
     assert want in k6.ROUTE_LAUNCHES
     assert hd in k6.HEAD_DIMS
 
 
-def test_gemma2_head_dim_takes_the_simt_route():
-    """gemma2-2b's head dim 256: the wgmma route's tiles do not fit, so bf16
-    at 256 takes the SIMT route, like fp32."""
-    assert k6.route(torch.bfloat16, 256) == "simt"
-    assert 256 not in k6.WGMMA_HEAD_DIMS
+def test_gemma2_head_dim_takes_the_wgmma_route():
+    """gemma2-2b's head dim 256: bf16 takes the wgmma route (a two-stage
+    K/V ring), fp32 stays on SIMT (its 2e-6 tolerance rules out tensor
+    cores)."""
+    assert k6.route(torch.bfloat16, 256) == "wgmma"
+    assert 256 in k6.WGMMA_HEAD_DIMS
+    assert k6.route(torch.float32, 256) == "simt"
 
 
 def test_every_bound_entry_point_is_extern_c_in_the_source():
@@ -235,8 +237,14 @@ CARD = CPU_CASES + [
     (2, 40, 40, 4, 2, 16, True, 0, 0.0),         # qwen3 tiny's head_dim
     (1, 2048, 2048, 32, 8, 128, True, 0, 0.0),   # a serving prompt's shape
     (2, 384, 384, 4, 2, 64, True, 96, 30.0),     # window + softcap at hd 64
-    (2, 1000, 1000, 8, 4, 256, True, 0, 0.0),    # ragged at gemma2's head dim
-    (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0),  # gemma2's long prefill
+    # gemma2's head dim 256 (bf16 on the wgmma route): a ragged length, the
+    # long prefill past the window, a query offset, the 16-CTA grid of a
+    # 256-token prefill, a window that cuts inside the tiles with the cap
+    (2, 1000, 1000, 8, 4, 256, True, 0, 0.0),
+    (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0),
+    (1, 128, 384, 8, 4, 256, True, 0, 0.0),
+    (1, 256, 256, 8, 4, 256, True, 0, 0.0),
+    (1, 512, 512, 8, 4, 256, True, 128, 50.0),
 ]
 
 
