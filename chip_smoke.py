@@ -124,11 +124,40 @@ Phases, one line each (plus details):
                musicgen-large (full depth) at full width: ServeEngine
                prefill 1 x 2048 and 8 greedy tokens, K6 once per layer on
                the wgmma route;
- 11. capabilities: `criu check` of the port on the card
+ 11. fleet path: a preemption wave through repro_torch.fleet. One
+               FleetCoordinator over 5 hosts x 8 devices (SimCluster's
+               topology, registry and planner), one simulated store
+               (remote://chip-fleet?latency_ms=2&bw_mbps=1000&agg_mbps=4000
+               &knee=4&seed=<seed>, virtual clock), every root
+               cache+remote://chip-fleet?front=<host>&prefix=<job> with the
+               trainers' hot fronts on local disk (cache=<dir>/<host>/<job>),
+               dump_concurrency 4. Jobs: 2 trainers of gemma2-2b at full
+               width (num_layers cut from 26 to 2, the only cut: 745.6M
+               params, params + m + v 8.95 GB fp32 on the card; batch 1 x
+               512 from seeded numpy; CodecPolicy(optimizer="delta8",
+               device="auto")) and 18 SimJobs (3 leaves x 4 MiB on the card,
+               lossless), one coordinator for all. Admit and tick; wave 0
+               gives every job a base image; every job is restored on its
+               planned host and steps 2 more; 2 node failures are armed at
+               MigrateRequest ordinals (T1's host at the first request of
+               T1's batch, a host drawn from the seed at the first request of
+               a drawn batch); wave 1: T0's moments are encoded by K1
+               against wave 0's image, T1 is lost and re-placed from wave 0
+               by the planner; the rest are restored on their planned hosts,
+               T0's moments decoded by K3. Must hold: both waves complete, 2
+               hosts failed, every lost job re-placed on a live host, every
+               SimJob bit-identical by digest, T0 by the train path's rules
+               (params and step bitwise, moments within each block's
+               scale/2 of the drained live moments, 2 continued steps' losses
+               within 1e-5 / 1e-3), T1's replayed losses equal to the ones
+               its first incarnation logged (1e-5), the coordinator's frames
+               equal to the transports' plus heartbeats, K1 and K3 launched
+               and K5 and K6 not (counters zeroed just before, read just
+               after), the path's host peak RSS under 96 GiB;
+ 12. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): Table-1 rows
-               7, 11-14, 16 and 18 must be supported, and fleet_coordination
-               and socket_transport unsupported, naming the module the port
-               lacks.
+               7, 11-16 and 18 must be supported, and socket_transport
+               unsupported, naming the module the port lacks.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 the last line. Without a CUDA device it exits 2 at once.
@@ -694,11 +723,14 @@ def m_within_half_scale(got, live, prev):
     return ok, worst
 
 
-def check_restored_b(torch, state, tree, prev) -> float:
+def check_restored_b(torch, state, tree, prev, policy=policy_b) -> float:
     """Image B's restore against the live state, by the train path's
-    rules: params and step bit-identical, opt/v the bf16 round trip of the
-    live v bitwise, opt/m within each block's scale/2 of the live m (prev:
-    A's m, the delta8 baseline). -> worst opt/m error / (scale/2)."""
+    rules: leaves ``policy`` keeps lossless (params, step) bit-identical,
+    bf16 leaves (opt/v under policy_b) the bf16 round trip of the live
+    value bitwise, delta8 leaves (opt/m under policy_b) within each
+    block's scale/2 of the live value (prev: the delta8 baseline, moved to
+    the leaf's device one leaf at a time). -> worst delta8 error /
+    (scale/2)."""
     from repro_torch.core import flatten_with_paths
     live = dict(flatten_with_paths(state))
     got = dict(flatten_with_paths(tree))
@@ -706,13 +738,13 @@ def check_restored_b(torch, state, tree, prev) -> float:
     worst = 0.0
     for p, t in live.items():
         g = got[p]
-        if p.startswith("opt/v/"):
+        if policy(p) == "bf16":
             check(torch.equal(g.view(torch.int32),
                               t.to(torch.bfloat16).float().view(torch.int32)),
                   f"{p}: not the bf16 round trip of the live value")
-        elif p.startswith("opt/m/"):
+        elif policy(p) == "delta8":
             ok, ratio = m_within_half_scale(g.reshape(-1), t.reshape(-1),
-                                            prev[p].reshape(-1))
+                                            prev[p].to(t.device).reshape(-1))
             check(ok, f"{p}: delta8 error above the block's scale/2 "
                       f"(worst error / (scale/2) = {ratio})")
             worst = max(worst, ratio)
@@ -721,14 +753,15 @@ def check_restored_b(torch, state, tree, prev) -> float:
     return worst
 
 
-def continue_both(torch, step, tree, state, batches, label):
+def continue_both(torch, step, tree, state, batches, label, final_step=6):
     """Train 2 steps from the restored tree (at step 4) and from the live
     state on the same batches -> ({"restored", "live"} losses, tree,
     state). Step 5's loss is computed from bit-identical params: it must
     agree to 1e-5 relative (the kernels are deterministic; the slack is for
     a cuBLAS algorithm choice). Step 6 starts from params updated with the
     lossy moments, which move a parameter by ~lr * 1e-2 relative; its loss
-    must agree to 1e-3 relative."""
+    must agree to 1e-3 relative. A tree restored at another step names the
+    step it must reach (``final_step``)."""
     import numpy as np
     cont = {"restored": [], "live": []}
     for name, s in (("restored", tree), ("live", state)):
@@ -749,7 +782,8 @@ def continue_both(torch, step, tree, state, batches, label):
     check(abs(r1 - l1) <= 1e-3 * abs(l1), f"step 6 losses {r1} vs {l1}")
     check(all(np.isfinite(v) for v in cont["restored"] + cont["live"]),
           "non-finite loss after restore")
-    check(int(tree["step"]) == 6 and tree["step"].dtype == torch.int32,
+    check(int(tree["step"]) == final_step
+          and tree["step"].dtype == torch.int32,
           "restored step counter did not continue")
     return cont, tree, state
 
@@ -1555,9 +1589,8 @@ def lifecycle_path(torch, dev, args):
 REMOTE_URI = ("remote://chip-remote?latency_ms=2&bw_mbps=1000&fail_rate=0.02"
               "&max_consecutive=1&seed={seed}")
 FRONT_URI = "cache+remote://chip-remote?front={front}&cache={cache}"
-# capabilities the card must report supported: Table-1 rows 7, 11-14, 16,
-# 18
-CARD_ROWS = (7, 11, 12, 13, 14, 16, 18)
+# capabilities the card must report supported: Table-1 rows 7, 11-16, 18
+CARD_ROWS = (7, 11, 12, 13, 14, 15, 16, 18)
 
 
 def remote_path(torch, dev, args):
@@ -2133,6 +2166,439 @@ def archs_phase(torch, dev, args):
     return out
 
 
+# -------------------------------------------------------------- fleet path
+# path 11: one FleetCoordinator over FLEET_HOSTS hosts x 8 devices and one
+# simulated store (virtual clock: network time simulated, not slept); 20
+# jobs: 2 gemma2-2b trainers at full width (num_layers 26 -> 2, the only
+# cut; params + m + v 8.95 GB fp32 each on the card, batch 1 x 512) with
+# delta8 moments, and 18 SimJobs (3 leaves x 4 MiB on the card, lossless).
+# 5 hosts, not 4: after 2 failures the 3 live hosts' 24 devices must hold
+# all 20 jobs (4 hosts would leave 16).
+FLEET_HOSTS, FLEET_DEVICES, FLEET_CONCURRENCY = 5, 8, 4
+FLEET_LAYERS, FLEET_BATCH, FLEET_SEQ = 2, 1, 512
+FLEET_SIMJOBS, FLEET_SIMJOB_KB, FLEET_SIMJOB_LEAVES = 18, 4096, 3
+FLEET_STORE = dict(store="chip-fleet", latency_ms=2, bw_mbps=1000,
+                   agg_mbps=4000, knee=4)
+
+
+class FleetTrainer:
+    """One incarnation of a full-width trainer as a fleet job: its train
+    state on the card, one seeded batch per step (the same batches for
+    every incarnation at a step), its losses logged by step. The shape of
+    a SimJob (run / state / adopt / paused), so SimCluster.tick steps it
+    and beats its heartbeat."""
+
+    kind = "train"
+
+    def __init__(self, job_id, *, seed, lm, step_fn, dev, incarnation=0,
+                 state=None):
+        self.job_id, self.seed, self.lm = job_id, seed, lm
+        self.step_fn, self.dev = step_fn, dev
+        self.incarnation = incarnation
+        self.state = state
+        self.step = 0 if state is None else int(state["step"])
+        self.losses = {}              # step reached -> loss of that step
+        self.running, self.paused = True, False
+        self.restored_at = None       # time.time() when adopt ran
+
+    def batch(self, step):
+        import numpy as np
+        import torch
+        rng = np.random.default_rng([self.seed, step])
+        t = rng.integers(0, self.lm.cfg.vocab_size, (FLEET_BATCH, FLEET_SEQ))
+        return {"tokens": torch.from_numpy(t.astype(np.int64)).to(self.dev)}
+
+    def run(self, steps=1):
+        if not self.running or self.paused:
+            return
+        for _ in range(int(steps)):
+            self.state, m = self.step_fn(self.state, self.batch(self.step))
+            self.step += 1
+            self.losses[self.step] = float(m["loss"])
+
+    def adopt(self, state, step):
+        self.state, self.step = state, int(step)
+        self.paused = False
+        self.restored_at = time.time()
+
+
+def _fleet_failures(rng, order, host_of, batch, keep, t1_host):
+    """The wave's two node failures as (MigrateRequest ordinal, host):
+    T1's host at the first request of T1's batch, and a host drawn from
+    the seed (never T0's or T1's) at the first request of a batch drawn
+    from the seed that holds one of its jobs. A failure armed at a batch's
+    first request fires before any request of that batch is delivered,
+    whichever thread sends first, so a host's job in that batch is lost
+    with it and re-placed."""
+    batches = [order[i:i + batch] for i in range(0, len(order), batch)]
+    b1 = next(i for i, g in enumerate(batches) if "t1" in g)
+    first = int(rng.integers(len(batches)))
+    for k in range(len(batches)):
+        b2 = (first + k) % len(batches)
+        hosts = sorted({host_of[j] for j in batches[b2]} - set(keep))
+        if hosts:
+            h2 = hosts[int(rng.integers(len(hosts)))]
+            return [(b1 * batch + 1, t1_host), (b2 * batch + 1, h2)]
+    raise CheckFailed("no batch holds a job on a host the draw may fail")
+
+
+def fleet_path(torch, dev, args):
+    """Path 11: a preemption wave over a fleet through repro_torch.fleet:
+    2 full-width gemma2-2b trainers (delta8 moments, device codec "auto")
+    and 18 SimJobs answer one FleetCoordinator. Wave 0 gives every job a
+    base image (the trainers' first dumps have no baseline: raw); every job
+    is restored on its planned host and steps 2 more; wave 1 runs with 2
+    armed node failures: T1's host dies before T1's dump, so T1 is re-placed
+    from wave 0 and must replay its logged losses; T0 dumps its moments
+    with K1 against wave 0's image, and its restore decodes them with K3.
+    SimJobs restore bit-identically by digest, T0 by the train path's
+    rules, and every coordinator<->job interaction is a counted wire
+    frame. K1 and K3 must launch, K5 and K6 must not (counters zeroed just
+    before the path, read just after)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import CodecPolicy, MigrationPolicy, SessionConfig
+    from repro_torch.configs.gemma2_2b import CONFIG
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.core.remote import reset_tier_registry
+    from repro_torch.core.restore import read_manifest
+    from repro_torch.device import to_host
+    from repro_torch.fleet import FleetClient, LoopbackTransport, SimCluster
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.model import LM
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import abstract_train_state, init_train_state
+    from repro_torch.training import make_train_step
+
+    cfg = CONFIG.replace(num_layers=FLEET_LAYERS)
+    lm = LM(cfg)
+    codec = CodecPolicy(optimizer="delta8", device="auto")
+    policy = codec.to_leaf_policy()
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      flatten_with_paths(abstract_train_state(lm)))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-", dir=args.lifecycle_dir)
+    out = {"params": lm.n_params(), "state_bytes": state_bytes}
+    try:
+        # the trainers' hot fronts: 2 base images, T0's wave-1 image and
+        # T1's re-placed restore fill
+        need = 3.6 * state_bytes + 2e9
+        free = shutil.disk_usage(tmp).free
+        log(f"fleet: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+            f"{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}; cut: num_layers "
+            f"{CONFIG.num_layers} -> {cfg.num_layers} (the only cut); "
+            f"params={lm.n_params():,}, train state {state_bytes / 1e9:.2f} "
+            f"GB; hot fronts under {tmp}: {free / 1e9:.1f} GB free, the "
+            f"trainers' need {need / 1e9:.1f} GB")
+        check(free >= need, f"{tmp} has {free / 1e9:.1f} GB free, the "
+                            f"trainers' hot fronts need {need / 1e9:.1f} GB")
+        ckpt_codec.reset_launches()          # the path's counts start here
+        k6.reset_launches()
+        cl = SimCluster(hosts=FLEET_HOSTS, devices_per_host=FLEET_DEVICES,
+                        seed=args.seed, dump_concurrency=FLEET_CONCURRENCY,
+                        leaf_kb=FLEET_SIMJOB_KB, leaves=FLEET_SIMJOB_LEAVES,
+                        extra_uri_params=f"seed={args.seed}", device=dev,
+                        **FLEET_STORE)
+        coord = cl.coordinator
+        step_fn = make_train_step(lm, OptConfig())
+        trainers, frames_retired = {}, [0]
+
+        class TimedTransport(LoopbackTransport):
+            """A trainer's wire: the loopback transport, keeping the
+            wall-clock span of the last frame it carried."""
+
+            def send(self, frame):
+                t = time.time()
+                reply = super().send(frame)
+                self.span = (t, time.time())
+                return reply
+
+        def root(jid, host):
+            # the launcher on ``host`` points the job's hot front at that
+            # host's disk: a directory per (host, job), so no two jobs'
+            # image ids collide and a dead host's disk is never read
+            return (cl.root_uri(jid, host)
+                    + f"&cache={os.path.join(tmp, host, jid)}")
+
+        def bring_up(job, host, config_wire):
+            def drain():
+                job.paused = True
+                return job.step
+            client = FleetClient(
+                job.job_id, config_wire, host=host, on_drain=drain,
+                state_provider=lambda: (job.state, job.step),
+                on_restore=lambda res: job.adopt(res.state, res.step),
+                device=dev)
+            transport = TimedTransport(client, host=host,
+                                       on_send=cl._on_frame)
+            trainers[job.job_id] = (job, transport)
+            cl.jobs[job.job_id], cl.clients[job.job_id] = job, client
+            return transport
+
+        def spawner(rec, host, config_wire):
+            if rec.job_id not in trainers:
+                return cl.spawn(rec, host, config_wire)
+            old, transport = trainers[rec.job_id]
+            old.paused = True                # the old incarnation is gone:
+            transport.client.close()         # its baseline's host copy too
+            frames_retired[0] += transport.frames_received
+            job = FleetTrainer(rec.job_id, seed=old.seed, lm=lm,
+                               step_fn=step_fn, dev=dev,
+                               incarnation=old.incarnation + 1)
+            return bring_up(job, host, dict(config_wire,
+                                            root=root(rec.job_id, host)))
+
+        coord.spawner = spawner
+
+        # ---- admission: the trainers first (hosts h0 and h1), then the
+        # SimJobs on the least-loaded hosts, then one tick for everyone
+        t0 = time.time()
+        for i, jid in enumerate(("t0", "t1")):
+            host = f"h{i}"
+            job = FleetTrainer(jid, seed=args.seed * 1000 + 900 + i, lm=lm,
+                               step_fn=step_fn, dev=dev,
+                               state=init_train_state(
+                                   lm, torch.Generator().manual_seed(
+                                       args.seed + 11 + i), device=dev))
+            job.run(2)
+            wire_cfg = SessionConfig(
+                root=root(jid, host), codec=codec,
+                migration=MigrationPolicy(arch=cfg.name)).to_wire()
+            coord.attach(jid, bring_up(job, host, wire_cfg), host=host,
+                         config_wire=wire_cfg)
+        cl.submit_jobs(FLEET_SIMJOBS, steps=4, arrival_rate=2.0)
+        cl.tick(1.0)
+        torch.cuda.synchronize()
+        out["admit_s"] = time.time() - t0
+        sims = sorted(j for j in cl.jobs if j not in trainers)
+        check(len(cl.jobs) == 20 and len(sims) == FLEET_SIMJOBS,
+              f"{len(cl.jobs)} jobs admitted")
+        log(f"fleet: {len(cl.jobs)} jobs on {FLEET_HOSTS} hosts x "
+            f"{FLEET_DEVICES} devices (trainers t0 on h0, t1 on h1; "
+            f"{FLEET_SIMJOBS} SimJobs of {FLEET_SIMJOB_LEAVES} x "
+            f"{FLEET_SIMJOB_KB} KiB on {dev.type}); store {cl.root_uri('*', '*')}"
+            f"; admitted and ticked in {out['admit_s']:.1f} s; trainer losses "
+            f"{[trainers[t][0].losses for t in ('t0', 't1')]}")
+
+        # ---- waves, timed: drain, each dump batch, the re-places after
+        timing = {}
+        drain, dump_batch = coord.drain, coord._dump_batch
+
+        def timed_drain(job_ids):
+            t = time.time()
+            acks = drain(job_ids)
+            timing["drain_s"] = time.time() - t
+            return acks
+
+        def timed_batch(group, *a):
+            t = time.time()
+            dump_batch(group, *a)
+            timing.setdefault("batches", []).append(
+                (list(group), time.time() - t))
+            timing["dumps_end"] = time.time()
+
+        coord.drain, coord._dump_batch = timed_drain, timed_batch
+
+        def wave(label):
+            timing.clear()
+            t = time.time()
+            report = coord.preemption_wave()
+            torch.cuda.synchronize()
+            end = time.time()
+            rec = {"wall_s": end - t, "drain_s": timing["drain_s"],
+                   "batch_s": [b[1] for b in timing["batches"]],
+                   "replace_s": end - timing["dumps_end"],
+                   "dumped": len(report.dumped), "lost": list(report.lost),
+                   "replaced": dict(report.replaced),
+                   "peak_active": cl.store.network.peak_active,
+                   "trainer_batches": [i for i, b in
+                                       enumerate(timing["batches"])
+                                       if set(b[0]) & set(trainers)]}
+            log(f"fleet: {label}: {rec['dumped']} dumped in "
+                f"{report.batches} batches of {FLEET_CONCURRENCY}; wall "
+                f"{rec['wall_s']:.2f} s: drain {rec['drain_s']:.3f} s, "
+                f"batches {[round(b, 2) for b in rec['batch_s']]} s "
+                f"(trainers in {rec['trainer_batches']}), "
+                f"re-place {rec['replace_s']:.2f} s; lost {rec['lost']} -> "
+                f"{rec['replaced']}; store peak_active {rec['peak_active']}")
+            return report, rec
+
+        def trainer_restore(jid, image_id, how):
+            """The trainer's last RestoreRequest, split at adopt: the
+            restore (and the delta8 baseline's host copy) before it, the
+            ack's digest of the restored tree after it."""
+            job, transport = trainers[jid]
+            t, end = transport.span
+            times = {"restore_s": job.restored_at - t,
+                     "digest_s": end - job.restored_at, "how": how}
+            log(f"fleet: {jid} incarnation {job.incarnation} restored "
+                f"{how} from {image_id}: restore {times['restore_s']:.2f} s "
+                f"(the baseline's host copy included), the ack's digest "
+                f"{times['digest_s']:.2f} s")
+            return times
+
+        def restore_planned(jid):
+            rec = coord.registry.get(jid)
+            decision = coord.planner.plan(rec)
+            ack = coord.restore_job(jid)
+            check(ack is not None and ack.host == decision.host,
+                  f"{jid} not restored on its planned host {decision.host}")
+            if jid in trainers:
+                return ack, trainer_restore(
+                    jid, rec.image_id, f"on {ack.host} (planned, hot overlap "
+                                       f"{decision.overlap:.2f})")
+            check(ack.state_digest == rec.state_digest == cl.job_digest(jid),
+                  f"{jid}: restore not bit-identical by digest")
+            return ack, None
+
+        report0, out["wave0"] = wave("wave 0")
+        check(report0.complete and len(report0.dumped) == 20,
+              f"wave 0 incomplete: {report0}")
+        out["wave0"]["t0_image"] = report0.dumped["t0"]
+        out["wave0"]["trainer_restores"] = {}
+        for jid in [r.job_id for r in coord.registry.jobs()]:
+            _, times = restore_planned(jid)
+            if times:
+                out["wave0"]["trainer_restores"][jid] = times
+        gc.collect()                     # the incarnations before wave 0
+        torch.cuda.empty_cache()
+        # wave 0's moments: the delta8 baseline of T0's wave-1 dump (the
+        # restored tree is its content), kept on the host for the check
+        prev = {p: torch.from_numpy(to_host(t)) for p, t in
+                flatten_with_paths(trainers["t0"][0].state)
+                if policy(p) == "delta8"}
+        s0 = {t: trainers[t][0].step for t in trainers}
+        cl.tick(1.0, steps=2)
+        torch.cuda.synchronize()
+        t1_log = dict(trainers["t1"][0].losses)
+        log(f"fleet: every job restored on its planned host, SimJobs "
+            f"bit-identical by digest; 2 more steps each: trainer steps "
+            f"{ {t: trainers[t][0].step for t in trainers} }, T1's losses "
+            f"{t1_log}")
+
+        order = [r.job_id for r in coord.registry.jobs()]
+        host_of = {r.job_id: r.host for r in coord.registry.jobs()}
+        fails = _fleet_failures(np.random.default_rng(args.seed), order,
+                                host_of, FLEET_CONCURRENCY,
+                                (host_of["t0"], host_of["t1"]),
+                                host_of["t1"])
+        for nth, host in fails:
+            cl.arm_failure(kind="MigrateRequest", nth=nth, host=host)
+        out["failures"] = fails
+        log(f"fleet: armed node failures (MigrateRequest ordinal, host): "
+            f"{fails}; T0 on {host_of['t0']}, T1 on {host_of['t1']}")
+
+        report1, out["wave1"] = wave("wave 1")
+        alive = {h.host_id for h in cl.topology.hosts()}
+        check(report1.complete and coord.stats["hosts_failed"] == 2,
+              f"wave 1: complete {report1.complete}, hosts failed "
+              f"{coord.stats['hosts_failed']}")
+        check("t1" in report1.lost and "t0" in report1.dumped,
+              f"T1 lost {report1.lost}, T0 dumped {report1.dumped}")
+        for jid in report1.lost:
+            check(report1.replaced.get(jid) in alive,
+                  f"{jid} lost but not re-placed on a live host")
+        t1 = trainers["t1"][0]
+        check(t1.incarnation == 2 and t1.step == s0["t1"],
+              f"T1 re-placed at step {t1.step}, wave 0 was {s0['t1']}")
+        out["t1_replace"] = trainer_restore(
+            "t1", coord.registry.get("t1").image_id,
+            f"re-placed on {report1.replaced['t1']} (planner)")
+
+        # T1 replays its steps from wave 0's step on the same batches
+        t1.run(2)
+        torch.cuda.synchronize()
+        replay = {k: t1.losses[k] for k in sorted(t1.losses)}
+        log(f"fleet: T1 re-placed on {report1.replaced['t1']} from "
+            f"{coord.registry.get('t1').image_id}; replayed losses {replay} "
+            f"against its first incarnation's {t1_log} (held to 1e-5 "
+            f"relative)")
+        for k, v in replay.items():
+            check(abs(v - t1_log[k]) <= 1e-5 * abs(t1_log[k]),
+                  f"T1 step {k}: replayed loss {v} vs logged {t1_log[k]}")
+        out["t1_replay"] = {"logged": t1_log, "replayed": replay}
+
+        # T0's wave-1 image: every moment delta8 against wave 0's image
+        rec0 = coord.registry.get("t0")
+        man = read_manifest(trainers["t0"][1].client.session.tier,
+                            rec0.image_id)
+        opt = [r for r in man["leaves"] if policy(r["path"]) == "delta8"]
+        on_card = sum(1 for r in opt
+                      if r["codec_meta"].get("encoder") == "device")
+        out["t0_image"] = {
+            "image_id": rec0.image_id, "parent": man["parent"],
+            "gb": sum(r["nbytes"] for r in man["leaves"]) / 1e9,
+            "moments": len(opt), "device_encoded": on_card}
+        log(f"fleet: T0's wave-1 image {rec0.image_id} (parent "
+            f"{man['parent']}): {out['t0_image']['gb']:.3f} GB; "
+            f"{len(opt)} moment leaves delta8-coded, {on_card} of them by "
+            f"the device stage (K1), the rest by the host codec (K4)")
+        check(man["parent"] == out["wave0"]["t0_image"]
+              and all(r["codec_meta"].get("applied") for r in opt),
+              "T0's wave-1 moments are not delta8 against wave 0's image")
+        check(on_card > 0, "no moment of T0 went through the device stage")
+
+        # restore the rest on their planned hosts; T0's decodes with K3
+        live_t0 = trainers["t0"][0]      # drained, on the card
+        out["wave1"]["trainer_restores"] = {}
+        for jid in sorted(j for j in cl.jobs
+                          if coord.registry.get(j).phase == "dumped"):
+            _, times = restore_planned(jid)
+            if times:
+                out["wave1"]["trainer_restores"][jid] = times
+        check(all(r.phase == "running" for r in coord.registry.jobs()),
+              "a job is not running after the restores")
+        for jid in sims:
+            check(cl.job_digest(jid)
+                  == coord.registry.get(jid).state_digest,
+                  f"{jid}: its state is not the image's by digest")
+        t0_new = trainers["t0"][0]
+        out["t0_err_over_half_scale"] = check_restored_b(
+            torch, live_t0.state, t0_new.state, prev, policy)
+        log("fleet: T0 params and step bit-identical after the restore; "
+            "opt/m and opt/v within each block's scale/2 of the drained "
+            f"live moments (worst error / (scale/2) = "
+            f"{out['t0_err_over_half_scale']:.4f})")
+        del prev
+        s1 = t0_new.step
+        out["t0_continue"], t0_new.state, live_t0.state = continue_both(
+            torch, step_fn, t0_new.state, live_t0.state,
+            [t0_new.batch(s1), t0_new.batch(s1 + 1)], "fleet T0",
+            final_step=s1 + 2)
+        t0_new.step += 2
+        del live_t0                      # compared: release T0's old one
+
+        frames = (sum(t.frames_received for t in cl.all_transports)
+                  + frames_retired[0]
+                  + sum(t.frames_received for _, t in trainers.values()))
+        out["frames"] = dict(coord.stats)
+        log(f"fleet: coordinator {coord.stats}; transports' frames {frames} "
+            f"+ heartbeats {coord.stats['heartbeats']}")
+        check(coord.stats["wire_frames"] == frames
+              + coord.stats["heartbeats"],
+              "the coordinator's frames differ from the transports'")
+        out["launches"] = dict(ckpt_codec.LAUNCHES)
+        out["launches"]["flash_attention"] = k6.LAUNCHES["flash_attention"]
+        log("kernels: fleet-path launches " + " ".join(
+            f"{k}={v}" for k, v in out["launches"].items()))
+        for k in ("delta_encode_digest", "delta_decode"):
+            check(out["launches"][k] > 0,
+                  f"kernel {k} was not launched on the fleet path")
+        for k in ("digest_blocks", "flash_attention"):
+            check(out["launches"][k] == 0,
+                  f"kernel {k} was launched on the fleet path")
+        trainers.clear()
+        del cl, coord, t1, t0_new
+    finally:
+        reset_tier_registry()             # the store's objects go with it
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def capability_phase(torch, dev):
     """`criu check` on the card: every capability, one line each; the
     Table-1 rows of ported modules (CARD_ROWS) must be supported, the
@@ -2357,6 +2823,23 @@ def main(argv=None) -> int:
             sum(a["k6_routes"].values()) for a in record["archs"].values())
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with RssPeak() as rss_fleet:
+        record["fleet"] = fleet_path(torch, dev, args)
+    record["fleet"].update(
+        host_peak_rss_gb=rss_fleet.peak_gb, wall_s=time.time() - t0,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"fleet: path {record['fleet']['wall_s']:.1f} s; peak device memory "
+        f"{record['fleet']['peak_device_gb']:.1f} GB; host peak RSS of the "
+        f"path {rss_fleet.peak_gb:.1f} GB (sampled every 20 ms)")
+    check(rss_fleet.peak_gb < 96 * 2 ** 30 / 1e9,
+          f"the fleet path's host peak {rss_fleet.peak_gb:.1f} GB passed the "
+          f"machine's 96 GiB")
+    for k in ckpt_codec.KERNELS:
+        rows[k]["launches"] += record["fleet"]["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
     record["capabilities"] = capability_phase(torch, dev)
     record["kernels"] = list(rows.values())
     record["card"] = card
@@ -2375,7 +2858,8 @@ def main(argv=None) -> int:
         f"{record['precopy']['peak_device_gb']:.1f} GB, lifecycle children "
         f"{record['lifecycle']['preempted_peak_device_gb']:.1f} GB "
         f"(preempted), remote {record['remote']['peak_device_gb']:.1f} GB, "
-        f"plane {record['plane']['peak_device_gb']:.1f} GB")
+        f"plane {record['plane']['peak_device_gb']:.1f} GB, fleet "
+        f"{record['fleet']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6's row also carries its numbers at gemma2's head dim 256

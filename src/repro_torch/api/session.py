@@ -49,13 +49,13 @@ from repro_torch.api.requests import (DumpReceipt, DumpRequest, MigrateRequest,
                                       RestoreResult)
 from repro_torch.core.async_engine import AsyncCheckpointer as _AsyncEngine
 from repro_torch.core.dump import dump as _dump
-from repro_torch.core.dump import flatten_with_paths, host_tree_by_path
+from repro_torch.core.dump import flatten_with_paths
 from repro_torch.core.executor import CheckpointExecutor, get_default_executor
 from repro_torch.core.plan import DumpPlan, plan_dump
 from repro_torch.core.registry import Registry
 from repro_torch.core.restore import restore as _restore
 from repro_torch.core.storage import as_tier
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host
 
 
 def _not_ported(what: str):
@@ -157,7 +157,9 @@ class CheckpointSession:
 
     def close(self, drain: bool = True):
         """Drain in-flight async dumps (unless ``drain=False`` — e.g. the
-        body raised and durability is moot) and release signal handlers."""
+        body raised and durability is moot), release signal handlers and
+        the host copy of the delta8 baseline (a dump after close encodes
+        in full)."""
         if self._closed:
             return
         self._closed = True
@@ -165,6 +167,7 @@ class CheckpointSession:
             if drain and self._async is not None:
                 self._wait_raw()
         finally:
+            self._prev_host = None
             if self._installed:
                 self._orch.uninstall()
                 self._installed = False
@@ -380,11 +383,40 @@ class CheckpointSession:
         """After a dump of ``tree`` committed as ``out``: advance the delta8
         baseline to it, then apply retention and gc."""
         if self.codec_policy is not None and self.incremental:
-            self._prev_host = host_tree_by_path(tree)
+            self._prev_host = self._baseline_of(tree)
             self._prev_step = step
             self._prev_image = out["image_id"]
         self.registry.retain(self.keep_last, self.keep_every)
         self.registry.gc()
+
+    def _baseline_of(self, tree) -> dict:
+        """{path: host array} of the leaves the codec policy delta8-codes:
+        the only leaves a later dump encodes against a baseline, copied to
+        the host one at a time (the params of a train state stay out)."""
+        policy = self.codec_policy
+        return {p: to_host(a) for p, a in flatten_with_paths(tree)
+                if policy(p) == "delta8"}
+
+    def adopt_baseline(self, tree, *, image_id: str, step: int):
+        """Take a restored ``tree`` (the decoded content of ``image_id``)
+        as the delta8 baseline of this session's next dump. A session
+        opened to restore starts with no baseline, so without this its
+        first dump encodes every delta8 leaf in full; with it, a dump whose
+        parent is ``image_id`` (the latest image in the root, checked at
+        dump time) encodes them against the restored values. No-op unless
+        the codec policy is lossy and incremental.
+
+        Example::
+
+            res = sess.restore(RestoreRequest(image_id=iid))
+            sess.adopt_baseline(res.state, image_id=res.image_id,
+                                step=res.step)
+        """
+        if self.codec_policy is None or not self.incremental:
+            return
+        self._prev_host = self._baseline_of(tree)
+        self._prev_step = int(step)
+        self._prev_image = image_id
 
     def pre_dump(self, tree, *, step: int, meta: dict | None = None,
                  topology: dict | None = None) -> dict:

@@ -59,7 +59,8 @@ def tree_digest(pairs) -> str:
         h.update(path.encode())
         h.update(dtype_name(a).encode())
         h.update(repr(a.shape).encode())
-        h.update(np.ascontiguousarray(a).tobytes())
+        # the array's own buffer, not a tobytes() copy of it
+        h.update(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
     return h.hexdigest()
 
 

@@ -300,7 +300,7 @@ def test_every_ported_capability_probes_supported_on_cpu(report):
     bad = [(c.name, c.detail) for c in report
            if not c.supported and c.name not in NOT_PORTED]
     assert not bad, bad
-    for row in (7, 11, 12, 13, 14, 16, 18):
+    for row in (7, 11, 12, 13, 14, 15, 16, 18):
         assert report.supported(api.TABLE1[row][2]), row
     assert "plain" in report["device_codec"].detail
     assert "bit for bit" in report["device_state_capture"].detail
@@ -316,7 +316,18 @@ def test_unported_capabilities_name_the_missing_module(report, name):
 
 
 def test_not_ported_is_fleet_and_socket_only():
-    assert set(NOT_PORTED) == {"fleet_coordination", "socket_transport"}
+    assert set(NOT_PORTED) == {"socket_transport"}
+
+
+def test_fleet_coordination_probe_passes_on_cpu(report):
+    """Table-1 row 15 runs the port's own fleet: a 2-job SimCluster wave
+    with the jobs' leaves on the probe's device, restores checked by the
+    wire digests."""
+    cap = report["fleet_coordination"]
+    assert cap.supported, cap.detail
+    assert cap.paper_row == 15 and api.TABLE1[15][2] == "fleet_coordination"
+    assert "leaves on cpu" in cap.detail and "bit-identical" in cap.detail
+    assert "not ported" not in cap.detail
 
 
 def test_live_serving_probe_passes_on_cpu(report):
@@ -344,7 +355,8 @@ def test_as_json_resolves_table1_rows(report):
     assert sorted(rows, key=int) == [str(r) for r in range(1, 19)]
     assert rows["13"]["capability"] == "remote_storage"
     assert rows["13"]["supported"] is True
-    assert rows["15"]["supported"] is False
+    assert rows["15"]["supported"] is True
+    assert rows["17"]["supported"] is False
     assert report.as_json()["env"]["backend"] == "cpu"
 
 

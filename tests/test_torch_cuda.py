@@ -100,6 +100,56 @@ def test_dump_restore_through_the_kernels(dev, tmp_path):
     assert np.isfinite(float(tree["norm"].sum()))
 
 
+def test_concurrent_device_codec_dumps_count_every_launch(dev, tmp_path):
+    """Four dumps at once from four host threads, as a fleet wave's batch
+    runs them (shared stream, shared executor): K1 encodes each delta8
+    leaf on the card, the counter misses no launch, and every image holds
+    the bytes the same dump writes alone."""
+    import threading
+
+    from repro_torch.core import dump, host_tree_by_path, restore_pairs
+    pol = {"m": "delta8", "w": "none"}.get
+    jobs = []
+    for i in range(4):
+        g = torch.Generator(device=dev).manual_seed(10 + i)
+        a = {"m": torch.randn(1 << 20, generator=g, device=dev),
+             "w": torch.randn(4096, generator=g, device=dev)}
+        b = {"m": a["m"] + 1e-3 * torch.randn(1 << 20, generator=g,
+                                              device=dev), "w": a["w"]}
+        roots = [str(tmp_path / f"r{i}{k}") for k in "ab"]
+        parents = [dump(a, r, step=1, device=dev)["image_id"] for r in roots]
+        jobs.append((b, host_tree_by_path(a), roots, parents))
+
+    def second(b, prev, root, parent):
+        return dump(b, root, step=2, parent=parent, codec_policy=pol,
+                    prev_host_tree=prev, device=dev, device_codec="auto")
+
+    ckpt_codec.reset_launches()
+    errors, images = [], {}
+
+    def run(i):
+        b, prev, roots, parents = jobs[i]
+        try:
+            images[i] = second(b, prev, roots[0], parents[0])["image_id"]
+        except Exception as e:          # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert ckpt_codec.LAUNCHES["delta_encode_digest"] == 4
+    for i, (b, prev, roots, parents) in enumerate(jobs):
+        alone = second(b, prev, roots[1], parents[1])["image_id"]
+        got, _ = restore_pairs(roots[0], images[i], device=dev)
+        want, _ = restore_pairs(roots[1], alone, device=dev)
+        assert torch.equal(got["m"].view(torch.int32),
+                           want["m"].view(torch.int32))
+    assert ckpt_codec.LAUNCHES["delta_encode_digest"] == 8
+
+
 def test_delta8_restore_stays_on_the_card(dev, tmp_path):
     """K3's output is placed where it was decoded: no host round trip, and
     the same bits as the plain version's decode on the CPU."""

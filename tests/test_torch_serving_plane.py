@@ -9,7 +9,8 @@ eagerly (zero drops, the same tokens) or lazily (params-first
 autoscale-from-image). gemma2's tiny config has a 16-token window on its
 even layers and both softcaps, and the page (16 slots of KV) lets decode
 run to the window's edge. ``test_fleet_wave_migrates_serving_plane``
-waits for the port's ``fleet/`` coordinator and simcluster.
+rides the plane through the port's fleet coordinator (SimCluster's
+SimServeJob on the same tiny gemma2, page 24 as in the JAX twin).
 
 Parity with the JAX package (weights carried across by ``from_jax``):
 
@@ -537,6 +538,33 @@ def test_prefetch_hint_orders_lazy_stream(lm_params):
     ranks = [hint_rank(p) for p in order]
     assert ranks == sorted(ranks)
     assert order[0].startswith("params")
+
+
+# ---------------------------------------------------------------- fleet
+def test_fleet_wave_migrates_serving_plane():
+    """A SimServeJob rides a coordinator preemption wave like a trainer:
+    drained at a DECODE boundary, dumped with the serve-plane side-table
+    in meta, restored elsewhere with its digest checked and zero dropped
+    sessions."""
+    from repro_torch.fleet import SimCluster
+    cl = SimCluster(hosts=2, seed=6, device=DEV)
+    (jid,) = cl.submit_serve_jobs(1, ticks=3, slots=4, page_len=24,
+                                  rate=3.0)
+    job = cl.jobs[jid]
+    assert cl.coordinator.registry.get(jid).kind == "serve"
+    live = set(job.mgr.live_sids())
+    assert live                                     # wave catches real work
+    clock = job.mgr.clock
+
+    report = cl.coordinator.preemption_wave()
+    assert report.drained[jid] == clock             # decode-boundary drain
+    assert jid in report.dumped
+
+    ack = cl.coordinator.restore_job(jid)           # digest checked inside
+    assert ack is not None and ack.step == clock
+    assert live <= set(job.mgr.sessions)            # adopted, zero drops
+    job.run(8)                                      # and it keeps serving
+    assert all(job.mgr.sessions[sid].status == "done" for sid in live)
 
 
 # ----------------------------------------------------------------- wire
