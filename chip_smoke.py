@@ -25,7 +25,8 @@ Phases, one line each (plus details):
                head_dim 256, each on the route route() gives it (wgmma for
                bf16 at head_dim 64/128/256, SIMT otherwise) and
                bit-identical on repeat; the serving shape timed beside its
-               bound and scaled_dot_product_attention, the long prefill
+               bound and scaled_dot_product_attention, one call at a time
+               and back to back (in turns K6 SDPA SDPA K6), the long prefill
                beside its bound (no library call computes softcapped
                attention; at most 1.0 ms) and head_dim 256 at each of path
                9's prefill lengths beside its bound; the three wgmma
@@ -154,10 +155,38 @@ Phases, one line each (plus details):
                equal to the transports' plus heartbeats, K1 and K3 launched
                and K5 and K6 not (counters zeroed just before, read just
                after), the path's host peak RSS under 96 GiB;
- 12. capabilities: `criu check` of the port on the card
-               (repro_torch.api.capabilities, one line each): Table-1 rows
-               7, 11-16 and 18 must be supported, and socket_transport
-               unsupported, naming the module the port lacks.
+ 12. socket path: the fleet over real Unix-domain sockets
+               (repro_torch.fleet.transport), path 11's store freed first.
+               (a) In process: SimCluster(transport="socket") on 4 hosts x 4
+               devices, a UDS CoordinatorServer, every job behind a
+               WorkerAgent: one musicgen-large trainer at full width
+               (d_model 2048, 32/32 heads, d_ff 8192, vocab 2048; num_layers
+               cut from 48 to 8, the only cut: 411,076,608 params, 4.93 GB of
+               fp32 params + m + v on the card; batch 1 x 512;
+               CodecPolicy(optimizer="delta8", device="auto"); images on
+               local disk through file://) and 6 SimJobs (3 x 4 MiB on the
+               card, lossless). Wave 0 gives every job a raw image; every
+               job is restored (the trainer adopts its delta8 baseline) and
+               steps 2 more, the trainer's losses equal to its drained
+               incarnation's on the same batches (1e-5); wave 1 runs under
+               one seeded host failure and a cut of the connection 10 bytes
+               into the trainer's MigrationTicket reply: the MigrateRequest
+               executes once and its replay is answered from the worker's
+               dedup window. Must hold: SimJobs bit-identical by digest, the
+               trainer by the train path's rules, the lost jobs re-placed,
+               every coordinator<->job interaction a frame the server took
+               off a socket, K1, K4 and K3 launched and K2, K5 and K6 not
+               (counters zeroed just before, read just after). (b) Across
+               processes: examples/fleet_multiprocess_torch.py --serve with
+               its journal on disk under 3 --worker subprocesses (a SimJob
+               of 3 x 4 MiB each, on the card in its own CUDA context), twice
+               side by side: the control run, and one whose coordinator
+               SIGKILLs itself after the 2nd committed dump (rc must be
+               -SIGKILL) and is restarted from its journal while the workers
+               redial; both waves complete with equal digests;
+ 13. capabilities: `criu check` of the port on the card
+               (repro_torch.api.capabilities, one line each): every
+               capability must be supported.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 the last line. Without a CUDA device it exits 2 at once.
@@ -593,6 +622,27 @@ def flash_phase(torch, dev, seed):
                 f"{plain_ms:.1f} ms, scaled_dot_product_attention "
                 f"{library_ms:.3f} ms "
                 f"({ms / library_ms:.2f}x its time)")
+            # back to back, in turns (K6, SDPA, SDPA, K6), 20 calls a
+            # timing: the device's time per call, the host's launch work
+            # hidden behind the calls before it
+            b2b = {"k6": [], "sdpa": []}
+            calls = {"k6": lambda: k6.flash_attention_fwd(q, k, v, **kw),
+                     "sdpa": lambda: lib(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)}
+            for who in ("k6", "sdpa", "sdpa", "k6"):
+                b2b[who].append(cuda_ms(torch, calls[who], iters=5,
+                                        batch=20))
+            row["ms_back_to_back"] = b2b["k6"]
+            row["library_ms_back_to_back"] = b2b["sdpa"]
+            log(f"kernels: flash_attention on {label} back to back (20 "
+                f"calls a timing, in turns K6 SDPA SDPA K6): {way} route "
+                f"{min(b2b['k6']):.4f}-{max(b2b['k6']):.4f} ms "
+                f"({bound_ms / max(b2b['k6']):.1%}-"
+                f"{bound_ms / min(b2b['k6']):.1%} of bound), "
+                f"scaled_dot_product_attention {min(b2b['sdpa']):.4f}-"
+                f"{max(b2b['sdpa']):.4f} ms; K6 / SDPA "
+                f"{min(b2b['k6']) / max(b2b['sdpa']):.2f}-"
+                f"{max(b2b['k6']) / min(b2b['sdpa']):.2f}x")
         del q, k, v
         torch.cuda.empty_cache()
     row["hd256"] = hd256
@@ -1589,8 +1639,6 @@ def lifecycle_path(torch, dev, args):
 REMOTE_URI = ("remote://chip-remote?latency_ms=2&bw_mbps=1000&fail_rate=0.02"
               "&max_consecutive=1&seed={seed}")
 FRONT_URI = "cache+remote://chip-remote?front={front}&cache={cache}"
-# capabilities the card must report supported: Table-1 rows 7, 11-16, 18
-CARD_ROWS = (7, 11, 12, 13, 14, 15, 16, 18)
 
 
 def remote_path(torch, dev, args):
@@ -2230,16 +2278,62 @@ def _fleet_failures(rng, order, host_of, batch, keep, t1_host):
     first request fires before any request of that batch is delivered,
     whichever thread sends first, so a host's job in that batch is lost
     with it and re-placed."""
+    b1 = next(i for i in range(0, len(order), batch)
+              if "t1" in order[i:i + batch])
+    return [(b1 + 1, t1_host),
+            _drawn_failure(rng, order, host_of, batch, keep)]
+
+
+def _drawn_failure(rng, order, host_of, batch, keep):
+    """One node failure as (MigrateRequest ordinal, host): a host drawn
+    from the seed (never one in ``keep``) at the first request of a batch
+    drawn from the seed that holds one of its jobs."""
     batches = [order[i:i + batch] for i in range(0, len(order), batch)]
-    b1 = next(i for i, g in enumerate(batches) if "t1" in g)
     first = int(rng.integers(len(batches)))
     for k in range(len(batches)):
-        b2 = (first + k) % len(batches)
-        hosts = sorted({host_of[j] for j in batches[b2]} - set(keep))
+        b = (first + k) % len(batches)
+        hosts = sorted({host_of[j] for j in batches[b]} - set(keep))
         if hosts:
-            h2 = hosts[int(rng.integers(len(hosts)))]
-            return [(b1 * batch + 1, t1_host), (b2 * batch + 1, h2)]
+            return b * batch + 1, hosts[int(rng.integers(len(hosts)))]
     raise CheckFailed("no batch holds a job on a host the draw may fail")
+
+
+def wave_clock(torch, coord):
+    """Clocks on ``coord``'s drain and on each of its dump batches ->
+    a function that runs one preemption wave and returns (report, its
+    record: wall, drain, batch and re-place s, dumped / lost / replaced,
+    the jobs of each batch in order)."""
+    timing = {}
+    drain, dump_batch = coord.drain, coord._dump_batch
+
+    def timed_drain(job_ids):
+        t = time.time()
+        acks = drain(job_ids)
+        timing["drain_s"] = time.time() - t
+        return acks
+
+    def timed_batch(group, *a):
+        t = time.time()
+        dump_batch(group, *a)
+        timing.setdefault("batches", []).append((list(group),
+                                                 time.time() - t))
+        timing["dumps_end"] = time.time()
+
+    coord.drain, coord._dump_batch = timed_drain, timed_batch
+
+    def wave():
+        timing.clear()
+        t = time.time()
+        report = coord.preemption_wave()
+        torch.cuda.synchronize()
+        end = time.time()
+        rec = {"wall_s": end - t, "drain_s": timing["drain_s"],
+               "batch_s": [b[1] for b in timing["batches"]],
+               "replace_s": end - timing["dumps_end"],
+               "dumped": len(report.dumped), "lost": list(report.lost),
+               "replaced": dict(report.replaced)}
+        return report, rec, [b[0] for b in timing["batches"]]
+    return wave
 
 
 def fleet_path(torch, dev, args):
@@ -2385,39 +2479,13 @@ def fleet_path(torch, dev, args):
             f"{[trainers[t][0].losses for t in ('t0', 't1')]}")
 
         # ---- waves, timed: drain, each dump batch, the re-places after
-        timing = {}
-        drain, dump_batch = coord.drain, coord._dump_batch
-
-        def timed_drain(job_ids):
-            t = time.time()
-            acks = drain(job_ids)
-            timing["drain_s"] = time.time() - t
-            return acks
-
-        def timed_batch(group, *a):
-            t = time.time()
-            dump_batch(group, *a)
-            timing.setdefault("batches", []).append(
-                (list(group), time.time() - t))
-            timing["dumps_end"] = time.time()
-
-        coord.drain, coord._dump_batch = timed_drain, timed_batch
+        timed_wave = wave_clock(torch, coord)
 
         def wave(label):
-            timing.clear()
-            t = time.time()
-            report = coord.preemption_wave()
-            torch.cuda.synchronize()
-            end = time.time()
-            rec = {"wall_s": end - t, "drain_s": timing["drain_s"],
-                   "batch_s": [b[1] for b in timing["batches"]],
-                   "replace_s": end - timing["dumps_end"],
-                   "dumped": len(report.dumped), "lost": list(report.lost),
-                   "replaced": dict(report.replaced),
-                   "peak_active": cl.store.network.peak_active,
-                   "trainer_batches": [i for i, b in
-                                       enumerate(timing["batches"])
-                                       if set(b[0]) & set(trainers)]}
+            report, rec, batches = timed_wave()
+            rec.update(peak_active=cl.store.network.peak_active,
+                       trainer_batches=[i for i, b in enumerate(batches)
+                                        if set(b) & set(trainers)])
             log(f"fleet: {label}: {rec['dumped']} dumped in "
                 f"{report.batches} batches of {FLEET_CONCURRENCY}; wall "
                 f"{rec['wall_s']:.2f} s: drain {rec['drain_s']:.3f} s, "
@@ -2599,11 +2667,549 @@ def fleet_path(torch, dev, args):
     return out
 
 
+# path 12: the fleet over the socket wire (fleet/transport.py). (a) In
+# this process: SimCluster(transport="socket") with a UDS CoordinatorServer;
+# one musicgen-large trainer at full width (d_model 2048, 32/32 heads, d_ff
+# 8192, vocab 2048; num_layers cut from 48 to 8, the only cut: 411,076,608
+# params, 4.93 GB of fp32 params + m + v) with delta8 moments and 6 SimJobs
+# (3 leaves x 4 MiB on the card, lossless). musicgen-large: full width at
+# ~50M params a layer, so 8 layers move in seconds (gemma2-2b's embedding
+# alone is 7 GB of fp32 state, and path 11 carries it). (b) Across
+# processes: examples/fleet_multiprocess_torch.py's --serve coordinator
+# SIGKILLs itself mid-wave under 3 --worker subprocesses on the card and is
+# restarted from its journal; a run without the kill runs beside it.
+SOCKET_LAYERS = 8               # FleetTrainer's batch: 1 x 512
+SOCKET_HOSTS, SOCKET_DEVICES, SOCKET_CONCURRENCY = 4, 4, 4
+SOCKET_SIMJOBS = 6
+SOCKET_STORE = dict(FLEET_STORE, store="chip-socket")
+# a command's reply may wait for a trainer's whole dump, restore and digest
+SOCKET_RESUME_S = 300.0
+SOCKET_EXAMPLE = "examples/fleet_multiprocess_torch.py"
+SOCKET_WORKERS, SOCKET_DIE_AFTER = 3, 2
+
+
+class ReplyCut:
+    """Severs a worker's connection ``off`` bytes into the first frame it
+    sends that holds ``needle``, once armed: the cut_send_frame case of
+    tests/faultinject.py's ChaosSocket (which imports the JAX package),
+    chosen by the frame's content. Pass ``wrap`` as
+    ``WorkerAgent(wrap_socket=...)``."""
+
+    def __init__(self, needle: bytes, off: int):
+        self.needle, self.off = needle, off
+        self.armed, self.fired = False, []
+
+    def wrap(self, sock):
+        return _CutSocket(sock, self)
+
+
+class _CutSocket:
+    def __init__(self, sock, plan):
+        self.sock, self.plan = sock, plan
+
+    def sendall(self, data):
+        plan = self.plan
+        if plan.armed and not plan.fired and plan.needle in data:
+            self.sock.sendall(bytes(data[:plan.off]))
+            plan.fired.append((len(data), plan.off))
+            self.sock.close()
+            raise ConnectionError(f"cut {plan.off} bytes into a "
+                                  f"{len(data)}-byte frame")
+        self.sock.sendall(data)
+
+    def __getattr__(self, name):
+        return getattr(self.sock, name)
+
+
+def socket_path(torch, dev, args):
+    """Path 12: the fleet over real Unix-domain sockets. (a) In process:
+    a musicgen-large trainer (8 of 48 layers, full width, delta8 moments)
+    and 6 SimJobs answer one UDS CoordinatorServer through WorkerAgents.
+    Wave 0 gives every job a raw base image; every job is restored and
+    steps 2 more (the trainer's losses against its drained incarnation's
+    on the same batches); wave 1 runs under a seeded host failure and a
+    cut of the connection mid-reply of the trainer's MigrateRequest, which
+    must execute once and be answered again from the worker's dedup
+    window. SimJobs restore bit-identically by digest, the trainer by the
+    train path's rules, and every coordinator<->job interaction is a frame
+    the server took off a socket. K1, K4 and K3 must launch, K2, K5 and K6
+    not (counters zeroed just before, read just after). (b) Across
+    processes: the example's coordinator SIGKILLs itself mid-wave and
+    restarts from its journal under 3 worker subprocesses on the card; its
+    digests must equal those of a run without the kill."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import CodecPolicy, MigrationPolicy, SessionConfig
+    from repro_torch.configs.musicgen_large import CONFIG
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.core.remote import reset_tier_registry
+    from repro_torch.core.restore import read_manifest
+    from repro_torch.device import to_host
+    from repro_torch.fleet import FleetClient, ReconnectPolicy, SimCluster
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.model import LM
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import abstract_train_state, init_train_state
+    from repro_torch.training import make_train_step
+
+    reset_tier_registry()                 # path 11's store is freed first
+    cfg = CONFIG.replace(num_layers=SOCKET_LAYERS)
+    lm = LM(cfg)
+    codec = CodecPolicy(optimizer="delta8", device="auto")
+    policy = codec.to_leaf_policy()
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      flatten_with_paths(abstract_train_state(lm)))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-socket-",
+                           dir=args.lifecycle_dir)
+    troot = f"file://{os.path.join(tmp, 't0')}"
+    out = {"params": lm.n_params(), "state_bytes": state_bytes}
+    cl = None
+    try:
+        need = 2.2 * state_bytes + 1e9     # a raw image and a delta8 one
+        free = shutil.disk_usage(tmp).free
+        log(f"socket: {cfg.name} d_model={cfg.d_model} heads="
+            f"{cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff} vocab="
+            f"{cfg.vocab_size}; cut: num_layers {CONFIG.num_layers} -> "
+            f"{cfg.num_layers} (the only cut); params={lm.n_params():,}, "
+            f"train state {state_bytes / 1e9:.2f} GB; images under {troot}: "
+            f"{free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed")
+        check(free >= need, f"{tmp} has {free / 1e9:.1f} GB free, the "
+                            f"trainer's images need {need / 1e9:.1f} GB")
+        ckpt_codec.reset_launches()          # the path's counts start here
+        k6.reset_launches()
+        t_path = time.time()
+        cl = SimCluster(hosts=SOCKET_HOSTS, devices_per_host=SOCKET_DEVICES,
+                        seed=args.seed, dump_concurrency=SOCKET_CONCURRENCY,
+                        leaf_kb=FLEET_SIMJOB_KB, leaves=FLEET_SIMJOB_LEAVES,
+                        extra_uri_params=f"seed={args.seed}",
+                        transport="socket", resume_timeout_s=SOCKET_RESUME_S,
+                        device=dev, **SOCKET_STORE)
+        coord, server = cl.coordinator, cl.server
+        step_fn = make_train_step(lm, OptConfig())
+        cut = ReplyCut(b'"MigrationTicket"', 10)
+        trainer = {}                  # the live incarnation and its wire
+        retired = []                  # earlier incarnations' transports
+        sent_at = {}                  # frame kind -> time.time() at send
+
+        def on_send(host, frame):
+            sent_at[frame["kind"]] = time.time()
+            cl._on_frame(host, frame)
+
+        def bring_up(job, host, config_wire, transport):
+            """Dial the trainer's incarnation in: its FleetClient behind a
+            WorkerAgent whose sockets pass through the cut."""
+            def drain():
+                job.paused = True
+                return job.step
+            client = FleetClient(
+                job.job_id, config_wire, host=host, on_drain=drain,
+                state_provider=lambda: (job.state, job.step),
+                on_restore=lambda res: job.adopt(res.state, res.step),
+                device=dev)
+            old = cl.agents.get(job.job_id)
+            if old is not None:
+                old.stop(bye=False)
+            transport.on_send = on_send
+            agent = client.connect(
+                cl.socket_url, incarnation=transport.incarnation,
+                reconnect=ReconnectPolicy(attempts=40, backoff_s=0.02,
+                                          backoff_max_s=0.2),
+                wrap_socket=cut.wrap)
+            cl.jobs[job.job_id], cl.clients[job.job_id] = job, client
+            cl.agents[job.job_id] = agent
+            trainer.update(job=job, client=client, agent=agent,
+                           transport=transport)
+            check(server.wait_connected([job.job_id], timeout=60.0),
+                  f"trainer incarnation {job.incarnation} never dialed in")
+            return transport
+
+        def spawner(rec, host, config_wire):
+            if rec.job_id != "t0":
+                return cl.spawn(rec, host, config_wire)
+            old = trainer["job"]
+            old.paused = True                # the old incarnation is gone:
+            trainer["client"].close()        # its baseline's host copy too
+            retired.append(trainer["transport"])
+            job = FleetTrainer("t0", seed=old.seed, lm=lm, step_fn=step_fn,
+                               dev=dev, incarnation=old.incarnation + 1)
+            # a file:// root is one directory every host reaches: the
+            # placement's front= pin does not apply to it
+            return bring_up(job, host, dict(config_wire, root=troot),
+                            server.new_incarnation("t0", host=host))
+
+        coord.spawner = spawner
+
+        def tick(steps):
+            """cl.tick, then wait until the server has taken every
+            heartbeat the tick sent off the socket (delivery is
+            asynchronous)."""
+            sent0 = sum(a.stats["events_sent"] for a in cl.agents.values())
+            seen0 = server.stats["events"] + server.stats["bad_events"]
+            cl.tick(1.0, steps=steps)
+            torch.cuda.synchronize()
+            want = seen0 + sum(a.stats["events_sent"]
+                               for a in cl.agents.values()) - sent0
+            deadline = time.time() + 30
+            while server.stats["events"] + server.stats["bad_events"] \
+                    < want:
+                check(time.time() < deadline, "heartbeats lost on the wire")
+                time.sleep(0.01)
+
+        # ---- admission: the trainer on h0, then the SimJobs, one tick
+        t0 = time.time()
+        job = FleetTrainer("t0", seed=args.seed * 1000 + 950, lm=lm,
+                           step_fn=step_fn, dev=dev,
+                           state=init_train_state(
+                               lm, torch.Generator().manual_seed(
+                                   args.seed + 31), device=dev))
+        job.run(2)
+        wire_cfg = SessionConfig(
+            root=troot, codec=codec,
+            migration=MigrationPolicy(arch=cfg.name)).to_wire()
+        bring_up(job, "h0", wire_cfg, server.attach("t0", wire_cfg,
+                                                    host="h0"))
+        cl.submit_jobs(SOCKET_SIMJOBS, steps=4, arrival_rate=2.0)
+        tick(1)
+        out["admit_s"] = time.time() - t0
+        sims = sorted(j for j in cl.jobs if j != "t0")
+        check(len(sims) == SOCKET_SIMJOBS and server.wait_connected(
+            timeout=30.0), f"{len(sims)} SimJobs admitted, not all dialed in")
+        log(f"socket: {len(cl.jobs)} jobs dialed in to {cl.socket_url} "
+            f"(trainer t0 on h0, {SOCKET_SIMJOBS} SimJobs of "
+            f"{FLEET_SIMJOB_LEAVES} x {FLEET_SIMJOB_KB} KiB on {dev.type}); "
+            f"admitted and ticked in {out['admit_s']:.2f} s; trainer losses "
+            f"{job.losses}")
+
+        timed_wave = wave_clock(torch, coord)
+
+        def wave(label):
+            report, rec, batches = timed_wave()
+            rec["trainer_dump_s"] = next(
+                s for b, s in zip(batches, rec["batch_s"]) if "t0" in b)
+            log(f"socket: {label}: {rec['dumped']} dumped in "
+                f"{report.batches} batches of {SOCKET_CONCURRENCY}; wall "
+                f"{rec['wall_s']:.2f} s: drain {rec['drain_s']:.3f} s, "
+                f"batches {[round(b, 3) for b in rec['batch_s']]} s (the "
+                f"trainer's {rec['trainer_dump_s']:.2f}), re-place "
+                f"{rec['replace_s']:.2f} s; lost {rec['lost']} -> "
+                f"{rec['replaced']}")
+            return report, rec
+
+        def restore_all(label):
+            """Every dumped job restored; SimJobs bit-identical by digest.
+            -> the trainer's restore / digest-ack times."""
+            times = None
+            for jid in sorted(j for j in cl.jobs
+                              if coord.registry.get(j).phase == "dumped"):
+                rec = coord.registry.get(jid)
+                # the trainer's file:// root is one directory every host
+                # reaches: it is restored on its own host, not planned (the
+                # planner reads the image through the registry's root,
+                # which retarget_root gave a front= query)
+                ack = coord.restore_job(
+                    jid, host=rec.host if jid == "t0" else None)
+                check(ack is not None, f"{jid}: restore claim lost")
+                if jid == "t0":
+                    done, job = time.time(), trainer["job"]
+                    times = {"restore_s": job.restored_at
+                             - sent_at["RestoreRequest"],
+                             "digest_s": done - job.restored_at}
+                    log(f"socket: {label}: t0 incarnation {job.incarnation}"
+                        f" restored from {rec.image_id} on {ack.host}: "
+                        f"restore {times['restore_s']:.2f} s (the "
+                        f"baseline's host copy included), the ack's digest "
+                        f"{times['digest_s']:.2f} s")
+                else:
+                    check(ack.state_digest == rec.state_digest
+                          == cl.job_digest(jid),
+                          f"{jid}: restore not bit-identical by digest")
+            check(all(r.phase == "running" for r in coord.registry.jobs()),
+                  "a job is not running after the restores")
+            return times
+
+        report0, out["wave0"] = wave("wave 0")
+        check(report0.complete and len(report0.dumped) == 1 + SOCKET_SIMJOBS,
+              f"wave 0 incomplete: {report0}")
+        wave0_image = report0.dumped["t0"]
+        live0 = trainer["job"]               # drained, on the card
+        out["wave0"]["trainer"] = restore_all("wave 0")
+        # wave 0's moments (the restored tree, before the steps below
+        # update it in place): the delta8 baseline of the wave-1 dump
+        prev = {p: torch.from_numpy(to_host(t)) for p, t in
+                flatten_with_paths(trainer["job"].state)
+                if policy(p) == "delta8"}
+        # the restored incarnation steps on in the tick; its drained
+        # predecessor takes the same 2 batches: the losses must agree
+        s0 = live0.step
+        tick(2)
+        logged = {k: v for k, v in trainer["job"].losses.items() if k > s0}
+        live0.paused = False
+        live0.run(2)
+        torch.cuda.synchronize()
+        again = {k: v for k, v in live0.losses.items() if k > s0}
+        log(f"socket: 2 steps after the wave-0 restore: the restored "
+            f"trainer's losses {logged}, its drained incarnation's on the "
+            f"same batches {again} (held to 1e-5 relative)")
+        check(sorted(logged) == sorted(again) == [s0 + 1, s0 + 2],
+              f"steps after the restore: {sorted(logged)}, {sorted(again)}")
+        for k, v in logged.items():
+            check(abs(v - again[k]) <= 1e-5 * abs(again[k]),
+                  f"step {k}: restored loss {v} vs {again[k]}")
+        out["wave0"]["losses"] = {"restored": logged, "drained": again}
+        del live0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        order = [r.job_id for r in coord.registry.jobs()]
+        host_of = {r.job_id: r.host for r in coord.registry.jobs()}
+        fail = _drawn_failure(np.random.default_rng(args.seed), order,
+                              host_of, SOCKET_CONCURRENCY, (host_of["t0"],))
+        cl.arm_failure(kind="MigrateRequest", nth=fail[0], host=fail[1])
+        cut.armed = True
+        agent = trainer["agent"]
+        execs0, dedup0 = (trainer["client"].commands_executed,
+                          agent.stats["dedup_hits"])
+        out["failure"] = list(fail)
+        log(f"socket: armed a node failure (MigrateRequest ordinal, host) "
+            f"{fail} and a cut {cut.off} bytes into t0's MigrationTicket "
+            f"reply; t0 on {host_of['t0']}")
+        report1, out["wave1"] = wave("wave 1")
+        alive = {h.host_id for h in cl.topology.hosts()}
+        check(report1.complete and coord.stats["hosts_failed"] == 1
+              and report1.lost and "t0" in report1.dumped,
+              f"wave 1: {report1}")
+        for jid in report1.lost:
+            check(report1.replaced.get(jid) in alive,
+                  f"{jid} lost but not re-placed on a live host")
+        execs = trainer["client"].commands_executed - execs0
+        dedup = agent.stats["dedup_hits"] - dedup0
+        out["cut"] = {"fired": cut.fired, "commands": execs,
+                      "dedup_hits": dedup,
+                      "reconnects": agent.stats["reconnects"]}
+        log(f"socket: the cut fired {cut.fired} (frame bytes, cut at); "
+            f"t0 executed {execs} commands in wave 1 (drain, migrate), "
+            f"reconnected {agent.stats['reconnects']} time(s), answered "
+            f"{dedup} replay(s) from its dedup window")
+        check(len(cut.fired) == 1 and execs == 2 and dedup == 1
+              and agent.stats["reconnects"] == 1,
+              f"the cut MigrateRequest did not execute exactly once with "
+              f"one deduped replay: {out['cut']}")
+
+        rec0 = coord.registry.get("t0")
+        man = read_manifest(trainer["client"].session.tier, rec0.image_id)
+        opt = [r for r in man["leaves"] if policy(r["path"]) == "delta8"]
+        on_card = sum(1 for r in opt
+                      if r["codec_meta"].get("encoder") == "device")
+        out["t0_image"] = {
+            "image_id": rec0.image_id, "parent": man["parent"],
+            "gb": sum(r["nbytes"] for r in man["leaves"]) / 1e9,
+            "moments": len(opt), "device_encoded": on_card}
+        log(f"socket: t0's wave-1 image {rec0.image_id} (parent "
+            f"{man['parent']}): {out['t0_image']['gb']:.3f} GB; {len(opt)} "
+            f"moment leaves delta8-coded, {on_card} of them by the device "
+            f"stage (K1), the rest by the host codec (K4)")
+        check(man["parent"] == wave0_image
+              and all(r["codec_meta"].get("applied") for r in opt)
+              and on_card > 0,
+              "t0's wave-1 moments are not delta8 against wave 0's image, "
+              "or none went through the device stage")
+
+        live1 = trainer["job"]               # drained, on the card
+        out["wave1"]["trainer"] = restore_all("wave 1")
+        for jid in sims:
+            check(cl.job_digest(jid) == coord.registry.get(jid).state_digest,
+                  f"{jid}: its state is not the image's by digest")
+        new = trainer["job"]
+        out["t0_err_over_half_scale"] = check_restored_b(
+            torch, live1.state, new.state, prev, policy)
+        log("socket: t0 params and step bit-identical after the restore; "
+            "opt/m and opt/v within each block's scale/2 of the drained "
+            f"live moments (worst error / (scale/2) = "
+            f"{out['t0_err_over_half_scale']:.4f})")
+        del prev
+        s1 = new.step
+        out["t0_continue"], new.state, live1.state = continue_both(
+            torch, step_fn, new.state, live1.state,
+            [new.batch(s1), new.batch(s1 + 1)], "socket t0",
+            final_step=s1 + 2)
+        new.step += 2
+        del live1
+
+        transports = cl.all_transports + retired + [trainer["transport"]]
+        replies = sum(t.frames_received for t in transports)
+        out["frames"] = {"coordinator": dict(coord.stats),
+                         "server": dict(server.stats), "replies": replies,
+                         "reconnects": agent.stats["reconnects"],
+                         "dedup_hits": dedup}
+        log(f"socket: frames: coordinator {coord.stats}; the server took "
+            f"{replies} replies and {server.stats['events']} heartbeat "
+            f"events off the socket ({server.stats}: a hello per "
+            f"incarnation and per reconnect); reconnects "
+            f"{agent.stats['reconnects']} (t0, after the cut), deduped "
+            f"replays {dedup}")
+        check(coord.stats["wire_frames"] == replies + server.stats["events"]
+              and coord.stats["heartbeats"] == server.stats["events"]
+              and server.stats["bad_events"] == 0,
+              "a coordinator<->job interaction did not cross the socket")
+        out["launches"] = dict(ckpt_codec.LAUNCHES)
+        out["launches"]["flash_attention"] = k6.LAUNCHES["flash_attention"]
+        log("kernels: socket-path launches " + " ".join(
+            f"{k}={v}" for k, v in out["launches"].items()))
+        for k in ("delta_encode_digest", "delta_encode", "delta_decode"):
+            check(out["launches"][k] > 0,
+                  f"kernel {k} was not launched on the socket path")
+        for k in ("bf16_encode_digest", "digest_blocks", "flash_attention"):
+            check(out["launches"][k] == 0,
+                  f"kernel {k} was launched on the socket path")
+        out["in_process_s"] = time.time() - t_path
+        cl.shutdown()
+        trainer.clear()
+        del new, job
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["restart"] = _socket_restart(dev, args, tmp)
+    finally:
+        if cl is not None:
+            cl.shutdown()
+        reset_tier_registry()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _socket_restart(dev, args, tmp):
+    """Path 12 (b): examples/fleet_multiprocess_torch.py's --serve
+    coordinator under 3 --worker subprocesses (each a SimJob of 3 x 4 MiB
+    on the card in its own CUDA context), twice side by side: a control
+    run, and a run whose coordinator SIGKILLs itself after the 2nd
+    committed dump and is restarted from its on-disk journal while the
+    workers redial. Both waves must complete with the same digests."""
+    import signal
+    import subprocess
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONUNBUFFERED="1")
+    example = os.path.join(ROOT, SOCKET_EXAMPLE)
+    jobs = [f"j{i}" for i in range(SOCKET_WORKERS)]
+    procs, runs = [], {}
+
+    def start(cmd, log_path):
+        f = open(log_path, "w")
+        p = subprocess.Popen(cmd, env=env, stdout=f,
+                             stderr=subprocess.STDOUT)
+        f.close()
+        procs.append(p)
+        return p
+
+    def serve(run, die=0):
+        r = runs[run]
+        cmd = [sys.executable, example, "--serve", "--socket", r["url"],
+               "--journal", r["journal"], "--root", r["root"],
+               "--jobs", ",".join(jobs), "--out", r["out"],
+               "--resume-timeout", "60", "--connect-timeout", "120",
+               "--timeout", "200"]
+        if die:
+            cmd += ["--die-after-dumps", str(die)]
+        r.setdefault("serves", []).append(time.time())
+        return start(cmd, f"{r['root']}/serve{len(r['serves'])}.log")
+
+    def text(path):
+        with open(path) as f:
+            return f.read()
+
+    try:
+        t0 = time.time()
+        for run in ("control", "killed"):
+            root = tempfile.mkdtemp(prefix=f"{run}-", dir=tmp)
+            runs[run] = {"root": root, "url": f"unix://{root}/c.sock",
+                         "journal": f"file://{root}/journal",
+                         "out": f"{root}/wave.json"}
+            runs[run]["proc"] = serve(
+                run, SOCKET_DIE_AFTER if run == "killed" else 0)
+            runs[run]["workers"] = [start(
+                [sys.executable, example, "--worker", "--job", jid,
+                 "--seed", str(args.seed * 1000 + 41 + i), "--steps", "3",
+                 "--leaves", str(FLEET_SIMJOB_LEAVES),
+                 "--leaf-kb", str(FLEET_SIMJOB_KB), "--device", dev.type,
+                 "--socket", runs[run]["url"], "--root", root,
+                 "--timeout", "240"], f"{root}/{jid}.log")
+                for i, jid in enumerate(jobs)]
+        killed = runs["killed"]
+        rc = killed["proc"].wait(timeout=200)
+        died_at = time.time()
+        journal = json.loads(text(f"{killed['root']}/journal/fleet/"
+                                  "registry.json"))
+        phases = {j["job_id"]: j["phase"] for j in journal["jobs"]}
+        log(f"socket: restart: the coordinator subprocess exited {rc} "
+            f"{died_at - killed['serves'][0]:.1f} s after it started; its "
+            f"journal (epoch {journal['epoch']}) holds {phases}")
+        check(rc == -signal.SIGKILL and not os.path.exists(killed["out"])
+              and sum(p == "dumped" for p in phases.values())
+              == SOCKET_DIE_AFTER,
+              f"the coordinator was not SIGKILLed mid-wave (rc {rc}, "
+              f"phases {phases})")
+        killed["proc"] = serve("killed")     # the same journal, epoch + 1
+        result = {}
+        for run, r in runs.items():
+            rc = r["proc"].wait(timeout=200)
+            serve_log = f"{r['root']}/serve{len(r['serves'])}.log"
+            check(rc == 0, f"{run} coordinator exited {rc}: "
+                           f"{text(serve_log)[-2000:]}")
+            result[run] = json.loads(text(r["out"]))
+            codes = [w.wait(timeout=60) for w in r["workers"]]
+            logs = [text(f"{r['root']}/{j}.log") for j in jobs]
+            check(codes == [0] * len(jobs),
+                  f"{run} workers exited {codes}: {logs}")
+            result[run]["worker_lines"] = [
+                ln for t in logs for ln in t.splitlines() if "done (" in ln]
+        wall = time.time() - t0
+        ctl, kil = result["control"], result["killed"]
+        reattach = kil["connected_at"] - kil["listen_at"]
+        restart = kil["connected_at"] - killed["serves"][1]
+        out = {"wall_s": wall, "control_wave_s": ctl["wave_s"],
+               "killed_wave_s": kil["wave_s"], "reattach_s": reattach,
+               "restart_to_reattached_s": restart,
+               "epochs": [ctl["epoch"], kil["epoch"]],
+               "digests": kil["digests"], "server": kil["server"],
+               "workers": kil["worker_lines"]}
+        log(f"socket: restart: the restarted coordinator (epoch "
+            f"{kil['epoch']}) listened, and all {len(jobs)} workers "
+            f"re-attached {reattach:.3f} s later ({restart:.2f} s after its "
+            f"process started); it finished the wave in "
+            f"{kil['wave_s']:.2f} s (control run: {ctl['wave_s']:.2f} s); "
+            f"phases {kil['phases']}; workers: {kil['worker_lines']}")
+        check(kil["epoch"] == 2 and ctl["epoch"] == 1
+              and all(p in ("dumped", "running")
+                      for p in kil["phases"].values()),
+              f"the restart did not complete the wave: {kil}")
+        check(len(kil["worker_lines"]) == len(jobs)
+              and all("reconnects=0" not in ln and f"'{dev.type}" in ln
+                      for ln in kil["worker_lines"]),
+              f"a worker did not redial, or its leaves left the "
+              f"{dev.type} device: {kil['worker_lines']}")
+        check(kil["digests"] == ctl["digests"]
+              and all(ctl["digests"].values()),
+              f"digests after the kill {kil['digests']} differ from the "
+              f"run without it {ctl['digests']}")
+        log(f"socket: restart: digests equal to the run without the kill "
+            f"({ {j: d[:12] for j, d in ctl['digests'].items()} }); both "
+            f"runs side by side in {wall:.1f} s")
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
 def capability_phase(torch, dev):
-    """`criu check` on the card: every capability, one line each; the
-    Table-1 rows of ported modules (CARD_ROWS) must be supported, the
-    unported ones unsupported with their missing module named."""
-    from repro_torch.api.capabilities import NOT_PORTED, TABLE1, capabilities
+    """`criu check` on the card: every capability, one line each, and
+    every one must be supported (every module is ported)."""
+    from repro_torch.api.capabilities import capabilities
     t0 = time.time()
     rep = capabilities(device=dev)
     out = {"s": time.time() - t0,
@@ -2615,14 +3221,8 @@ def capability_phase(torch, dev):
             f"{c.detail}{row}")
     log(f"capability: {len(out['supported'])} supported, "
         f"{len(out['unsupported'])} not, in {out['s']:.1f} s")
-    for row in CARD_ROWS:
-        name = TABLE1[row][2]
-        check(rep.supported(name), f"Table-1 row {row} ({name}) is not "
-                                   f"supported on the card: "
-                                   f"{rep[name].detail}")
-    for name, mods in NOT_PORTED.items():
-        check(not rep.supported(name) and mods in rep[name].detail,
-              f"{name} must report unsupported, naming {mods}")
+    check(not out["unsupported"], "unsupported on the card: " + "; ".join(
+        f"{c.name}: {c.detail}" for c in rep if not c.supported))
     return out
 
 
@@ -2642,13 +3242,16 @@ class RssPeak:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._page = os.sysconf("SC_PAGE_SIZE")
 
+    def rss_gb(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page / 1e9
+
     def _run(self):
         while not self._stop.wait(0.02):
-            with open("/proc/self/statm") as f:
-                rss = int(f.read().split()[1]) * self._page / 1e9
-            self.peak_gb = max(self.peak_gb, rss)
+            self.peak_gb = max(self.peak_gb, self.rss_gb())
 
     def __enter__(self):
+        self.start_gb = self.rss_gb()      # what the paths before left
         self._thread.start()
         return self
 
@@ -2840,6 +3443,26 @@ def main(argv=None) -> int:
         rows[k]["launches"] += record["fleet"]["launches"][k]
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with RssPeak() as rss_socket:
+        record["socket"] = socket_path(torch, dev, args)
+    record["socket"].update(
+        host_peak_rss_gb=rss_socket.peak_gb,
+        host_rss_at_start_gb=rss_socket.start_gb, wall_s=time.time() - t0,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"socket: path {record['socket']['wall_s']:.1f} s (in process "
+        f"{record['socket']['in_process_s']:.1f} s, the restart "
+        f"{record['socket']['restart']['wall_s']:.1f} s); peak device "
+        f"memory {record['socket']['peak_device_gb']:.1f} GB; host peak RSS "
+        f"of the path {rss_socket.peak_gb:.1f} GB, "
+        f"{rss_socket.peak_gb - rss_socket.start_gb:.1f} GB above the "
+        f"{rss_socket.start_gb:.1f} GB at its start (sampled every 20 ms; "
+        f"the subprocesses' own not included)")
+    for k in ckpt_codec.KERNELS:
+        rows[k]["launches"] += record["socket"]["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
     record["capabilities"] = capability_phase(torch, dev)
     record["kernels"] = list(rows.values())
     record["card"] = card
@@ -2859,7 +3482,8 @@ def main(argv=None) -> int:
         f"{record['lifecycle']['preempted_peak_device_gb']:.1f} GB "
         f"(preempted), remote {record['remote']['peak_device_gb']:.1f} GB, "
         f"plane {record['plane']['peak_device_gb']:.1f} GB, fleet "
-        f"{record['fleet']['peak_device_gb']:.1f} GB")
+        f"{record['fleet']['peak_device_gb']:.1f} GB, socket "
+        f"{record['socket']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6's row also carries its numbers at gemma2's head dim 256

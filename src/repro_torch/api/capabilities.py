@@ -9,15 +9,17 @@ capabilities); this module keeps its own copy of ``TABLE1``, equal to
 that one. Each probe is exercised, not assumed: a tensor is dumped from
 the device and restored onto it bit for bit, the device codec stage runs
 its kernel there (K1 on a card), the pre-dump classifier runs K5 there,
-the object-store probes move a real image through faults.
+the object-store probes move a real image through faults, the socket
+probe runs a job on the device behind a real Unix-domain socket.
 
-One capability needs a module the port does not have yet; it reports
-unsupported and names the missing module (``NOT_PORTED``):
+Every capability's modules are ported (``NOT_PORTED`` is empty; a
+capability listed there would report unsupported and name the module it
+waits for):
 
     $ python -m repro_torch.api.capabilities --device cpu
     delta8_codec              ok    int8 block-delta round-trips ...
     fleet_coordination        ok    2-job wave on 2 hosts with leaves ...
-    socket_transport          FAIL  not ported to repro_torch: ...
+    socket_transport          ok    one-job fleet over a real UDS ...
 """
 from __future__ import annotations
 
@@ -28,9 +30,7 @@ import threading
 
 # capabilities whose probes need modules the port does not have yet ->
 # the JAX package's modules they need
-NOT_PORTED = {
-    "socket_transport": "fleet/transport.py",
-}
+NOT_PORTED: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -626,6 +626,68 @@ def _probe_fleet(dev) -> list:
     return out
 
 
+def _probe_socket(dev) -> list:
+    """One job with its leaves on ``dev`` behind a REAL Unix-domain
+    socket, end to end: the worker dials in (HELLO handshake with
+    (job_id, incarnation)), a framed drain -> dump -> restore runs over
+    the wire, and the restore digest is checked bit-identical
+    coordinator-side — the loopback fleet story with actual bytes on an
+    actual socket."""
+    out = []
+    try:
+        import shutil
+        import tempfile
+
+        from repro_torch.api.config import MigrationPolicy, SessionConfig
+        from repro_torch.fleet import FleetClient, coordinator_serve
+        from repro_torch.fleet.simcluster import SimJob
+        tmp = tempfile.mkdtemp(prefix="repro-torch-capsock-")
+        server = coordinator_serve(f"unix://{tmp}/coord.sock",
+                                   resume_timeout_s=10.0)
+        try:
+            job = SimJob("cap0", seed=3, leaves=2, leaf_kb=2, device=dev)
+            job.run(2)
+            cfg = SessionConfig(root=f"file://{tmp}/cap0", serial=True,
+                                migration=MigrationPolicy(arch="simjob"))
+
+            def drain():
+                job.paused = True
+                return job.step
+
+            client = FleetClient(
+                "cap0", cfg.to_wire(), host="cap-host",
+                state_provider=lambda: (job.state(), job.step),
+                on_drain=drain,
+                on_restore=lambda r: job.adopt(r.state, r.step),
+                device=dev)
+            server.attach("cap0", cfg.to_wire(), host="cap-host")
+            agent = client.connect(server.url)
+            try:
+                ok = server.wait_connected(["cap0"], timeout=10.0)
+                report = server.coordinator.preemption_wave(
+                    replace_lost=False)
+                rec = server.registry.get("cap0")
+                ack = server.coordinator.restore_job("cap0")
+                ok = (ok and report.complete and ack is not None
+                      and ack.state_digest == rec.state_digest
+                      and job.params["w0"].device.type == dev.type)
+                frames = server.coordinator.stats["wire_frames"]
+            finally:
+                agent.stop()
+                client.close()
+        finally:
+            server.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+        out.append(_cap(
+            "socket_transport", ok,
+            f"one-job fleet over a real UDS with leaves on {dev.type}: "
+            f"HELLO handshake, framed drain/dump/restore ({frames} wire "
+            f"frames), restore digest bit-identical"))
+    except Exception as e:  # pragma: no cover
+        out.append(_cap("socket_transport", False, f"probe failed: {e!r}"))
+    return out
+
+
 def _probe_not_ported() -> list:
     return [_cap(name, False, f"not ported to repro_torch: needs the JAX "
                               f"package's {mods}")
@@ -716,7 +778,8 @@ def capabilities(config=None, device="cuda") -> CapabilityReport:
             + _probe_integrity(dev) + _probe_topology(dev)
             + _probe_precopy(dev) + _probe_remote(dev)
             + _probe_cross_job(dev) + _probe_device_codec(dev)
-            + _probe_fleet(dev) + _probe_not_ported() + _probe_serving(dev)
+            + _probe_fleet(dev) + _probe_socket(dev) + _probe_not_ported()
+            + _probe_serving(dev)
             + _probe_preemption())
     missing = [c for c in _ROW_BY_CAP if c not in {x.name for x in caps}]
     assert not missing, f"Table-1 rows without a probe: {missing}"

@@ -2,9 +2,8 @@
 package's api/wire.py (framework-free), so both packages speak the same
 frames under the same ``SCHEMA_VERSION``.
 
-The fleet coordinator (the JAX package's repro.fleet, not ported yet) is a
-DMTCP-style control plane: one
-process orchestrating many checkpointable jobs. DMTCP's coordinator works
+The fleet coordinator (repro_torch.fleet) is a DMTCP-style control
+plane: one process orchestrating many checkpointable jobs. DMTCP's coordinator works
 because it speaks a *protocol* to its peers, not a Python object graph —
 so the typed requests/receipts of ``repro_torch.api`` gain a serializable wire
 form here, and the coordinator speaks ONLY that form to its jobs:

@@ -1,5 +1,6 @@
 """repro_torch.fleet — the JAX package's DMTCP-style control plane over
-the port's CheckpointSessions, on the in-process loopback wire.
+the port's CheckpointSessions, over the in-process loopback wire or real
+sockets.
 
 CRIU checkpoints one process tree; DMTCP adds the piece HPC fleets
 actually operate: a COORDINATOR that speaks a wire protocol to many
@@ -25,19 +26,20 @@ port's wire, storage and remote tiers:
                 JSON-round-tripped wire frame (repro_torch.api.wire)
   messages      the control-plane vocabulary: Heartbeat, DrainCommand/
                 DrainAck, RestoreAck, ErrorReply
+  transport     the REAL wire — framed TCP/UDS sockets under the same
+                contract: HELLO handshake with (job_id, incarnation),
+                sequence numbers + dedup window (reconnect-and-resume,
+                at-most-once execution), coordinator_serve() with a
+                journaled registry that survives coordinator restarts
   simcluster    SimCluster/SimJob/SimServeJob — a deterministic
                 fleet-in-a-process (seeded arrivals, seeded mid-wave
                 node failures, live serving planes as jobs) whose jobs
                 hold their leaves on the cluster's device
 
-The wire is the JAX package's, so this coordinator drives a JAX job's
-FleetClient as readily as a torch one, and the reverse.
-
-Not ported yet: fleet/transport.py, the real socket wire
-(CoordinatorServer, FrameDecoder, FrameError, HandshakeError,
-ReconnectPolicy, SocketTransport, WorkerAgent, coordinator_serve,
-encode_frame, parse_url). ``FleetClient.connect`` and
-``SimCluster(transport="socket")`` raise until it is."""
+The wire is the JAX package's, frames byte for byte, so this coordinator
+drives a JAX job's FleetClient as readily as a torch one, over loopback
+or a socket, and the reverse; a journal either coordinator writes, the
+other re-adopts."""
 from repro_torch.fleet.client import FleetClient, HostDownError, \
     LoopbackTransport
 from repro_torch.fleet.coordinator import FleetCoordinator, WaveReport
@@ -48,11 +50,19 @@ from repro_torch.fleet.registry import JobRecord, JobRegistry
 from repro_torch.fleet.simcluster import SimCluster, SimJob, SimServeJob
 from repro_torch.fleet.topology import ClusterTopology, HostInfo, \
     retarget_root
+from repro_torch.fleet.transport import (CoordinatorServer, FrameDecoder,
+                                         FrameError, HandshakeError,
+                                         ReconnectPolicy, SocketTransport,
+                                         WorkerAgent, coordinator_serve,
+                                         encode_frame, parse_url)
 
 __all__ = [
-    "ClusterTopology", "DrainAck", "DrainCommand", "ErrorReply",
-    "FleetClient", "FleetCoordinator", "Heartbeat", "HostDownError",
+    "ClusterTopology", "CoordinatorServer", "DrainAck", "DrainCommand",
+    "ErrorReply", "FleetClient", "FleetCoordinator", "FrameDecoder",
+    "FrameError", "HandshakeError", "Heartbeat", "HostDownError",
     "HostInfo", "JobRecord", "JobRegistry", "LoopbackTransport",
-    "PlacementDecision", "PlacementPlanner", "RestoreAck", "SimCluster",
-    "SimJob", "SimServeJob", "WaveReport", "retarget_root",
+    "PlacementDecision", "PlacementPlanner", "ReconnectPolicy",
+    "RestoreAck", "SimCluster", "SimJob", "SimServeJob",
+    "SocketTransport", "WaveReport", "WorkerAgent", "coordinator_serve",
+    "encode_frame", "parse_url", "retarget_root",
 ]

@@ -26,8 +26,7 @@ at a time from where it lies (a trainer's state is never copied to the
 host whole); an eager restore hands the restored tree to the session as
 its delta8 baseline (``CheckpointSession.adopt_baseline``), so a lossy
 trainer's next wave dump encodes against the image it came from instead
-of in full; and ``connect`` (the socket wire, fleet/transport.py) is not
-ported yet."""
+of in full."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,7 +35,7 @@ from repro_torch.api import wire
 from repro_torch.api.config import SessionConfig
 from repro_torch.api.requests import (DumpRequest, MigrateRequest,
                                       RestoreRequest)
-from repro_torch.api.session import CheckpointSession, _not_ported
+from repro_torch.api.session import CheckpointSession
 from repro_torch.core.dump import flatten_with_paths
 from repro_torch.core.integrity import tree_digest
 from repro_torch.core.remote import TransferError
@@ -185,12 +184,23 @@ class FleetClient:
                          if self.sessions_provider else 0).to_wire()
 
     def connect(self, url: str, **agent_kw):
-        """Dial a socket coordinator (the JAX package's
-        ``FleetClient.connect``): needs fleet/transport.py, which the port
-        does not have yet. Hand a LoopbackTransport to the coordinator
-        instead."""
-        raise _not_ported("FleetClient.connect (the socket wire, "
-                          "fleet/transport.py)")
+        """Dial a socket coordinator and serve its commands: returns a
+        started ``repro_torch.fleet.transport.WorkerAgent``. This is the
+        socket counterpart of handing a LoopbackTransport to the
+        coordinator — the same client works behind either, and the
+        coordinator may be the JAX package's.
+
+        Example::
+
+            agent = client.connect("unix:///tmp/coord.sock",
+                                   heartbeat_every_s=1.0)
+            ...
+            agent.stop()
+        """
+        from repro_torch.fleet.transport import WorkerAgent
+        agent = WorkerAgent(self, url, **agent_kw)
+        agent.start()
+        return agent
 
     def close(self):
         self.session.close()

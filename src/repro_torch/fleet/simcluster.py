@@ -27,11 +27,16 @@ COORDINATOR's batching, not thread-pool incidentals.
 A copy of the JAX package's fleet/simcluster.py over the port: jobs keep
 their leaves as torch tensors on the cluster's ``device`` ("cuda" by
 default), drawn from the same seeded numpy streams, so a JAX job and its
-twin here hold the same bits and dump the same chunks. Only the loopback
-wire is ported: ``transport="socket"`` needs fleet/transport.py."""
+twin here hold the same bits and dump the same chunks. With
+``transport="socket"`` every frame crosses a real Unix-domain socket
+(fleet/transport.py) as in the JAX package; the jobs' tensors stay on the
+cluster's device either way."""
 from __future__ import annotations
 
 import itertools
+import os
+import shutil
+import tempfile
 import threading
 
 import numpy as np
@@ -39,7 +44,6 @@ import torch
 
 from repro_torch.api.config import CodecPolicy, MigrationPolicy, \
     SessionConfig
-from repro_torch.api.session import _not_ported
 from repro_torch.core.remote import get_store
 from repro_torch.device import resolve_device
 from repro_torch.fleet.client import FleetClient, LoopbackTransport
@@ -47,6 +51,8 @@ from repro_torch.fleet.coordinator import FleetCoordinator
 from repro_torch.fleet.placement import PlacementPlanner
 from repro_torch.fleet.registry import JobRegistry
 from repro_torch.fleet.topology import ClusterTopology
+from repro_torch.fleet.transport import CoordinatorServer, \
+    ReconnectPolicy, WorkerAgent, parse_url
 
 _STORE_SEQ = itertools.count()
 
@@ -202,11 +208,12 @@ class SimServeJob:
 
 
 class SimCluster:
-    """Hosts + jobs + coordinator, wired through loopback transports.
+    """Hosts + jobs + coordinator, wired through loopback transports by
+    default — or over a REAL Unix-domain socket with
+    ``transport="socket"`` (every frame crosses the framed wire through
+    per-job WorkerAgents; same jobs, same digests, same seeded chaos).
     ``device`` is where every job's leaves live and every session runs
-    ("cuda" by default). ``transport="socket"`` (the JAX package's real
-    Unix-domain socket wire) needs fleet/transport.py, which the port does
-    not have yet, and raises.
+    ("cuda" by default), whichever the wire.
 
     Example::
 
@@ -226,11 +233,9 @@ class SimCluster:
                  leaf_kb: int = 32, leaves: int = 4,
                  codec: CodecPolicy | None = None,
                  extra_uri_params: str = "", policy=None,
-                 transport: str = "loopback", device="cuda"):
-        if transport == "socket":
-            raise _not_ported("SimCluster(transport=\"socket\") (the "
-                              "socket wire, fleet/transport.py)")
-        if transport != "loopback":
+                 transport: str = "loopback",
+                 resume_timeout_s: float = 5.0, device="cuda"):
+        if transport not in ("loopback", "socket"):
             raise ValueError(f"transport must be 'loopback' or 'socket', "
                              f"got {transport!r}")
         self.device = resolve_device(device)
@@ -265,6 +270,14 @@ class SimCluster:
             dump_concurrency=dump_concurrency, spawner=self.spawn,
             policy=policy)
         self.transport_mode = transport
+        self.server = None
+        self.agents: dict = {}              # job_id -> live WorkerAgent
+        if transport == "socket":
+            sockdir = tempfile.mkdtemp(prefix="repro-simfleet-")
+            self.socket_url = f"unix://{sockdir}/coord.sock"
+            self.server = CoordinatorServer(
+                self.socket_url, coordinator=self.coordinator,
+                resume_timeout_s=resume_timeout_s)
 
     # ------------------------------------------------------------- plumbing
     def clock(self) -> float:
@@ -335,12 +348,36 @@ class SimCluster:
         client = self._client(job, cfg.to_wire(), host)
         self.jobs[job.job_id] = job
         self.clients[job.job_id] = client
-        transport = LoopbackTransport(client, host=host,
-                                      on_send=self._on_frame)
-        self.coordinator.attach(job.job_id, transport, host=host,
-                                config_wire=cfg.to_wire(),
-                                kind=getattr(job, "kind", "train"))
+        if self.server is not None:
+            transport = self.server.attach(
+                job.job_id, cfg.to_wire(), host=host,
+                kind=getattr(job, "kind", "train"))
+            transport.on_send = self._on_frame
+            self._dial(job.job_id, client, incarnation=0)
+        else:
+            transport = LoopbackTransport(client, host=host,
+                                          on_send=self._on_frame)
+            self.coordinator.attach(job.job_id, transport, host=host,
+                                    config_wire=cfg.to_wire(),
+                                    kind=getattr(job, "kind", "train"))
         self.all_transports.append(transport)
+
+    def _dial(self, job_id: str, client: FleetClient, *,
+              incarnation: int):
+        """Socket mode: connect one worker agent for this incarnation
+        (the previous incarnation's agent, if any, is retired first)."""
+        old = self.agents.get(job_id)
+        if old is not None:
+            old.stop(bye=False)
+        agent = WorkerAgent(client, self.socket_url,
+                            incarnation=incarnation,
+                            reconnect=ReconnectPolicy(attempts=40,
+                                                      backoff_s=0.02,
+                                                      backoff_max_s=0.2))
+        agent.start()
+        self.agents[job_id] = agent
+        self.server.wait_connected([job_id], timeout=10.0)
+        return agent
 
     def _client(self, job, config_wire: dict,
                 host: str) -> FleetClient:
@@ -369,13 +406,22 @@ class SimCluster:
     def spawn(self, rec, host: str, config_wire: dict):
         """The coordinator's job launcher: a fresh incarnation of the
         job on ``host`` (new client, new session over the retargeted
-        config) — state arrives via the RestoreRequest that follows."""
+        config) — state arrives via the RestoreRequest that follows. In
+        socket mode the new incarnation DIALS IN like a relaunched
+        worker would; the old incarnation's reconnects are refused as
+        stale at the HELLO."""
         job = self.jobs[rec.job_id]
         job.paused = True                     # old incarnation is gone
         client = self._client(job, config_wire, host)
         self.clients[rec.job_id] = client
-        transport = LoopbackTransport(client, host=host,
-                                      on_send=self._on_frame)
+        if self.server is not None:
+            transport = self.server.new_incarnation(rec.job_id, host=host)
+            transport.on_send = self._on_frame
+            self._dial(rec.job_id, client,
+                       incarnation=transport.incarnation)
+        else:
+            transport = LoopbackTransport(client, host=host,
+                                          on_send=self._on_frame)
         self.all_transports.append(transport)
         return transport
 
@@ -391,8 +437,13 @@ class SimCluster:
             if heartbeat and job_id not in mute and job.running \
                     and not job.paused \
                     and self.topology.alive(self._host_of(job_id)):
-                self.coordinator.deliver(
-                    self.clients[job_id].heartbeat(self.now))
+                if self.server is not None:
+                    # socket mode: the beacon crosses the real wire as
+                    # an event envelope (delivery is asynchronous)
+                    self.agents[job_id].heartbeat(self.now)
+                else:
+                    self.coordinator.deliver(
+                        self.clients[job_id].heartbeat(self.now))
 
     def _host_of(self, job_id: str) -> str:
         return self.coordinator.registry.get(job_id).host
@@ -438,8 +489,16 @@ class SimCluster:
 
     # ------------------------------------------------------------- shutdown
     def shutdown(self):
-        """Loopback clusters have nothing to tear down (no-op; the JAX
-        package's socket mode stops its agents and server here)."""
+        """Socket mode cleanup: stop every agent, close the server and
+        remove the socket's directory. Loopback clusters have nothing to
+        tear down (no-op)."""
+        for agent in self.agents.values():
+            agent.stop(bye=False)
+        self.agents.clear()
+        if self.server is not None:
+            self.server.close(bye=True)
+            shutil.rmtree(os.path.dirname(parse_url(self.socket_url)[1]),
+                          ignore_errors=True)
 
     # ------------------------------------------------------------- digests
     def job_digest(self, job_id: str) -> str:

@@ -300,23 +300,38 @@ def test_every_ported_capability_probes_supported_on_cpu(report):
     bad = [(c.name, c.detail) for c in report
            if not c.supported and c.name not in NOT_PORTED]
     assert not bad, bad
-    for row in (7, 11, 12, 13, 14, 15, 16, 18):
+    for row in (7, 11, 12, 13, 14, 15, 16, 17, 18):
         assert report.supported(api.TABLE1[row][2]), row
     assert "plain" in report["device_codec"].detail
     assert "bit for bit" in report["device_state_capture"].detail
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+@pytest.mark.parametrize("name", ["socket_transport"])
 def test_unported_capabilities_name_the_missing_module(report, name):
+    """The capabilities that once waited for a module (socket_transport
+    for fleet/transport.py) now probe the port's own code and pass."""
     cap = report[name]
-    assert not cap.supported and cap.paper_row is not None
-    assert "not ported" in cap.detail and NOT_PORTED[name] in cap.detail
+    assert name not in NOT_PORTED
+    assert cap.supported and cap.paper_row is not None, cap.detail
+    assert "not ported" not in cap.detail
     # the probe never reaches for the JAX package
     assert "repro." not in cap.detail.replace("repro_torch", "")
 
 
 def test_not_ported_is_fleet_and_socket_only():
-    assert set(NOT_PORTED) == {"socket_transport"}
+    """Every capability's modules are ported: nothing is left waiting."""
+    assert NOT_PORTED == {}
+
+
+def test_socket_probe_passes_on_cpu(report):
+    """Table-1 row 17 runs the port's own socket wire: one SimJob with
+    its leaves on the probe's device behind a real UDS, drained, dumped
+    and restored over framed wire, the restore digest bit-identical."""
+    cap = report["socket_transport"]
+    assert cap.supported, cap.detail
+    assert cap.paper_row == 17 and api.TABLE1[17][2] == "socket_transport"
+    assert "real UDS with leaves on cpu" in cap.detail
+    assert "bit-identical" in cap.detail
 
 
 def test_fleet_coordination_probe_passes_on_cpu(report):
@@ -356,7 +371,7 @@ def test_as_json_resolves_table1_rows(report):
     assert rows["13"]["capability"] == "remote_storage"
     assert rows["13"]["supported"] is True
     assert rows["15"]["supported"] is True
-    assert rows["17"]["supported"] is False
+    assert rows["17"]["supported"] is True
     assert report.as_json()["env"]["backend"] == "cpu"
 
 
