@@ -184,7 +184,27 @@ Phases, one line each (plus details):
                SIGKILLs itself after the 2nd committed dump (rc must be
                -SIGKILL) and is restarted from its journal while the workers
                redial; both waves complete with equal digests;
- 13. capabilities: `criu check` of the port on the card
+ 13. families path: the MoE, SSM and hybrid architectures at full
+               width. (a) granite-moe-3b-a800m (full depth, 32 layers, 40
+               experts top-8), dbrx-132b (2 of 40 layers: 16 experts top-4
+               of d_ff 10752, 3.2 B params a layer), xlstm-350m (full
+               depth: mLSTM, mLSTM, mLSTM, sLSTM x 6) and zamba2-1.2b (full
+               depth, 38 mamba2 layers and a shared attention block applied
+               7 times): ServeEngine prefill 1 x 2048 and 8 greedy tokens,
+               K6 launched 32, 2, 0 and 7 times on the wgmma route; then
+               one more prefill each of granite-moe (the MoE layers' and
+               the dispatch's time under CUDA events) and xlstm (the sLSTM
+               scans'). (b) zamba2-1.2b at full depth on the serve path's
+               pattern: engine A 32 tokens for 4 prompts of 2048, engine B
+               16 and a checkpoint of its session (38 mamba2 states, 7
+               shared K/V caches), engine C resumes it and generates to 32:
+               C's tokens equal A's and its final cache A's bitwise, the
+               image's cache leaves are JAX's init_cache paths, shapes and
+               dtypes, K6 14 on wgmma. (c)
+               granite-moe-3b-a800m at full width, 32 -> 4 layers, through
+               the train path's steps, images and checks, its aux metric
+               reported, K1 9, K2 9, K3 12, K4 3 exactly;
+ 14. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): every
                capability must be supported.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
@@ -194,6 +214,7 @@ the last line. Without a CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -287,6 +308,15 @@ FLASH_CASES = [
     ("deepseek 1x2048 64/8 heads x128 bf16", 1, 2048, 2048, 64, 8, 128,
      "bfloat16", 0, 0.0, 2e-2, 1.0, True),
     ("mistral 1x2048 96/8 heads x128 bf16", 1, 2048, 2048, 96, 8, 128,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    # path 13's prefills: granite-moe-3b-a800m (GQA 3 at head dim 64),
+    # dbrx-132b (GQA 6 at 128) and zamba2-1.2b's shared block at the
+    # session's batch of 4 (its 1 x 2048 is musicgen's shape)
+    ("granite-moe 1x2048 24/8 heads x64 bf16", 1, 2048, 2048, 24, 8, 64,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    ("dbrx 1x2048 48/8 heads x128 bf16", 1, 2048, 2048, 48, 8, 128,
+     "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    ("zamba2 session 4x2048 32/32 heads x64 bf16", 4, 2048, 2048, 32, 32, 64,
      "bfloat16", 0, 0.0, 2e-2, 1.0, True),
 ]
 
@@ -838,9 +868,12 @@ def continue_both(torch, step, tree, state, batches, label, final_step=6):
     return cont, tree, state
 
 
-def train_path(torch, dev, args):
+def train_path(torch, dev, args, cfg=None, label="train"):
+    """Path 4 (qwen3-8b at LAYERS layers), or the same steps on ``cfg``
+    with its log lines under ``label`` (path 13's MoE trainer)."""
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.configs.qwen3_8b import CONFIG
     from repro_torch.core import as_tier, dump, flatten_with_paths, restore
     from repro_torch.core.storage import LocalDirTier
@@ -851,15 +884,22 @@ def train_path(torch, dev, args):
     from repro_torch.training import (abstract_train_state, init_train_state,
                                       make_train_step)
 
-    cfg = CONFIG.replace(num_layers=LAYERS)
+    if cfg is None:
+        cfg = CONFIG.replace(num_layers=LAYERS)
+    full_layers = get_config(cfg.name).num_layers
     lm = LM(cfg)
-    log(f"train: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+    experts = (f" experts={cfg.num_experts} top-{cfg.experts_per_token}"
+               if cfg.num_experts else "")
+    log(f"{label}: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}->{cfg.padded_vocab}; "
-        f"cut: num_layers {CONFIG.num_layers} -> {cfg.num_layers} (the only "
-        f"cut); params={lm.n_params():,}")
+        f"d_ff={cfg.d_ff}{experts} vocab={cfg.vocab_size}->"
+        f"{cfg.padded_vocab}; cut: num_layers {full_layers} -> "
+        f"{cfg.num_layers} (the only cut); params={lm.n_params():,}")
+    # a mem:// tier of its own per label: the cleanup below deletes the
+    # chunks behind the tier's chunk index, which a later dump to the same
+    # tier would trust
     root = (LocalDirTier(args.ckpt_dir, fsync="commit") if args.ckpt_dir
-            else as_tier(f"mem://chip-smoke-{args.seed}"))
+            else as_tier(f"mem://chip-smoke-{label}-{args.seed}"))
     rng = np.random.default_rng(args.seed)
 
     def batch():
@@ -872,10 +912,10 @@ def train_path(torch, dev, args):
     torch.cuda.synchronize()
     state_bytes = sum(t.numel() * t.element_size()
                       for _, t in flatten_with_paths(state))
-    log(f"train: init {time.time() - t0:.1f} s; train state "
+    log(f"{label}: init {time.time() - t0:.1f} s; train state "
         f"{state_bytes / 1e9:.2f} GB on the card")
     step = make_train_step(lm, OptConfig())
-    out = {"state_bytes": state_bytes, "losses": [], "step_s": []}
+    out = {"state_bytes": state_bytes, "losses": [], "aux": [], "step_s": []}
 
     ckpt_codec.reset_launches()          # the main path's counts start here
     for _ in range(3):
@@ -883,22 +923,24 @@ def train_path(torch, dev, args):
         state, m = step(state, batch())
         loss = float(m["loss"])
         out["losses"].append(loss)
+        out["aux"].append(float(m["aux"]))
         out["step_s"].append(time.time() - t0)
         check(np.isfinite(loss), f"loss {loss} is not finite")
-    log(f"train: 3 steps, losses {out['losses']}, step s "
+    log(f"{label}: 3 steps, losses {out['losses']}, step s "
         f"{[round(s, 3) for s in out['step_s']]}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     t0 = time.time()
     ra = dump(state, root, step=3, device=dev, device_codec="auto")
     out["dump_a_s"] = time.time() - t0
-    log(f"train: image A {ra['image_id']} lossless in {out['dump_a_s']:.1f} s: "
+    log(f"{label}: image A {ra['image_id']} lossless in {out['dump_a_s']:.1f} s: "
         f"{ra['stats']['bytes_stored'] / 1e9:.2f} GB stored")
     prev = {p: to_host(t) for p, t in flatten_with_paths(state)
             if p.startswith("opt/m/")}
 
     state, m = step(state, batch())
     out["losses"].append(float(m["loss"]))
+    out["aux"].append(float(m["aux"]))
     torch.cuda.synchronize()
     t0 = time.time()
     rb = dump(state, root, step=4, parent=ra["image_id"],
@@ -906,7 +948,7 @@ def train_path(torch, dev, args):
               device_codec="auto")
     out["dump_b_s"] = time.time() - t0
     st = rb["stats"]
-    log(f"train: image B {rb['image_id']} (parent {ra['image_id']}) in "
+    log(f"{label}: image B {rb['image_id']} (parent {ra['image_id']}) in "
         f"{out['dump_b_s']:.1f} s: {st['bytes_stored'] / 1e9:.2f} GB stored, "
         f"{st['leaves_device']} leaves through the device codec stage")
     check(st["leaves_device"] > 0, "no leaf went through the device stage")
@@ -920,28 +962,28 @@ def train_path(torch, dev, args):
     torch.cuda.synchronize()
     out["restore_s"] = time.time() - t0
     digests = sum(1 for r in man["leaves"] if "digest" in r["codec_meta"])
-    log(f"train: restore B in {out['restore_s']:.1f} s; {digests} payload "
+    log(f"{label}: restore B in {out['restore_s']:.1f} s; {digests} payload "
         f"digests re-derived from the stored bytes and verified")
     check(digests > 0, "image B carries no payload digest")
 
     out["m_err_over_half_scale"] = check_restored_b(torch, state, tree, prev)
-    log("train: params and step bit-identical; opt/v equals the bf16 round "
+    log(f"{label}: params and step bit-identical; opt/v equals the bf16 round "
         "trip of the live v bitwise; opt/m within each block's scale/2 "
         f"(worst error / (scale/2) = {out['m_err_over_half_scale']:.4f})")
     del prev
 
     out["continue"], tree, state = continue_both(
-        torch, step, tree, state, [batch() for _ in range(2)], "train")
+        torch, step, tree, state, [batch() for _ in range(2)], label)
 
     # read just after the train path: its kernels are K1-K4 (K5 runs on
     # the pre-copy path)
     launches = {k: v for k, v in ckpt_codec.LAUNCHES.items()
                 if k != "digest_blocks"}
     out["launches"] = launches
-    log("kernels: train-path launches " + " ".join(
+    log(f"kernels: {label}-path launches " + " ".join(
         f"{k}={v}" for k, v in launches.items()))
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the train path")
+        check(v > 0, f"kernel {k} was not launched on the {label} path")
     if not args.ckpt_dir:      # release the images held in host memory
         root.delete("chunks")
         root.delete("images")
@@ -2154,16 +2196,20 @@ def plane_path(torch, dev, args):
 
 # ------------------------------------------------------------- archs phase
 # the three other dense configs at full width: (arch, layers or None for
-# full depth); each prefills 1 x ARCH_PROMPT and decodes ARCH_GEN tokens
-ARCHS = (("deepseek-67b", 2), ("mistral-large-123b", 2),
-         ("musicgen-large", None))
+# full depth, K6 launches per prefill); each prefills 1 x ARCH_PROMPT and
+# decodes ARCH_GEN tokens
+ARCHS = (("deepseek-67b", 2, 2), ("mistral-large-123b", 2, 2),
+         ("musicgen-large", None, 48))
 ARCH_PROMPT, ARCH_GEN = 2048, 8
 
 
-def archs_phase(torch, dev, args):
-    """deepseek-67b and mistral-large-123b at 2 layers, musicgen-large at
-    full depth: ServeEngine prefill + greedy decode through K6's wgmma
-    route, one launch per layer; tokens in range."""
+def archs_phase(torch, dev, args, archs=ARCHS, label="archs", probes=None):
+    """Each of ``archs`` at full width (cut in depth where it says):
+    ServeEngine prefill + greedy decode, K6 launched on the wgmma route
+    exactly the number of times written beside the arch (counters zeroed
+    just before, read just after); tokens in range. ``probes`` maps an
+    arch to fn(torch, engine, prompts) -> dict, run after the counts are
+    read (timings of one more prefill)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2172,7 +2218,7 @@ def archs_phase(torch, dev, args):
     from repro_torch.serving import ServeEngine
 
     out = {}
-    for arch, layers in ARCHS:
+    for arch, layers, want_k6 in archs:
         full = get_config(arch)
         cfg = full.replace(num_layers=layers) if layers else full
         lm = LM(cfg)
@@ -2194,20 +2240,23 @@ def archs_phase(torch, dev, args):
                "params": lm.n_params(), "init_s": t1 - t0,
                "prefill_s": t2 - t1,
                "decode_s_per_token": (t3 - t2) / (ARCH_GEN - 1),
-               "k6_routes": routes, "head_dim": cfg.resolved_head_dim}
+               "k6_routes": routes, "k6_expected": want_k6,
+               "head_dim": cfg.resolved_head_dim}
         out[arch] = rec
-        log(f"archs: {arch} ({cfg.num_layers} of {full.num_layers} layers, "
+        log(f"{label}: {arch} ({cfg.num_layers} of {full.num_layers} layers, "
             f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
             f"heads x {cfg.resolved_head_dim}, {lm.n_params():,} params): "
             f"init {rec['init_s']:.1f} s, prefill 1x{ARCH_PROMPT} "
             f"{rec['prefill_s']:.3f} s, decode "
-            f"{rec['decode_s_per_token']:.4f} s/token; K6 launches {routes}; "
-            f"tokens {toks[0].tolist()}")
+            f"{rec['decode_s_per_token']:.4f} s/token; K6 launches {routes} "
+            f"(expected {want_k6} on wgmma); tokens {toks[0].tolist()}")
         check(toks.shape == (1, ARCH_GEN) and toks.min() >= 0
               and toks.max() < cfg.vocab_size, f"{arch}: tokens out of range")
-        check(routes == {"wgmma": cfg.num_layers, "simt": 0},
-              f"{arch}: K6 did not launch once per layer on the wgmma "
+        check(routes == {"wgmma": want_k6, "simt": 0},
+              f"{arch}: K6 did not launch {want_k6} times on the wgmma "
               f"route: {routes}")
+        if probes and arch in probes:
+            rec.update(probes[arch](torch, eng, prompts))
         del eng, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3206,6 +3255,306 @@ def _socket_restart(dev, args, tmp):
                 p.wait(timeout=30)
 
 
+# ------------------------------------------------------------ families path
+# path 13: the MoE, SSM and hybrid architectures at full width. (a) each
+# prefills 1 x ARCH_PROMPT and decodes ARCH_GEN tokens, with the K6
+# launches written here before the run: one per attention layer
+# (granite-moe's 32 at hd 64, dbrx's 2 at hd 128), none for xlstm, and
+# zamba2's shared block's 7 applications (6 groups + 1 before the tail, hd
+# 64). dbrx is cut from 40 layers to 2 (a layer's experts are 3.2 B
+# params; 40 do not fit one card), the only cut.
+FAMILIES = (("granite-moe-3b-a800m", None, 32), ("dbrx-132b", 2, 2),
+            ("xlstm-350m", None, 0), ("zamba2-1.2b", None, 7))
+# (b) zamba2-1.2b serving at full depth: the serve path's pattern (4 x
+# 2048, 32 tokens, checkpointed after 16); two prefills of 7 K6 launches
+RECURRENT_ARCH, RECURRENT_K6 = "zamba2-1.2b", 14
+# (c) a granite-moe-3b-a800m trainer at full width, 32 -> 4 layers (the
+# only cut), the train path's steps and images. Its 12 moment leaves:
+# delta8 through K1 for the 9 of 64 KiB or more (embed/tok, wq, wk, wv,
+# wo, router, w_up, w_gate, w_down), through K4 for the 3 below the device
+# stage's floor (ln1, ln2: 24 KiB, final_norm: 6 KiB); the 9 large v
+# leaves bf16 through K2; all 12 m leaves decoded by K3 on restore.
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LAUNCHES = {"delta_encode_digest": 9, "bf16_encode_digest": 9,
+                      "delta_decode": 12, "delta_encode": 3}
+
+
+class CallTimer:
+    """Replace ``module.name`` with a wrapper that brackets each call with
+    CUDA events, for one more run after a path's counts were read; ``ms``
+    is the summed device-timeline time once the stream is synchronized."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.fn = getattr(module, name)
+        self.events = []
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            e0 = self.torch.cuda.Event(enable_timing=True)
+            e1 = self.torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = self.fn(*a, **kw)
+            e1.record()
+            self.events.append((e0, e1))
+            return r
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    @property
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def _timed_prefill(torch, eng, prompts, timers):
+    """One more prefill of ``prompts`` under ``timers`` -> its ms (CUDA
+    events around the engine's submit)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with contextlib.ExitStack() as stack:
+        for t in timers:
+            stack.enter_context(t)
+        torch.cuda.synchronize()
+        e0.record()
+        eng.submit(prompts)
+        e1.record()
+        torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def moe_share_probe(torch, eng, prompts):
+    """granite-moe's prefill again, the MoE layers' time (moe_apply) and
+    within it the dispatch's (routing, sort, scatter: _dispatch_group;
+    gather-combine: _combine_group) beside the whole prefill's."""
+    from repro_torch.models import blocks, moe
+    t_moe = CallTimer(torch, blocks, "moe_apply")
+    t_disp = CallTimer(torch, moe, "_dispatch_group")
+    t_comb = CallTimer(torch, moe, "_combine_group")
+    total = _timed_prefill(torch, eng, prompts, (t_moe, t_disp, t_comb))
+    rec = {"probe_prefill_ms": total, "moe_ms": t_moe.ms,
+           "dispatch_ms": t_disp.ms, "combine_ms": t_comb.ms,
+           "moe_calls": len(t_moe.events)}
+    log(f"families: granite-moe prefill 1x{ARCH_PROMPT} again under CUDA "
+        f"events: {total:.1f} ms; the {rec['moe_calls']} MoE layers "
+        f"{t_moe.ms:.1f} ms ({t_moe.ms / total:.1%}); of which dispatch "
+        f"(route, sort, scatter) {t_disp.ms:.1f} ms ({t_disp.ms / total:.1%}"
+        f" of the prefill) and combine {t_comb.ms:.1f} ms "
+        f"({t_comb.ms / total:.1%})")
+    check(rec["moe_calls"] == eng.lm.cfg.num_layers,
+          f"{rec['moe_calls']} MoE layers timed, not one per layer")
+    return rec
+
+
+def slstm_probe(torch, eng, prompts):
+    """xlstm's prefill again, the sLSTM layers' sequential scans
+    (slstm_apply: a Python loop of S cell steps each) beside the whole."""
+    from repro_torch.models import ssm
+    t = CallTimer(torch, ssm, "slstm_apply")
+    total = _timed_prefill(torch, eng, prompts, (t,))
+    steps = len(t.events) * prompts.shape[1]
+    rec = {"probe_prefill_ms": total, "slstm_ms": t.ms,
+           "slstm_layers": len(t.events), "slstm_cell_steps": steps}
+    log(f"families: xlstm prefill 1x{ARCH_PROMPT} again under CUDA events: "
+        f"{total:.1f} ms; the {len(t.events)} sLSTM scans {t.ms:.1f} ms "
+        f"({t.ms / total:.1%}), {steps} cell steps, "
+        f"{1e3 * t.ms / max(1, steps):.1f} us a step")
+    check(len(t.events) == eng.lm.cfg.num_layers // 4,
+          f"{len(t.events)} sLSTM layers timed, not one in four")
+    return rec
+
+
+def _zamba2_cache_layout(cfg, B: int, S_max: int) -> dict:
+    """zamba2's serving cache as the JAX package's init_cache lays it out,
+    written down here from its kvcache.py (tests/test_torch_serving.py
+    holds the port's tree to JAX's on the CPU): {path: (shape, dtype)}."""
+    H, N, K, di = cfg.mamba_heads, cfg.ssm_state, cfg.ssm_conv, cfg.d_inner
+    ssd = {"h": ((B, H, di // H, N), "float32"),
+           "conv_x": ((B, K - 1, di), "bfloat16"),
+           "conv_B": ((B, K - 1, N), "bfloat16"),
+           "conv_C": ((B, K - 1, N), "bfloat16")}
+    G, tail = cfg.num_layers // len(cfg.pattern), cfg.num_layers % len(
+        cfg.pattern)
+    kv = ((G + (1 if tail else 0), B, S_max, cfg.num_kv_heads,
+           cfg.resolved_head_dim), "bfloat16")
+    out = {"pos": ((), "int32"), "shared/k": kv, "shared/v": kv}
+    for j in range(len(cfg.pattern)):
+        for n, (shape, dt) in ssd.items():
+            out[f"stack/b{j}/{n}"] = ((G,) + shape, dt)
+    for j in range(tail):
+        for n, (shape, dt) in ssd.items():
+            out[f"tail/t{j}/{n}"] = (shape, dt)
+    return out
+
+
+def recurrent_session(torch, dev, args):
+    """(b): zamba2-1.2b at full depth serving 4 prompts of 2048: engine A
+    generates 32 tokens; engine B 16, then checkpoints its session (the
+    38 mamba2 states, the 7 shared K/V caches) and is deleted; engine C
+    resumes it (digest verified) and generates 16 more, which must equal
+    A's; K6 twice per prefill application on wgmma (counters zeroed just
+    before, read just after)."""
+    import numpy as np
+
+    from repro_torch.api import CheckpointSession
+    from repro_torch.configs import get_config
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.core.storage import as_tier
+    from repro_torch.device import dtype_name
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.model import LM
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(RECURRENT_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(args.seed), device=dev)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    max_len = SERVE_PROMPT + SERVE_GEN + 1
+    uri = f"mem://chip-smoke-recurrent-{args.seed}"
+    out = {"params": lm.n_params()}
+    # A, B and C must agree bitwise. warn_only: torch flags a floating
+    # cumsum on the card as nondeterministic; the SSD and mLSTM scans
+    # cumsum along a non-innermost axis, a sequential scan per column
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    k6.reset_launches()
+    ckpt_codec.reset_launches()
+    a = ServeEngine(lm, params, max_len=max_len)
+    t0 = time.time()
+    a.submit(prompts)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.time() - t0
+    check(all(bool(torch.isfinite(t).all())
+              for _, t in flatten_with_paths(a.cache)),
+          "the prefill wrote a non-finite state")
+    t0 = time.time()
+    want = a.generate(SERVE_GEN).copy()
+    out["decode_s_per_token"] = (time.time() - t0) / (SERVE_GEN - 1)
+    # A's final state is kept for C's: a random model with tied
+    # embeddings tends to repeat a token, so equal tokens alone say little
+    want_cache = dict(flatten_with_paths(a.cache))
+    del a
+    check(want.shape == (SERVE_B, SERVE_GEN) and want.min() >= 0
+          and want.max() < cfg.vocab_size, "generated tokens out of range")
+
+    b = ServeEngine(lm, params, max_len=max_len)
+    b.submit(prompts)
+    b.generate(SERVE_CUT)
+    sess = CheckpointSession(uri, device=dev)
+    t0 = time.time()
+    receipt = b.checkpoint(sess, arch=cfg.name)
+    out["dump_s"] = time.time() - t0
+    out["image_bytes"] = receipt.stats["bytes_stored"]
+    del b
+    c = ServeEngine(lm, params, max_len=max_len)
+    t0 = time.time()
+    res = c.resume_from(CheckpointSession(uri, device=dev))
+    torch.cuda.synchronize()
+    out["restore_s"] = time.time() - t0
+    got_layout = {p: (tuple(t.shape), dtype_name(t))
+                  for p, t in flatten_with_paths(c.cache)}
+    image_paths = sorted(r["path"][len("cache/"):]
+                         for r in res.manifest["leaves"]
+                         if r["path"].startswith("cache/"))
+    want_layout = _zamba2_cache_layout(cfg, SERVE_B, max_len)
+    state_bytes = sum(int(np.prod(s)) * (4 if d == "float32" else 2)
+                      for p, (s, d) in want_layout.items()
+                      if not p.startswith("shared/") and p != "pos")
+    log(f"families: {cfg.name} session ({cfg.num_layers} mamba2 layers, "
+        f"{lm.n_params():,} params): engine A prefill {SERVE_B}x"
+        f"{SERVE_PROMPT} {out['prefill_s']:.3f} s, decode "
+        f"{out['decode_s_per_token']:.4f} s/token to {SERVE_GEN}; engine B "
+        f"checkpointed at {SERVE_CUT} as {receipt.image_id} in "
+        f"{out['dump_s']:.2f} s: {out['image_bytes'] / 1e9:.3f} GB stored "
+        f"({state_bytes / 1e9:.3f} GB of recurrent state, "
+        f"{len(image_paths)} cache leaves); engine C resumed in "
+        f"{out['restore_s']:.2f} s, digest_verified={res.digest_verified}")
+    check(res.digest_verified is True, "the resumed session's digest was "
+                                       "not verified")
+    check(image_paths == sorted(want_layout),
+          f"the image's cache leaves are not JAX's init_cache paths: "
+          f"{image_paths}")
+    check(got_layout == want_layout,
+          "the resumed cache's shapes or dtypes are not JAX's init_cache's")
+    check(np.array_equal(c.generated(), want[:, :SERVE_CUT]),
+          "the resumed session's tokens differ from engine A's")
+    got = c.generate(SERVE_GEN)
+    same = bool(np.array_equal(got, want))
+    torch.use_deterministic_algorithms(False)
+    routes = dict(k6.ROUTE_LAUNCHES)
+    codec = dict(ckpt_codec.LAUNCHES)
+    differ = [p for p, t in flatten_with_paths(c.cache)
+              if not torch.equal(t, want_cache[p])]
+    out.update(k6_routes=routes, tokens_equal=same,
+               recurrent_state_bytes=state_bytes, leaves_differ=differ)
+    log(f"families: engine C tokens {'equal' if same else 'DIFFER FROM'} "
+        f"engine A's at all {SERVE_B}x{SERVE_GEN}; first row "
+        f"{got[0, :8].tolist()}...; C's final cache against A's: "
+        f"{len(want_cache) - len(differ)} of {len(want_cache)} leaves "
+        f"bit-identical; K6 {routes} (expected {RECURRENT_K6} on wgmma), "
+        f"codec kernels {sum(codec.values())}")
+    check(same, "engine C's continuation differs from engine A's tokens")
+    check(not differ, f"engine C's final state differs from engine A's: "
+                      f"{differ}")
+    check(routes == {"wgmma": RECURRENT_K6, "simt": 0},
+          f"the session's K6 launches are not {RECURRENT_K6} on wgmma: "
+          f"{routes}")
+    del c, params, want_cache
+    as_tier(uri).delete("chunks")
+    as_tier(uri).delete("images")
+    return out
+
+
+def families_path(torch, dev, args):
+    """Path 13: (a) the four families' prefill + decode, (b) zamba2's
+    session checkpointed with its SSM state and continued, (c) the MoE
+    trainer through K1-K4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+
+    out = {}
+    t0 = time.time()
+    out["archs"] = archs_phase(
+        torch, dev, args, FAMILIES, "families",
+        probes={"granite-moe-3b-a800m": moe_share_probe,
+                "xlstm-350m": slstm_probe})
+    out["archs_s"] = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["session"] = recurrent_session(torch, dev, args)
+    out["session_s"] = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    k6.reset_launches()
+    cfg = get_config("granite-moe-3b-a800m").replace(
+        num_layers=MOE_TRAIN_LAYERS)
+    tr = train_path(torch, dev, args, cfg=cfg, label="moe-train")
+    out["train_s"] = time.time() - t0
+    launches = tr["launches"]
+    k6_train = sum(k6.LAUNCHES.values())
+    log(f"families: moe-train aux (load-balance, mean over layers) "
+        f"{tr['aux']}; codec launches {launches} (expected "
+        f"{MOE_TRAIN_LAUNCHES}); K6 {k6_train} (training runs xla_flash)")
+    check(launches == MOE_TRAIN_LAUNCHES,
+          f"the MoE trainer's codec launches {launches} are not the "
+          f"predicted {MOE_TRAIN_LAUNCHES}")
+    check(all(0.5 < a < cfg.num_experts for a in tr["aux"]),
+          f"the load-balance aux {tr['aux']} is out of its range")
+    check(k6_train == 0, "K6 launched in training")
+    out["train"] = tr
+    out["k6_launches"] = sum(
+        sum(a["k6_routes"].values()) for a in out["archs"].values()) \
+        + sum(out["session"]["k6_routes"].values())
+    out["launches"] = dict(launches, flash_attention=out["k6_launches"])
+    return out
+
+
 def capability_phase(torch, dev):
     """`criu check` on the card: every capability, one line each, and
     every one must be supported (every module is ported)."""
@@ -3463,6 +3812,24 @@ def main(argv=None) -> int:
         rows[k]["launches"] += record["socket"]["launches"][k]
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with RssPeak() as rss_fam:
+        record["families"] = families_path(torch, dev, args)
+    fam = record["families"]
+    fam.update(host_peak_rss_gb=rss_fam.peak_gb,
+               host_rss_at_start_gb=rss_fam.start_gb, wall_s=time.time() - t0,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"families: path {fam['wall_s']:.1f} s ((a) {fam['archs_s']:.1f} s, "
+        f"(b) {fam['session_s']:.1f} s, (c) {fam['train_s']:.1f} s); peak "
+        f"device memory {fam['peak_device_gb']:.1f} GB; host peak RSS of "
+        f"the path {rss_fam.peak_gb:.1f} GB, "
+        f"{rss_fam.peak_gb - rss_fam.start_gb:.1f} GB above the "
+        f"{rss_fam.start_gb:.1f} GB at its start (sampled every 20 ms)")
+    for k, n in fam["launches"].items():
+        rows[k]["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
     record["capabilities"] = capability_phase(torch, dev)
     record["kernels"] = list(rows.values())
     record["card"] = card
@@ -3483,7 +3850,8 @@ def main(argv=None) -> int:
         f"(preempted), remote {record['remote']['peak_device_gb']:.1f} GB, "
         f"plane {record['plane']['peak_device_gb']:.1f} GB, fleet "
         f"{record['fleet']['peak_device_gb']:.1f} GB, socket "
-        f"{record['socket']['peak_device_gb']:.1f} GB")
+        f"{record['socket']['peak_device_gb']:.1f} GB, families "
+        f"{record['families']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6's row also carries its numbers at gemma2's head dim 256

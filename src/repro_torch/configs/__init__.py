@@ -17,13 +17,17 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # arch-id -> module name, in the JAX package's order. Only the
-# architectures the port's models run are here; the JAX package's other
-# configs come with their blocks (MoE, SSM, M-RoPE).
+# architectures the port's models run are here: all but qwen2-vl-72b,
+# whose M-RoPE and vision embeddings are not ported yet (ROADMAP item 5).
 _ARCH_MODULES = {
     "deepseek-67b": "deepseek_67b",
     "qwen3-8b": "qwen3_8b",
     "mistral-large-123b": "mistral_large_123b",
     "gemma2-2b": "gemma2_2b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "dbrx-132b": "dbrx_132b",
+    "xlstm-350m": "xlstm_350m",
+    "zamba2-1.2b": "zamba2_1p2b",
     "musicgen-large": "musicgen_large",
 }
 

@@ -1,17 +1,22 @@
-"""Decode-time state: KV caches for attention layers.
+"""Decode-time state: KV caches (attention) and recurrent states (SSM).
 
 The cache is an ordinary nested dict of tensors, so the checkpoint engine
 dumps it like any other job state — a serving session can be dumped,
 moved and continued (the paper's "network applications" row). Same tree,
 shapes and dtypes as the JAX package's models/kvcache.py:
 
-  {"stack": {"b<j>": {"k": [G, B, S_max, KV, hd], "v": ...}},
-   "pos":   int32 scalar (tokens already in cache)}
+  {"stack":  {"b<j>": stacked [G, ...] per pattern entry},
+   "tail":   {"t<j>": ...},                      # zamba2 tail layers
+   "shared": stacked [n_apps, ...],              # zamba2 shared-attn caches
+   "pos":    int32 scalar (tokens already in cache)}
+
+An attention entry is {"k", "v": [B, S_max, KV, hd]} in the compute dtype;
+a recurrent one is its block's state (``models/ssm.py``: mamba2's fp32
+``h`` and its conv tails, mlstm's C/n/m and conv tail, slstm's c/n/m/h).
 
 A cache built with B = n_slots doubles as a pool of per-session pages
 (``slot_axes`` / ``slot_take`` / ``slot_put``, the serving plane's).
-Recurrent (SSM) entries, zamba2's tail and shared caches and
-``cache_pspecs`` are not ported yet.
+``cache_pspecs`` (sharding) is not ported.
 """
 from __future__ import annotations
 
@@ -19,40 +24,86 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import ssm
 
 
-def _check(cfg: ModelConfig):
-    kinds = [k for k in cfg.pattern if k != "attn"]
-    if kinds or cfg.tail_layers or cfg.shared_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: KV caches for {kinds or 'tail/shared'} entries are "
-            f"not ported to repro_torch yet")
+def n_shared_apps(cfg: ModelConfig) -> int:
+    return cfg.num_groups + (1 if cfg.tail_layers else 0)
+
+
+def _attn_entry(cfg: ModelConfig, B: int, S_max: int, dtype, dev, lead=()):
+    shape = lead + (B, S_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _attn_axes():
+    ax = ("batch", "seq_kv", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax}
+
+
+_SSM_INIT = {"mamba2": ssm.mamba2_init_state, "mlstm": ssm.mlstm_init_state,
+             "slstm": ssm.slstm_init_state}
+_SSM_AXES = {"mamba2": ssm.mamba2_state_axes, "mlstm": ssm.mlstm_state_axes,
+             "slstm": ssm.slstm_state_axes}
+
+
+def _entry(kind: str, cfg: ModelConfig, B: int, S_max: int, dtype, dev,
+           lead=()):
+    """One layer's entry, with the leading dims ``lead`` on every leaf."""
+    if kind == "attn":
+        return _attn_entry(cfg, B, S_max, dtype, dev, lead)
+    one = _SSM_INIT[kind](cfg, B, dtype, dev)
+    return {n: t.expand(lead + t.shape).contiguous() for n, t in one.items()}
+
+
+def _entry_axes(kind: str, cfg: ModelConfig):
+    if kind == "attn":
+        return _attn_axes()
+    return _SSM_AXES[kind](cfg)
+
+
+def _build(cfg: ModelConfig, B: int, S_max: int, dtype, dev):
+    G = cfg.num_groups
+    out = {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+           "stack": {f"b{j}": _entry(k, cfg, B, S_max, dtype, dev, (G,))
+                     for j, k in enumerate(cfg.pattern)}}
+    if cfg.tail_layers:
+        out["tail"] = {f"t{j}": _entry(cfg.pattern[j], cfg, B, S_max, dtype,
+                                       dev)
+                       for j in range(cfg.tail_layers)}
+    if cfg.shared_attn_every:
+        out["shared"] = _attn_entry(cfg, B, S_max, dtype, dev,
+                                    (n_shared_apps(cfg),))
+    return out
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
                device="cuda"):
-    """Zeroed cache for B sequences of up to S_max tokens on ``device``."""
-    _check(cfg)
-    dev = resolve_device(device)
-    shape = (cfg.num_groups, B, S_max, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    stack = {f"b{j}": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)}
-             for j in range(len(cfg.pattern))}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "stack": stack}
+    """Zeroed cache for B sequences of up to S_max tokens on ``device``
+    (the recurrent stabilisers ``m`` at -1e30, as in the JAX package)."""
+    return _build(cfg, B, S_max, dtype, resolve_device(device))
 
 
 def cache_struct(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16):
     """The cache's shapes and dtypes on the ``meta`` device (no memory)."""
-    _check(cfg)
-    shape = (cfg.num_groups, B, S_max, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    stack = {f"b{j}": {"k": torch.empty(shape, dtype=dtype, device="meta"),
-                       "v": torch.empty(shape, dtype=dtype, device="meta")}
-             for j in range(len(cfg.pattern))}
-    return {"pos": torch.empty((), dtype=torch.int32, device="meta"),
-            "stack": stack}
+    return _build(cfg, B, S_max, dtype, torch.device("meta"))
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical-axis tree parallel to init_cache's output (the stacked
+    entries lead with None)."""
+    def stacked(tree):
+        return {n: (None,) + tuple(ax) for n, ax in tree.items()}
+    out = {"pos": (),
+           "stack": {f"b{j}": stacked(_entry_axes(k, cfg))
+                     for j, k in enumerate(cfg.pattern)}}
+    if cfg.tail_layers:
+        out["tail"] = {f"t{j}": _entry_axes(cfg.pattern[j], cfg)
+                       for j in range(cfg.tail_layers)}
+    if cfg.shared_attn_every:
+        out["shared"] = stacked(_attn_axes())
+    return out
 
 
 def cache_bytes(cfg: ModelConfig, B: int, S_max: int,
@@ -70,15 +121,19 @@ def cache_bytes(cfg: ModelConfig, B: int, S_max: int,
 # scatters the updated pages back. The pool's "pos" scalar is meaningless
 # (each session has its own cursor): cohorts get their pos at gather time.
 
+def _map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def slot_axes(cfg: ModelConfig):
-    """Per-leaf index of the "batch" (slot) axis, -1 for the pos scalar.
-    Parallel to init_cache's output: stacked leaves are [G, B, S, KV, hd],
-    so the slot axis is 1 (the JAX package's cache_axes with its leading
-    None for the stacked layer axis)."""
-    _check(cfg)
-    return {"pos": -1,
-            "stack": {f"b{j}": {"k": 1, "v": 1}
-                      for j in range(len(cfg.pattern))}}
+    """Per-leaf index of the "batch" (slot) axis, -1 for leaves without
+    one (the pos scalar). Parallel to init_cache's output: stacked KV
+    leaves are [G, B, S, KV, hd], so their slot axis is 1."""
+    return _map(lambda ax: ax.index("batch") if "batch" in ax else -1,
+                cache_axes(cfg))
 
 
 def slot_take(pool, cfg: ModelConfig, idx, *, pos):
@@ -93,12 +148,10 @@ def slot_take(pool, cfg: ModelConfig, idx, *, pos):
     """
     dev = pool["pos"].device
     ix = torch.as_tensor(idx, dtype=torch.long, device=dev)
-
-    stack = {b: {n: torch.index_select(pool["stack"][b][n], a, ix)
-                 for n, a in entry.items()}
-             for b, entry in slot_axes(cfg)["stack"].items()}
-    return {"pos": torch.as_tensor(int(pos), dtype=torch.int32, device=dev),
-            "stack": stack}
+    out = _map(lambda a, leaf: leaf if a < 0
+               else torch.index_select(leaf, a, ix), slot_axes(cfg), pool)
+    out["pos"] = torch.as_tensor(int(pos), dtype=torch.int32, device=dev)
+    return out
 
 
 def slot_put(pool, cohort, cfg: ModelConfig, idx):
@@ -106,7 +159,9 @@ def slot_put(pool, cohort, cfg: ModelConfig, idx):
     place (``index_copy_``), and return the pool. The pool's own ``pos``
     scalar is kept (per-session cursors live in the session table)."""
     ix = torch.as_tensor(idx, dtype=torch.long, device=pool["pos"].device)
-    for b, entry in slot_axes(cfg)["stack"].items():
-        for n, a in entry.items():
-            pool["stack"][b][n].index_copy_(a, ix, cohort["stack"][b][n])
+
+    def put(a, pleaf, cleaf):
+        if a >= 0:
+            pleaf.index_copy_(a, ix, cleaf)
+    _map(put, slot_axes(cfg), pool, cohort)
     return pool

@@ -1,7 +1,7 @@
 """Shared layers: norms, rotary embeddings, MLPs, embedding/head.
 
 Same math and dtypes as the JAX package's models/layers.py, written on
-tensors. M-RoPE (qwen2-vl) is not ported yet: qwen3 does not use it."""
+tensors. M-RoPE (qwen2-vl) is not ported yet (ROADMAP item 5)."""
 from __future__ import annotations
 
 import torch
@@ -35,7 +35,9 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 def apply_rope(x, positions, theta: float, sections: tuple = ()):
     """x: [B, S, H, D]; positions: [B, S]."""
     if sections or positions.ndim != 2:
-        raise NotImplementedError("M-RoPE is not ported to repro_torch yet")
+        raise NotImplementedError(
+            "M-RoPE (qwen2-vl-72b) is not ported to repro_torch yet; "
+            "ROADMAP.md item 5 brings it")
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                    # [D/2]
     angles = positions.to(torch.float32)[..., None] * freqs   # [B, S, D/2]
@@ -47,12 +49,12 @@ def apply_rope(x, positions, theta: float, sections: tuple = ()):
 
 
 # ------------------------------------------------------------------------ MLP
-def mlp_specs(cfg: ModelConfig, d_ff: int):
+def mlp_specs(cfg: ModelConfig, d_ff: int, mlp_axis: str = "mlp"):
     d = cfg.d_model
-    t = {"w_up": pm.dense((d, d_ff), ("embed", "mlp")),
-         "w_down": pm.dense((d_ff, d), ("mlp", "embed"), fan_in=d_ff)}
+    t = {"w_up": pm.dense((d, d_ff), ("embed", mlp_axis)),
+         "w_down": pm.dense((d_ff, d), (mlp_axis, "embed"), fan_in=d_ff)}
     if cfg.glu:
-        t["w_gate"] = pm.dense((d, d_ff), ("embed", "mlp"))
+        t["w_gate"] = pm.dense((d, d_ff), ("embed", mlp_axis))
     return t
 
 

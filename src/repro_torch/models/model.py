@@ -1,16 +1,21 @@
 """The decoder LM: the JAX package's models/model.py on tensors.
 
   train   — full forward, chunked-CE loss (never materializes [B,S,V])
-  prefill — forward + KV cache construction (serving)
+  prefill — forward + cache / recurrent state construction (serving)
   decode  — one token against the cache (serving)
 
 Layers are stacked per repeating pattern group exactly as in the JAX
 package (``params/stack/b0/...`` leaves with a leading ``num_groups``
 axis), so the parameter tree — and with it the checkpoint image — is the
 same. A Python loop indexes the stacked leaves where JAX scans; autograd
-sends each group's gradient back into the stacked leaf. Compute runs in
-bf16 on fp32 masters by default, as in the JAX package. Remat is not used
-(at the sizes the port runs, activations are small next to the state).
+sends each group's gradient back into the stacked leaf. zamba2's
+weight-shared attention block (``params/shared``) runs before every group
+and once more before the tail layers (``params/tail/t<j>``), each
+application with its own KV cache. Blocks dispatch by ``cfg.pattern``
+(attention with an MLP or MoE, mamba2, mlstm, slstm); the MoE aux loss is
+summed through the stack. Compute runs in bf16 on fp32 masters by default,
+as in the JAX package. Remat is not used (at the sizes the port runs,
+activations are small next to the state).
 """
 from __future__ import annotations
 
@@ -19,16 +24,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache
 from repro_torch.models import params as pm
-from repro_torch.models.blocks import apply_attn_block, block_specs
+from repro_torch.models.blocks import apply_block, block_specs
 from repro_torch.models.layers import embed_lookup, embed_specs, rms_norm, unembed
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
-        if cfg.tail_layers or cfg.shared_attn_every:
-            raise NotImplementedError(
-                f"{cfg.name}: tail / shared blocks are not ported yet")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ specs
@@ -36,11 +38,17 @@ class LM:
         cfg = self.cfg
         entry = {f"b{j}": block_specs(kind, cfg)
                  for j, kind in enumerate(cfg.pattern)}
-        return {
+        tree = {
             "embed": embed_specs(cfg),
             "stack": pm.stack_specs(entry, cfg.num_groups),
             "final_norm": pm.scale_ones(cfg.d_model),
         }
+        if cfg.tail_layers:
+            tree["tail"] = {f"t{j}": block_specs(cfg.pattern[j], cfg)
+                            for j in range(cfg.tail_layers)}
+        if cfg.shared_attn_every:
+            tree["shared"] = block_specs("attn", cfg, shared=True)
+        return tree
 
     def abstract(self, dtype=torch.float32):
         return pm.abstract(self.specs(), dtype)
@@ -55,10 +63,12 @@ class LM:
     # ---------------------------------------------------------------- forward
     def forward(self, params, *, tokens, positions=None, mode="train",
                 cache=None, compute_dtype=torch.bfloat16):
-        """tokens [B,S] -> (hidden [B,S,d] after the final norm, new_cache).
-        prefill and decode take a cache (``kvcache.init_cache``) and update
-        it in place; its ``pos`` cursor advances by S (prefill) or 1
-        (decode). train takes none and returns None for it."""
+        """tokens [B,S] -> (hidden [B,S,d] after the final norm, new_cache,
+        aux). prefill and decode take a cache (``kvcache.init_cache``) and
+        update it in place; its ``pos`` cursor advances by S (prefill) or 1
+        (decode). train takes none and returns None for it. aux is the sum
+        of the blocks' MoE load-balance losses (fp32 scalar, 0 without
+        experts)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens, cfg, compute_dtype)
         B, S = x.shape[:2]
@@ -68,31 +78,64 @@ class LM:
         if positions is None:
             positions = (torch.arange(S, dtype=torch.int32, device=x.device)
                          + pos)[None].expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def run(kind, p, x, window, c):
+            x, _, a = apply_block(kind, p, x, cfg, positions=positions,
+                                  window=window, mode=mode, cache=c, pos=pos)
+            return x, a
+
+        def entry(name, g):
+            """Group g's view of the stacked cache entry ``name`` (b<j>,
+            or "shared": the shared block's application g)."""
+            if cache is None:
+                return None
+            tree = cache["shared"] if name == "shared" \
+                else cache["stack"][name]
+            return {n: t[g] for n, t in tree.items()}
+
+        shared = params.get("shared")
         stack = params["stack"]
         for g in range(cfg.num_groups):
-            gp = pm.tree_map(lambda _, a: a[g], stack)
-            for j, win in enumerate(cfg.windows):
-                c = None if cache is None else {
-                    n: t[g] for n, t in cache["stack"][f"b{j}"].items()}
-                x, _ = apply_attn_block(gp[f"b{j}"], x, cfg,
-                                        positions=positions, window=win,
-                                        mode=mode, cache=c, pos=pos)
+            if shared is not None:
+                x, a = run("attn", shared, x, 0, entry("shared", g))
+                aux = aux + a
+            gp = pm.tree_map(lambda _, t: t[g], stack)
+            for j, (kind, win) in enumerate(zip(cfg.pattern, cfg.windows)):
+                x, a = run(kind, gp[f"b{j}"], x, win, entry(f"b{j}", g))
+                aux = aux + a
+        # ---- tail layers (zamba2: 38 = 6*6 + 2) after one more shared
+        # application, with the last shared cache
+        if cfg.tail_layers:
+            if shared is not None:
+                x, a = run("attn", shared, x, 0, entry("shared", -1))
+                aux = aux + a
+            for j in range(cfg.tail_layers):
+                x, a = run(cfg.pattern[j], params["tail"][f"t{j}"], x,
+                           cfg.windows[j],
+                           None if cache is None else cache["tail"][f"t{j}"])
+                aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         new_cache = None
         if cache is not None and mode != "train":
-            new_cache = {"stack": cache["stack"],
-                         "pos": cache["pos"] + (1 if mode == "decode" else S)}
-        return x, new_cache
+            new_cache = dict(cache, pos=cache["pos"]
+                             + (1 if mode == "decode" else S))
+        return x, new_cache, aux
 
     # ------------------------------------------------------------------- loss
     def loss(self, params, batch, ce_chunk: int = 512):
-        """batch: {"tokens": [B,S]}. Returns (loss, metrics)."""
+        """batch: {"tokens": [B,S]}. Returns (loss, {"ce", "aux", "loss"}):
+        with experts the loss adds ``router_aux_coef`` times the mean of
+        the layers' load-balance losses."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         labels = batch.get("labels", tokens)
-        x, _ = self.forward(params, tokens=tokens,
-                            positions=batch.get("positions"))
+        x, _, aux = self.forward(params, tokens=tokens,
+                                 positions=batch.get("positions"))
         ce = self._chunked_ce(params, x[:, :-1], labels[:, 1:], ce_chunk)
-        return ce, {"ce": ce, "loss": ce}
+        aux_mean = aux / (cfg.num_layers if cfg.num_experts else 1)
+        loss = ce + cfg.router_aux_coef * aux_mean if cfg.num_experts else ce
+        return loss, {"ce": ce, "aux": aux_mean, "loss": loss}
 
     def _chunked_ce(self, params, x, labels, chunk: int):
         """Streaming CE over seq chunks — never materializes [B, S, V]
@@ -120,16 +163,16 @@ class LM:
         B, S = tokens.shape
         cache = kvcache.init_cache(self.cfg, B, S_max or S,
                                    dtype=compute_dtype, device=tokens.device)
-        x, cache = self.forward(params, tokens=tokens, positions=positions,
-                                mode="prefill", cache=cache,
-                                compute_dtype=compute_dtype)
+        x, cache, _ = self.forward(params, tokens=tokens,
+                                   positions=positions, mode="prefill",
+                                   cache=cache, compute_dtype=compute_dtype)
         logits = unembed(params["embed"], x[:, -1:], self.cfg)[:, 0]
         return logits, cache
 
     def decode_step(self, params, cache, tokens,
                     compute_dtype=torch.bfloat16):
         """tokens [B,1] -> (logits [B,V] fp32, cache advanced by one)."""
-        x, cache = self.forward(params, tokens=tokens, mode="decode",
-                                cache=cache, compute_dtype=compute_dtype)
+        x, cache, _ = self.forward(params, tokens=tokens, mode="decode",
+                                   cache=cache, compute_dtype=compute_dtype)
         logits = unembed(params["embed"], x[:, -1:], self.cfg)[:, 0]
         return logits, cache

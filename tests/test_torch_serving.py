@@ -2,16 +2,28 @@
 the JAX package's weights carried across by ``from_jax`` and prompts from
 numpy:
 
-  * prefill logits and KV cache, then 4 decode steps fed the same tokens,
-    against ``repro.models.LM``, for every architecture the port runs
-    (deepseek-67b, qwen3-8b, mistral-large-123b, gemma2-2b with its
-    window and softcaps, musicgen-large) — fp32 compute: logits within ``F32_TOL``
-    = 1e-5 absolute (the same math in float32, summed in another order;
-    measured worst on this config 3.6e-6 of logits up to ~4), caches within
-    1e-5; bf16 compute: logits within ``BF16_REL`` = 3e-2 of the largest
-    |logit| (XLA and torch round bf16 matmul outputs at different places;
-    the logits are bf16-rounded, one ulp at 2-4 is 1.6e-2; measured worst
-    0.061 of 3.56, 1.7%);
+  * prefill logits and the whole cache (KV caches, recurrent states,
+    zamba2's shared and tail entries), then 4 decode steps fed the same
+    tokens, against ``repro.models.LM``, for every architecture the port
+    runs (deepseek-67b, qwen3-8b, mistral-large-123b, gemma2-2b with its
+    window and softcaps, granite-moe-3b-a800m and dbrx-132b with capacity
+    drops in prefill and the dense oracle in decode, xlstm-350m,
+    zamba2-1.2b, musicgen-large) — fp32 compute: logits within
+    ``F32_TOL`` = 1e-5 absolute (the same math in float32, summed in
+    another order; measured worst on this config 3.6e-6 of logits up to
+    ~4), caches within 1e-5 (``STATE_RTOL`` = 1e-5 of each recurrent
+    state leaf's largest magnitude: mLSTM's C and n grow to ~1e2, measured
+    worst 3.3e-5 absolute; zamba2's shared K/V within ``RECURRENT_ATOL`` =
+    3e-5, as its hidden states in tests/test_torch_model.py: they are
+    projected from a residual stream that went through the chunked SSD
+    scans, measured worst 1.5e-5); bf16 compute: logits within ``BF16_REL`` =
+    3e-2 of the largest |logit| over the real vocabulary (XLA and torch
+    round bf16 matmul outputs at different places; the logits are
+    bf16-rounded, one ulp at 2-4 is 1.6e-2; measured worst 0.061 of 3.56,
+    1.7%), xlstm-350m within ``BF16_REL_XLSTM`` = 5e-2: its mLSTM state
+    sums bf16-rounded keys and values under exponential gates, and the
+    two packages' bf16 logits are each 2.4-2.8% from their fp32 logits in
+    different directions (measured worst between them 3.6%);
   * a session checkpointed mid-generation and resumed in a fresh engine
     continues token for token (as tests/test_serving.py does for JAX);
   * images cross packages both ways: a JAX ``ServeEngine.checkpoint``
@@ -41,14 +53,19 @@ from repro_torch.models.params import from_jax  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
 
 F32_TOL = 1e-5
+STATE_RTOL = 1e-5
+RECURRENT_ATOL = 3e-5
 BF16_REL = 3e-2
+BF16_REL_XLSTM = 5e-2
 B, SP, GEN, CUT = 2, 12, 12, 6
 # the arch cases' prompts: decode writes positions 14..17, past gemma2
 # tiny's 16-token window
 SP_ARCH, DECODE = 14, 4
 # the architectures the port's models run, in the JAX package's order
 ARCHS = ["deepseek-67b", "qwen3-8b", "mistral-large-123b", "gemma2-2b",
+         "granite-moe-3b-a800m", "dbrx-132b", "xlstm-350m", "zamba2-1.2b",
          "musicgen-large"]
+ARCH_OF_TINY = {get_tiny(a).name: a for a in ARCHS}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -79,15 +96,42 @@ def _np(t):
     return t.to(torch.float32).numpy()
 
 
+def _close_caches(tc, jc, kv_atol):
+    """Every leaf of the two caches: the same paths, shapes and dtypes,
+    and values: K/V within ``kv_atol``, a recurrent state's leaf within
+    STATE_RTOL of its largest magnitude (at least 1e-5)."""
+    from repro.core.dump import flatten_with_paths as jflatten
+    from repro_torch.core.dump import flatten_with_paths
+    from repro_torch.device import dtype_name
+    got = dict(flatten_with_paths(tc))
+    want = dict(jflatten(jax.tree.map(np.asarray, jc)))
+    assert list(got) == list(want)
+    for path, w in want.items():
+        g = got[path]
+        assert tuple(g.shape) == w.shape and dtype_name(g) == str(w.dtype), \
+            path
+        g, w = _np(g), np.asarray(w, np.float32)
+        kv = path.split("/")[-1] in ("k", "v")
+        atol = kv_atol if kv \
+            else max(1e-5, STATE_RTOL * float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, atol=atol, err_msg=path)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_jax(arch_pair, dtype):
     cfg, jlm, jparams, tlm, params, prompts = arch_pair
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    rel = BF16_REL_XLSTM if cfg.name == get_tiny("xlstm-350m").name \
+        else BF16_REL
+    kv_atol = 1e-5 if cfg.pattern == ("attn",) * len(cfg.pattern) \
+        else RECURRENT_ATOL
 
     def close(tl, jl):
         want = np.asarray(jl)
+        # the scale of the real vocabulary's logits (padded columns are
+        # -1e30 in both)
         tol = F32_TOL if dtype == "float32" \
-            else BF16_REL * np.abs(want).max()
+            else rel * np.abs(want[:, :cfg.vocab_size]).max()
         return np.abs(_np(tl) - want).max() < tol
     S_max = SP_ARCH + DECODE + 1
     jl, jc = jlm.prefill(jparams, tokens=jnp.asarray(prompts), S_max=S_max,
@@ -96,14 +140,10 @@ def test_prefill_and_decode_match_jax(arch_pair, dtype):
                          S_max=S_max, compute_dtype=td)
     assert tl.shape == (B, cfg.padded_vocab) and tl.dtype == torch.float32
     assert int(tc["pos"]) == int(jc["pos"]) == SP_ARCH
-    assert tc["stack"]["b0"]["k"].shape == jc["stack"]["b0"]["k"].shape
-    assert tc["stack"]["b0"]["k"].dtype == td
+    assert set(tc) == set(jc)
     assert close(tl, jl)
     if dtype == "float32":
-        for name in ("k", "v"):
-            np.testing.assert_allclose(_np(tc["stack"]["b0"][name]),
-                                       np.asarray(jc["stack"]["b0"][name]),
-                                       atol=1e-5)
+        _close_caches(tc, jc, kv_atol)
     for _ in range(DECODE):
         nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
         jl, jc = jlm.decode_step(jparams, jc, jnp.asarray(nxt),
@@ -113,24 +153,32 @@ def test_prefill_and_decode_match_jax(arch_pair, dtype):
         assert close(tl, jl)
     assert int(tc["pos"]) == int(jc["pos"]) == SP_ARCH + DECODE
     if dtype == "float32":
-        np.testing.assert_allclose(_np(tc["stack"]["b0"]["v"]),
-                                   np.asarray(jc["stack"]["b0"]["v"]),
-                                   atol=1e-5)
+        _close_caches(tc, jc, kv_atol)
 
 
 def test_cache_struct_and_bytes_match_jax(arch_pair):
+    """The cache tree is the serving image's layout: its leaf paths,
+    shapes and dtypes equal the JAX package's init_cache, tiny and full,
+    and so do cache_bytes and cache_axes."""
+    from repro.core.dump import flatten_with_paths as jflatten
     from repro.models import kvcache as jkv
+    from repro_torch.core.dump import flatten_with_paths
+    from repro_torch.device import dtype_name
     cfg = arch_pair[0]
     tcfg = arch_pair[3].cfg
-    want = jkv.cache_struct(cfg, 4, 33)
-    got = kvcache.cache_struct(tcfg, 4, 33)
-    assert tuple(got["stack"]["b0"]["k"].shape) == \
-        tuple(want["stack"]["b0"]["k"].shape)
-    assert got["stack"]["b0"]["k"].device.type == "meta"
+    full = tconfigs.get_config(ARCH_OF_TINY[tcfg.name])
+    for tc_, jc_ in ((tcfg, cfg), (full, get_config(full.name))):
+        want = [(p, tuple(a.shape), str(a.dtype))
+                for p, a in jflatten(jkv.cache_struct(jc_, 4, 33))]
+        got = kvcache.cache_struct(tc_, 4, 33)
+        assert [(p, tuple(t.shape), dtype_name(t))
+                for p, t in flatten_with_paths(got)] == want
+        assert all(t.device.type == "meta"
+                   for _, t in flatten_with_paths(got))
+        assert kvcache.cache_axes(tc_) == jax.tree.map(
+            tuple, jkv.cache_axes(jc_),
+            is_leaf=lambda x: isinstance(x, tuple))
     assert kvcache.cache_bytes(tcfg, 4, 33) == jkv.cache_bytes(cfg, 4, 33)
-    full = tconfigs.get_config(tcfg.name.replace("-tiny", "")) \
-        if tcfg.name != "musicgen-tiny" else tconfigs.get_config(
-            "musicgen-large")
     assert kvcache.cache_bytes(full, 4, 2081) == jkv.cache_bytes(
         get_config(full.name), 4, 2081)
     if full.name == "qwen3-8b":
@@ -138,6 +186,10 @@ def test_cache_struct_and_bytes_match_jax(arch_pair):
             36 * 2 * 4 * 2081 * 8 * 128 * 2 + 4  # bf16 k, v + int32 pos
     if full.name == "gemma2-2b":     # 106,496 B of KV per token + pos
         assert kvcache.cache_bytes(full, 1, 1) == 106_500
+    if full.name == "zamba2-1.2b":   # 7 shared K/V caches + 38 SSD states
+        kv = 7 * 2 * 4 * 2081 * 32 * 64 * 2
+        ssd = 38 * 4 * (64 * 64 * 64 * 4 + 3 * (4096 + 2 * 64) * 2)
+        assert kvcache.cache_bytes(full, 4, 2081) == kv + ssd + 4
 
 
 def test_checkpointed_session_continues_token_for_token(pair, tmp_path):
@@ -407,3 +459,86 @@ def test_out_tokens_is_the_seed_api_view(pair):
     np.testing.assert_array_equal(np.stack(got, 1), t.generated())
     for a, b in zip(got, j.out_tokens):
         np.testing.assert_array_equal(a, np.asarray(b))
+
+
+# ------------------------------------------- zamba2: recurrent state images
+@pytest.fixture(scope="module")
+def zamba2_pair():
+    """pair's layout on zamba2-1.2b ``tiny()``: 5 mamba2 layers (2 groups
+    of 2 and a tail of 1), the shared attention block's 3 KV caches."""
+    cfg = get_tiny("zamba2-1.2b")
+    jlm = JLM(cfg)
+    jparams = jlm.init(jax.random.PRNGKey(0))
+    tlm = LM(tconfigs.get_tiny("zamba2-1.2b"))
+    params = from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, SP)).astype(np.int32)
+    return cfg, jlm, jparams, tlm, params, prompts
+
+
+def _cache_paths_of_image(manifest):
+    return [r["path"][len("cache/"):] for r in manifest["leaves"]
+            if r["path"].startswith("cache/")]
+
+
+def _jax_cache_paths(cfg):
+    from repro.core.dump import flatten_with_paths as jflatten
+    from repro.models import kvcache as jkv
+    return sorted(p for p, _ in jflatten(jkv.cache_struct(cfg, B,
+                                                          SP + GEN + 1)))
+
+
+def test_zamba2_port_image_resumes_in_jax_engine(zamba2_pair, tmp_path):
+    """A zamba2 session (mamba2 states h and conv tails, the shared block's
+    K/V, the tail entries) checkpointed by the port's engine mid-generation
+    resumes in the JAX engine, digest verified, and continues with the
+    tokens of an uninterrupted run, which both packages agree on (fp32)."""
+    cfg = zamba2_pair[0]
+    ref = _port_engine(zamba2_pair)
+    ref.submit(zamba2_pair[5])
+    want = ref.generate(GEN).copy()
+    jref = _jax_engine(zamba2_pair)
+    jref.submit(zamba2_pair[5])
+    assert np.array_equal(np.asarray(jref.generate(GEN)), want)
+
+    eng = _port_engine(zamba2_pair)
+    eng.submit(zamba2_pair[5])
+    eng.generate(CUT)
+    root = str(tmp_path / "torch-zamba2")
+    rec = eng.checkpoint(CheckpointSession(root, device="cpu"),
+                         arch="zamba2-tiny")
+    assert rec.committed
+    jeng = _jax_engine(zamba2_pair)
+    res = jeng.resume_from(JSession(root))
+    assert res.digest_verified is True
+    assert sorted(_cache_paths_of_image(res.manifest)) == \
+        _jax_cache_paths(cfg)
+    assert np.array_equal(np.asarray(jeng.generate(GEN)), want)
+
+
+def test_zamba2_jax_image_resumes_in_port_engine(zamba2_pair, tmp_path):
+    """The reverse: the JAX engine's zamba2 image resumes in the port's
+    engine (digest verified), its recurrent state leaves in their dtypes
+    (h fp32, conv tails in the compute dtype), and continues with JAX's
+    tokens."""
+    cfg = zamba2_pair[0]
+    jref = _jax_engine(zamba2_pair)
+    jref.submit(zamba2_pair[5])
+    want = np.asarray(jref.generate(GEN)).copy()
+
+    jeng = _jax_engine(zamba2_pair)
+    jeng.submit(zamba2_pair[5])
+    jeng.generate(CUT)
+    root = str(tmp_path / "jax-zamba2")
+    jeng.checkpoint(JSession(root), arch="zamba2-tiny")
+
+    eng = _port_engine(zamba2_pair)
+    res = eng.resume_from(CheckpointSession(root, device="cpu"))
+    assert res.digest_verified is True
+    assert sorted(_cache_paths_of_image(res.manifest)) == \
+        _jax_cache_paths(cfg)
+    assert eng.cache["stack"]["b0"]["h"].dtype == torch.float32
+    assert eng.cache["tail"]["t0"]["conv_x"].dtype == torch.float32
+    assert eng.cache["shared"]["k"].shape[0] == 3     # 2 groups + the tail
+    assert np.array_equal(eng.generated(), want[:, :CUT])
+    assert np.array_equal(eng.generate(GEN), want)

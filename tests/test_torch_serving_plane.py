@@ -224,6 +224,30 @@ def test_slot_take_and_put_are_bit_equal_to_jax():
     assert int(got["pos"]) == 5
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-1.2b"])
+def test_slot_pool_of_recurrent_caches_matches_jax(arch):
+    """A pool of recurrent entries (mlstm C/n/m and conv tail, slstm
+    c/n/m/h; zamba2's mamba2 h and conv tails, its tail layer and the
+    shared block's stacked K/V): slot axes equal to JAX's, take and put
+    bit-equal to JAX's."""
+    jcfg, cfg = jconfigs.get_tiny(arch), configs.get_tiny(arch)
+    assert kvcache.slot_axes(cfg) == jkv.slot_axes(jcfg)
+    pool, new = _seeded_pool(jcfg), _seeded_pool(jcfg, seed=1)
+    idx = [3, 0, 2]
+    tpool = _as_port(pool)
+    _eq(kvcache.slot_take(tpool, cfg, idx, pos=6),
+        jkv.slot_take(jax.tree.map(jnp.asarray, pool), jcfg,
+                      jnp.asarray(idx, jnp.int32), pos=6))
+    jnew = jkv.slot_take(jax.tree.map(jnp.asarray, new), jcfg,
+                         jnp.asarray([0, 1, 2], jnp.int32), pos=9)
+    want = jkv.slot_put(jax.tree.map(jnp.asarray, pool), jnew, jcfg,
+                        jnp.asarray(idx, jnp.int32))
+    got = kvcache.slot_put(tpool, kvcache.slot_take(
+        _as_port(new), cfg, [0, 1, 2], pos=9), cfg, idx)
+    assert got is tpool
+    _eq(got, want)
+
+
 # ---------------------------------------------------------------- admission
 def test_byte_budget_admission_control(lm_params):
     lm, params = lm_params
