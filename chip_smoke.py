@@ -204,7 +204,26 @@ Phases, one line each (plus details):
                granite-moe-3b-a800m at full width, 32 -> 4 layers, through
                the train path's steps, images and checks, its aux metric
                reported, K1 9, K2 9, K3 12, K4 3 exactly;
- 14. capabilities: `criu check` of the port on the card
+ 14. vision path: qwen2-vl-72b at full width (d_model 8192, 64/8 heads
+               x 128, d_ff 29568, vocab 152064, M-RoPE sections 16/24/24),
+               its vision frontend a stub (seeded patch embeddings and the
+               grid's three position streams). (a) At 4 of 80 layers:
+               LM.prefill(embeds=, positions=) of 1 x 2048 and 8 greedy
+               tokens; two more prefills with 2-D positions and with three
+               equal streams, bitwise equal logits, the grid's different;
+               K6 12 on wgmma; K6 alone at this shape beside
+               scaled_dot_product_attention (the same function here). (b)
+               A session of 4 x 2048 and 16 tokens checkpointed after 8 as
+               {cache, tokens, logits} through CheckpointSession, restored
+               onto a (1, 1) mesh of the card (RestoreRequest(shardings=,
+               mesh=) with the cache's cache_pspecs) and decoded to 16:
+               tokens and every final cache leaf equal to the
+               uninterrupted run's; K6 4 on wgmma, no codec kernel. (c) At
+               1 of 80 layers: one train step on 1 x 512 embeddings with
+               labels through AdamW; the gradients through compress_tree ->
+               decompress_tree (a leaf at a time: within scale/2, the
+               error state g - deq, wire bytes <= 0.26 of fp32);
+ 15. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): every
                capability must be supported.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
@@ -302,7 +321,8 @@ FLASH_CASES = [
     ("ragged 2x1000 8/4 heads x256 bf16", 2, 1000, 1000, 8, 4, 256,
      "bfloat16", 0, 0.0, 2e-2, 1.0, True),
     # the archs phase's prefills on the wgmma route: musicgen-large (MHA at
-    # head dim 64), deepseek-67b and mistral-large-123b (GQA groups 8, 12)
+    # head dim 64), deepseek-67b and mistral-large-123b (GQA groups 8, 12);
+    # deepseek's 1 x 2048 64/8 x 128 is also path 14's vision prefill
     ("musicgen 1x2048 32/32 heads x64 bf16", 1, 2048, 2048, 32, 32, 64,
      "bfloat16", 0, 0.0, 2e-2, 1.0, True),
     ("deepseek 1x2048 64/8 heads x128 bf16", 1, 2048, 2048, 64, 8, 128,
@@ -318,6 +338,9 @@ FLASH_CASES = [
      "bfloat16", 0, 0.0, 2e-2, 1.0, True),
     ("zamba2 session 4x2048 32/32 heads x64 bf16", 4, 2048, 2048, 32, 32, 64,
      "bfloat16", 0, 0.0, 2e-2, 1.0, True),
+    # path 14's vision session: qwen2-vl-72b's 4 x 2048 at GQA 8, hd 128
+    ("qwen2-vl session 4x2048 64/8 heads x128 bf16", 4, 2048, 2048, 64, 8,
+     128, "bfloat16", 0, 0.0, 2e-2, 1.0, True),
 ]
 
 
@@ -3555,6 +3578,403 @@ def families_path(torch, dev, args):
     return out
 
 
+# ------------------------------------------------------------- vision path
+# path 14: qwen2-vl-72b at full width (d_model 8192, 64/8 heads x 128, d_ff
+# 29568, vocab 152064; M-RoPE sections 16/24/24), its vision frontend a
+# stub (seeded patch embeddings and grid position streams). (a) and (b)
+# cut depth from 80 layers to 4, the only cut: 6,002,122,752 params, 24.0
+# GB of fp32 weights on the card (80 layers are 72.7 B params, 291 GB).
+# (c) trains at 1 of 80 layers, the only cut: params, grads, m and v are
+# 13.48 GB each. Its 40.4 GB train state is not dumped here: a lossless
+# dump and restore of it take about 90 s on an H100
+# (scripts/torch_vision_train_restore.py), more than the script's 1200 s
+# limit leaves; the restore onto a mesh runs on (b)'s image, and
+# tests/test_torch_distributed.py restores a train state onto a mesh.
+VISION_ARCH = "qwen2-vl-72b"
+VISION_LAYERS, VISION_TRAIN_LAYERS = 4, 1
+VISION_PROMPT, VISION_GEN = 2048, 8          # (a): 1 x 2048, 8 tokens
+VISION_B, VISION_SESSION_GEN, VISION_CUT = 4, 16, 8     # (b): 4 x 2048
+VISION_TRAIN_SEQ = 512                       # (c): 1 x 512
+# K6 launches, written down before the run: one per attention layer per
+# prefill, all on wgmma (head dim 128, bf16): (a) three prefills (the grid
+# streams, 2-D positions, three equal streams), (b) one
+VISION_K6 = {"prefill": 3 * VISION_LAYERS, "session": VISION_LAYERS}
+
+
+def _events_ms(torch, fn):
+    """fn() between two CUDA events -> (its result, device ms)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    r = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return r, e0.elapsed_time(e1)
+
+
+def _greedy(torch, lm, params, logits, cache, n):
+    """n greedy decode steps from ``logits`` -> (tokens [B, n], logits,
+    cache)."""
+    toks = []
+    for _ in range(n):
+        nxt = logits.argmax(dim=-1, keepdim=True)
+        toks.append(nxt)
+        logits, cache = lm.decode_step(params, cache, nxt)
+    return torch.cat(toks, dim=1), logits, cache
+
+
+def vision_prefill(torch, dev, args, lm, params):
+    """(a): prefill 1 x VISION_PROMPT vision embeddings with the grid's
+    M-RoPE streams and 8 greedy tokens; two more prefills of the same
+    embeddings, with 2-D positions and with three equal streams, whose
+    logits must be bitwise equal (M-RoPE reduces to RoPE) and differ from
+    the grid's; K6 VISION_K6["prefill"] times on wgmma (counters zeroed
+    just before, read just after); then K6 alone at this shape against
+    scaled_dot_product_attention, the same function here (causal, no
+    window, no softcap)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.models.frontends import synthetic_vision_embeds
+
+    cfg, S = lm.cfg, VISION_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    batch = synthetic_vision_embeds(cfg, 1, S, gen, device=dev)
+    emb, grid = batch["embeds"], batch["positions"]
+    flat = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    out = {}
+    k6.reset_launches()
+
+    def prefill(pos):
+        return _events_ms(torch, lambda: lm.prefill(
+            params, embeds=emb, positions=pos, S_max=S + VISION_GEN))
+    (l_grid, cache), out["prefill_ms"] = prefill(grid)
+    t0 = time.time()
+    toks, _, cache = _greedy(torch, lm, params, l_grid, cache, VISION_GEN)
+    torch.cuda.synchronize()
+    out["decode_s_per_token"] = (time.time() - t0) / VISION_GEN
+    del cache
+    (l_flat, _), out["prefill_2d_ms"] = prefill(flat)
+    (l_eq, _), out["prefill_equal_streams_ms"] = prefill(
+        flat[None].expand(3, 1, S))
+    routes = dict(k6.ROUTE_LAUNCHES)
+    out["k6_routes"] = routes
+    equal = torch.equal(l_eq, l_flat)
+    differ = not torch.equal(l_grid, l_flat)
+    log(f"vision: (a) {cfg.name} ({cfg.num_layers} of 80 layers, "
+        f"{lm.n_params():,} params) prefill 1x{S} vision embeddings with "
+        f"the grid's M-RoPE streams {out['prefill_ms']:.1f} ms (CUDA "
+        f"events), 2-D positions {out['prefill_2d_ms']:.1f} ms, three equal "
+        f"streams {out['prefill_equal_streams_ms']:.1f} ms; decode "
+        f"{out['decode_s_per_token']:.4f} s/token; tokens "
+        f"{toks[0].tolist()}; equal streams' logits bitwise equal to the 2-D "
+        f"prefill's: {equal}; the grid's differ: {differ}; K6 {routes} "
+        f"(expected {VISION_K6['prefill']} on wgmma)")
+    check(tuple(l_grid.shape) == (1, cfg.padded_vocab)
+          and bool(torch.isfinite(l_grid[:, :cfg.vocab_size]).all()),
+          "the vision prefill's logits are not finite [1, V]")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          "the vision decode's tokens are out of range")
+    check(equal, "M-RoPE with three equal streams differs from 2-D RoPE")
+    check(differ, "the grid's M-RoPE streams did not change the logits")
+    check(routes == {"wgmma": VISION_K6["prefill"], "simt": 0},
+          f"the vision prefills' K6 launches are not "
+          f"{VISION_K6['prefill']} on wgmma: {routes}")
+    del l_grid, l_flat, l_eq, emb, batch
+
+    # K6 alone at the prefill's attention shape, beside SDPA
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((1, S, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((1, S, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((1, S, KV, hd), generator=gen, device=dev).bfloat16()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention
+    calls = {"k6": lambda: k6.flash_attention_fwd(q, k, v, causal=True),
+             "sdpa": lambda: lib(qt, kt, vt, is_causal=True,
+                                 enable_gqa=True)}
+    err = float((calls["k6"]().float()
+                 - calls["sdpa"]().transpose(1, 2).float()).abs().max())
+    ms = cuda_ms(torch, calls["k6"], iters=20)
+    lib_ms = cuda_ms(torch, calls["sdpa"], iters=20)
+    b2b = {"k6": [], "sdpa": []}
+    for who in ("k6", "sdpa", "sdpa", "k6"):
+        b2b[who].append(cuda_ms(torch, calls[who], iters=5, batch=20))
+    bound_ms, bound_by, pairs, ops, nbytes = _bound(1, S, S, H, KV, hd, 0)
+    out["k6_alone"] = {"shape": [1, S, S, H, KV, hd], "ms": ms,
+                       "library_ms": lib_ms, "ms_back_to_back": b2b["k6"],
+                       "library_ms_back_to_back": b2b["sdpa"],
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "live_pairs": pairs, "ops": ops, "bytes": nbytes,
+                       "max_abs_err_vs_sdpa": err}
+    log(f"vision: K6 at the prefill's shape 1x{S} {H}/{KV} heads x{hd} "
+        f"bf16 causal: {ms:.4f} ms one call, {min(b2b['k6']):.4f}-"
+        f"{max(b2b['k6']):.4f} back to back (20 calls a timing, in turns "
+        f"K6 SDPA SDPA K6); scaled_dot_product_attention {lib_ms:.4f} / "
+        f"{min(b2b['sdpa']):.4f}-{max(b2b['sdpa']):.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({ops / 1e9:.1f} GFLOP over "
+        f"{pairs:,} live pairs, {nbytes / 1e6:.1f} MB): "
+        f"{bound_ms / ms:.1%} one call, {bound_ms / min(b2b['k6']):.1%} "
+        f"back to back; max |K6 - SDPA| {err:.3g}")
+    check(err < 2e-2, f"K6 differs from SDPA at the vision prefill's shape: "
+                      f"{err:.3g}")
+    return out
+
+
+def vision_session(torch, dev, args, lm, params):
+    """(b): prefill VISION_B x VISION_PROMPT vision embeddings, 16 greedy
+    tokens; after 8 the session state {cache, tokens so far, last logits}
+    is dumped through CheckpointSession (lossless, mem://); the
+    uninterrupted run goes on to 16; the image is restored onto a (1, 1)
+    mesh of the card (RestoreRequest(shardings=named(mesh, specs),
+    mesh=mesh) from a session opened on the CPU: the cache's specs are
+    kvcache.cache_pspecs under cache_rules), and the fresh tensors decode
+    the last 8: their tokens and every final cache leaf must equal the
+    uninterrupted run's bitwise. K6 VISION_K6["session"] times on wgmma,
+    the codec kernels not at all."""
+    from repro_torch.api import CheckpointSession, DumpRequest, RestoreRequest
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.core.storage import as_tier
+    from repro_torch.distributed.sharding import (PartitionSpec, batch_axes,
+                                                  cache_rules, named)
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import kvcache
+    from repro_torch.models.frontends import synthetic_vision_embeds
+
+    cfg, S = lm.cfg, VISION_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batch = synthetic_vision_embeds(cfg, VISION_B, S, gen, device=dev)
+    uri = f"mem://chip-smoke-vision-{args.seed}"
+    out = {}
+    k6.reset_launches()
+    ckpt_codec.reset_launches()
+    (logits, cache), out["prefill_ms"] = _events_ms(torch, lambda: lm.prefill(
+        params, embeds=batch["embeds"], positions=batch["positions"],
+        S_max=S + VISION_SESSION_GEN))
+    t0 = time.time()
+    first, logits, cache = _greedy(torch, lm, params, logits, cache,
+                                   VISION_CUT)
+    torch.cuda.synchronize()
+    out["decode_s_per_token"] = (time.time() - t0) / VISION_CUT
+    sess = CheckpointSession(uri, device=dev)
+    t0 = time.time()
+    receipt = sess.dump(DumpRequest(
+        state={"cache": cache, "tokens": first, "logits": logits},
+        step=VISION_CUT))
+    out["dump_s"] = time.time() - t0
+    out["image_bytes"] = receipt.stats["bytes_stored"]
+    rest, _, cache = _greedy(torch, lm, params, logits, cache,
+                             VISION_SESSION_GEN - VISION_CUT)
+    want = torch.cat([first, rest], dim=1)
+    want_cache = dict(flatten_with_paths(cache))
+    del cache, logits
+    mesh = make_test_mesh((1, 1), device=dev)
+    shape = ShapeConfig("vision-session", "decode", S + VISION_SESSION_GEN,
+                        VISION_B)
+    rows = PartitionSpec(batch_axes(mesh, VISION_B), None)
+    specs = {"cache": kvcache.cache_pspecs(cfg, cache_rules(cfg, mesh, shape)),
+             "tokens": rows, "logits": rows}
+    t0 = time.time()
+    res = CheckpointSession(uri, device="cpu").restore(RestoreRequest(
+        shardings=named(mesh, specs), mesh=mesh))
+    torch.cuda.synchronize()
+    out["restore_s"] = time.time() - t0
+    st = res.state
+    on_card = all(t.device == dev for _, t in flatten_with_paths(st))
+    rest, _, cache = _greedy(torch, lm, params, st["logits"], st["cache"],
+                             VISION_SESSION_GEN - VISION_CUT)
+    got = torch.cat([st["tokens"], rest], dim=1)
+    same = torch.equal(got, want)
+    differ = [p for p, t in flatten_with_paths(cache)
+              if not torch.equal(t, want_cache[p])]
+    routes, codec = dict(k6.ROUTE_LAUNCHES), dict(ckpt_codec.LAUNCHES)
+    out.update(k6_routes=routes, tokens_equal=same, leaves_differ=differ,
+               codec_launches=codec)
+    log(f"vision: (b) session {VISION_B}x{S} vision embeddings: prefill "
+        f"{out['prefill_ms']:.1f} ms (CUDA events), decode "
+        f"{out['decode_s_per_token']:.4f} s/token; checkpointed after "
+        f"{VISION_CUT} tokens as {receipt.image_id} in {out['dump_s']:.2f} "
+        f"s: {out['image_bytes'] / 1e9:.4f} GB stored ({out['image_bytes']:,}"
+        f" bytes: the K/V cache of {cfg.num_layers} layers x {VISION_B} x "
+        f"{S + VISION_SESSION_GEN} positions, pos, tokens, logits); "
+        f"restored onto a (1, 1) mesh of the card (cache_pspecs; a session "
+        f"opened on the CPU) in {out['restore_s']:.2f} s; tokens "
+        f"{'equal' if same else 'DIFFER FROM'} the uninterrupted run's at "
+        f"all {VISION_B}x{VISION_SESSION_GEN}; final cache "
+        f"{len(want_cache) - len(differ)} of {len(want_cache)} leaves "
+        f"bit-identical; K6 {routes} (expected {VISION_K6['session']} on "
+        f"wgmma), codec kernels {sum(codec.values())}")
+    check(on_card, "the session restored onto the mesh is not on the card")
+    check(same, "the restored session's tokens differ from the "
+                "uninterrupted run's")
+    check(not differ, f"the restored session's final cache differs: "
+                      f"{differ}")
+    check(routes == {"wgmma": VISION_K6["session"], "simt": 0},
+          f"the session's K6 launches are not {VISION_K6['session']} on "
+          f"wgmma: {routes}")
+    check(sum(codec.values()) == 0, f"codec kernels ran in a lossless "
+                                    f"session dump: {codec}")
+    del st, cache, want_cache, res
+    as_tier(uri).delete("chunks")
+    as_tier(uri).delete("images")
+    return out
+
+
+def _compress_checks(torch, g, q, scale, err, deq):
+    """-> (worst |g - deq| / (scale/2) over the leaf's live blocks, whether
+    the error state equals g - q*scale rounded once) of one gradient leaf,
+    a slice of blocks at a time (float64: the product and the difference
+    are exact there)."""
+    from repro_torch.optim.compress import BLOCK
+    n = g.numel()
+    gf, ef, df = g.reshape(-1), err.reshape(-1), deq.reshape(-1)
+    worst, exact = 0.0, True
+    step = 2048 * BLOCK
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        blk = torch.arange(lo, hi, device=g.device) // BLOCK
+        s = scale[blk]
+        e = (gf[lo:hi] - df[lo:hi]).abs()
+        live = s > 0
+        if bool(live.any()):
+            worst = max(worst, float((e[live] / (s[live] / 2)).max()))
+        check(bool((e[~live] == 0).all()), "a zero block decompressed "
+                                           "to a nonzero value")
+        want = (gf[lo:hi].double() - q.reshape(-1)[lo:hi].double()
+                * s.double()).float()
+        exact = exact and torch.equal(ef[lo:hi], want)
+    return worst, exact
+
+
+def vision_train(torch, dev, args):
+    """(c): a qwen2-vl-72b trainer at 1 of 80 layers: one step of the loss
+    on 1 x VISION_TRAIN_SEQ vision embeddings with labels and M-RoPE
+    streams through the port's AdamW; the step's gradients through
+    compress_tree -> decompress_tree (every element within scale/2 of its
+    block, the error state g - deq rounded once, wire bytes <= 0.26 of the
+    fp32 bytes), a leaf at a time: the whole tree at once would hold its
+    error state, int8 payload and decompressed copy beside the state and
+    the gradients, 91 GiB."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.models.frontends import synthetic_vision_embeds
+    from repro_torch.models.model import LM
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.compress import (compress_tree, decompress_tree,
+                                            init_error_state, wire_bytes)
+    from repro_torch.training import init_train_state
+    from repro_torch.training import train_loop
+    cfg = get_config(VISION_ARCH).replace(num_layers=VISION_TRAIN_LAYERS)
+    lm = LM(cfg)
+    out = {"params": lm.n_params()}
+    t0 = time.time()
+    state = init_train_state(lm, torch.Generator().manual_seed(args.seed),
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    batch = synthetic_vision_embeds(cfg, 1, VISION_TRAIN_SEQ, gen,
+                                    device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.time() - t0
+    t0 = time.time()
+    loss, metrics, grads = train_loop._grads(lm, state["params"], batch)
+    torch.cuda.synchronize()
+    out["grad_s"] = time.time() - t0
+    out["loss"] = float(loss)
+    check(bool(torch.isfinite(loss)), f"the vision trainer's loss is "
+                                      f"{float(loss)}")
+
+    t0 = time.time()
+    wire = raw = 0
+    worst, exact = 0.0, True
+    for path, g in flatten_with_paths(grads):
+        one = {"g": g}
+        comp, err = compress_tree(one, init_error_state(one))
+        deq = decompress_tree(comp, one)["g"]
+        w, e = _compress_checks(torch, g, comp["g"][0], comp["g"][1],
+                                err["g"], deq)
+        worst, exact = max(worst, w), exact and e
+        wire += wire_bytes(comp)
+        raw += g.numel() * 4
+        del comp, err, deq, one
+    torch.cuda.synchronize()
+    out.update(compress_s=time.time() - t0, wire_bytes=wire, raw_bytes=raw,
+               worst_err_over_half_scale=worst, error_state_exact=exact)
+    t0 = time.time()
+    state, metrics = train_loop._apply(state, grads, OptConfig(), metrics)
+    torch.cuda.synchronize()
+    out["adamw_s"] = time.time() - t0
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["step_peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"vision: (c) {cfg.name} trainer ({cfg.num_layers} of 80 layers, "
+        f"{lm.n_params():,} params, {raw / 1e9:.2f} GB a tree): loss on 1x"
+        f"{VISION_TRAIN_SEQ} vision embeddings {out['loss']:.4f}, forward + "
+        f"backward {out['grad_s']:.2f} s, AdamW {out['adamw_s']:.3f} s; "
+        f"gradients compressed and decompressed in {out['compress_s']:.2f} "
+        f"s: wire {wire / 1e9:.3f} GB = {wire / raw:.4f} of fp32, worst "
+        f"|g - deq| {worst:.4f} of scale/2, error state = g - q*scale "
+        f"rounded once: {exact}; device peak "
+        f"{out['step_peak_device_gb']:.1f} GB")
+    check(wire <= 0.26 * raw, f"wire bytes {wire / raw:.4f} of fp32")
+    check(worst <= 1.001, f"a gradient element lies {worst:.4f} of scale/2 "
+                          f"from its block's value")
+    check(exact, "the error state is not g - deq")
+    check(bool(torch.isfinite(metrics["grad_norm"])),
+          "the gradient norm is not finite")
+
+    del state, metrics
+    return out
+
+
+def vision_path(torch, dev, args):
+    """Path 14: (a) qwen2-vl-72b's vision prefill and decode, (b) a vision
+    session checkpointed, restored onto a mesh and continued, (c) a train
+    step with gradient compression."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    cfg = get_config(VISION_ARCH).replace(num_layers=VISION_LAYERS)
+    lm = LM(cfg)
+    out = {}
+    t0 = time.time()
+    params = lm.init(torch.Generator().manual_seed(args.seed), device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.time() - t0
+    log(f"vision: {cfg.name} d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, M-RoPE sections "
+        f"{cfg.mrope_sections}; cut: num_layers 80 -> {cfg.num_layers} (the "
+        f"only cut), {lm.n_params():,} params, initialized on the card in "
+        f"{out['init_s']:.1f} s")
+    # (a) and (b) must agree bitwise with themselves: deterministic
+    # kernels (warn_only, as path 13's session)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.time()
+        out["prefill"] = vision_prefill(torch, dev, args, lm, params)
+        out["prefill_s"] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        out["session"] = vision_session(torch, dev, args, lm, params)
+        out["session_s"] = time.time() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["train"] = vision_train(torch, dev, args)
+    out["train_s"] = time.time() - t0
+    out["launches"] = {"flash_attention": sum(
+        sum(out[k]["k6_routes"].values()) for k in ("prefill", "session"))}
+    return out
+
+
 def capability_phase(torch, dev):
     """`criu check` on the card: every capability, one line each, and
     every one must be supported (every module is ported)."""
@@ -3830,6 +4250,23 @@ def main(argv=None) -> int:
         rows[k]["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with RssPeak() as rss_vis:
+        record["vision"] = vision_path(torch, dev, args)
+    vis = record["vision"]
+    vis.update(host_peak_rss_gb=rss_vis.peak_gb,
+               host_rss_at_start_gb=rss_vis.start_gb, wall_s=time.time() - t0,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"vision: path {vis['wall_s']:.1f} s ((a) {vis['prefill_s']:.1f} s, "
+        f"(b) {vis['session_s']:.1f} s, (c) {vis['train_s']:.1f} s); peak "
+        f"device memory {vis['peak_device_gb']:.1f} GB; host peak RSS of "
+        f"the path {rss_vis.peak_gb:.1f} GB, "
+        f"{rss_vis.peak_gb - rss_vis.start_gb:.1f} GB above the "
+        f"{rss_vis.start_gb:.1f} GB at its start (sampled every 20 ms)")
+    rows["flash_attention"]["launches"] += vis["launches"]["flash_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
     record["capabilities"] = capability_phase(torch, dev)
     record["kernels"] = list(rows.values())
     record["card"] = card
@@ -3851,7 +4288,8 @@ def main(argv=None) -> int:
         f"plane {record['plane']['peak_device_gb']:.1f} GB, fleet "
         f"{record['fleet']['peak_device_gb']:.1f} GB, socket "
         f"{record['socket']['peak_device_gb']:.1f} GB, families "
-        f"{record['families']['peak_device_gb']:.1f} GB")
+        f"{record['families']['peak_device_gb']:.1f} GB, vision "
+        f"{record['vision']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6's row also carries its numbers at gemma2's head dim 256

@@ -320,17 +320,22 @@ def _probe_topology(dev) -> list:
     from repro_torch.core.elastic import plan_topology_change
     from repro_torch.core.restore import restore as _restore
     from repro_torch.core.storage import MemoryTier
+    from repro_torch.distributed.sharding import mesh_topology
+    from repro_torch.launch.mesh import make_test_mesh
     out = []
     try:
+        topo = mesh_topology(make_test_mesh((2, 1), device=dev))
         plan = plan_topology_change(
             {"host_count": 4, "dp_degree": 4, "step": 8,
              "data": {"global_batch": 8, "step": 8}},
-            new_host_count=2, new_dp_size=2)
+            new_host_count=topo["host_count"],
+            new_dp_size=topo["dp_degree"])
         ok = plan["changed"] and plan["dp_degree"] == 2
         out.append(_cap("cross_topology_restore", ok,
-                        "topology-change planner: 4 hosts x dp 4 -> 2 x 2; "
-                        "images are topology-free, restore re-slices the "
-                        "data cursors onto the new host count"))
+                        "topology-change planner: 4 hosts x dp 4 -> a "
+                        "(data 2, model 1) mesh's 1 x 2; images are "
+                        "topology-free, restore re-slices the data cursors "
+                        "and places the leaves on the mesh's one device"))
     except Exception as e:  # pragma: no cover
         out.append(_cap("cross_topology_restore", False,
                         f"planner failed: {e!r}"))

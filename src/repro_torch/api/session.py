@@ -27,7 +27,9 @@ gc after every dump; incremental delta8 chains; and the migration
 lifecycle (``migrate``, ``should_migrate``, ``should_predump``,
 ``pre_dump_round``, ``observe_step``, signal handlers installed by
 ``__enter__`` under PreemptionPolicy(install_signals=True)), and the
-`criu check` probe ``capabilities``. Not yet: restore onto a mesh.
+`criu check` probe ``capabilities``; restore onto a mesh (``shardings=``
+/ ``mesh=`` records of distributed/sharding.py) places every leaf on the
+mesh's one device, and a mesh over several devices raises.
 
 The dirty classifier of pre-copy runs on the card: an fp32 or bf16 leaf
 on the card is digested there by K5 (core/predump.py), and a leaf whose
@@ -56,10 +58,6 @@ from repro_torch.core.registry import Registry
 from repro_torch.core.restore import restore as _restore
 from repro_torch.core.storage import as_tier
 from repro_torch.device import resolve_device, to_host
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 def _step_of(image_id: str) -> int | None:
@@ -229,9 +227,8 @@ class CheckpointSession:
         if not isinstance(req, RestoreRequest):
             raise TypeError(f"restore() takes a RestoreRequest, got "
                             f"{type(req).__name__}")
-        if req.shardings is not None or req.mesh is not None:
-            raise _not_ported("restore onto a mesh (shardings / mesh)")
         rep = resume(self.tier, expected=req.target_struct,
+                     shardings=req.shardings, mesh=req.mesh,
                      device=self.device, host_count=req.host_count,
                      dp_degree=req.dp_degree,
                      global_batch=req.global_batch, image_id=req.image_id,
@@ -531,32 +528,41 @@ class CheckpointSession:
                          chunking=self.config.codec.chunking)
 
     # --------------------------------------------------------- engine: load
+    def _load(self, image_id, target_struct, shardings):
+        """Raw restore onto the shardings' one device (else the
+        session's); a shardings tree must have the image's leaf paths."""
+        from repro_torch.distributed.sharding import (check_tree,
+                                                      placement_device)
+        dev = self.device if shardings is None \
+            else placement_device(shardings)
+        out = _restore(self.tier, image_id, device=dev,
+                       expected=target_struct, replicas=self.replicas,
+                       executor=self.executor)
+        if shardings is not None:
+            check_tree(shardings, out[0])
+        return out
+
     def load_latest(self, target_struct=None, shardings=None):
         """Raw restore of the newest image -> (tree, manifest) on the
         session's device. The typed path (RestoreRequest) adds the
-        migration record and digest check on top. ``shardings`` (restore
-        onto a mesh) is not ported and raises when given.
+        migration record and digest check on top. ``shardings`` (a tree
+        of distributed/sharding.NamedSharding, e.g. ``named(mesh,
+        train_state_pspecs(lm, rules))``) places every leaf on the mesh's
+        one device instead; a mesh over several devices raises
+        NotImplementedError.
 
         Example::
 
             tree, man = sess.load_latest()
         """
-        if shardings is not None:
-            raise _not_ported("restore onto a mesh (shardings)")
-        return _restore(self.tier, device=self.device,
-                        expected=target_struct, replicas=self.replicas,
-                        executor=self.executor)
+        return self._load(None, target_struct, shardings)
 
     def load(self, image_id: str, target_struct=None, shardings=None):
         """Raw restore of a specific image id -> (tree, manifest).
-        ``shardings`` is not ported and raises when given.
+        ``shardings`` as in load_latest.
 
         Example::
 
             tree, man = sess.load("step_0000000040")
         """
-        if shardings is not None:
-            raise _not_ported("restore onto a mesh (shardings)")
-        return _restore(self.tier, image_id, device=self.device,
-                        expected=target_struct, replicas=self.replicas,
-                        executor=self.executor)
+        return self._load(image_id, target_struct, shardings)

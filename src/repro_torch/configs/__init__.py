@@ -16,9 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401
     flops_per_token,
 )
 
-# arch-id -> module name, in the JAX package's order. Only the
-# architectures the port's models run are here: all but qwen2-vl-72b,
-# whose M-RoPE and vision embeddings are not ported yet (ROADMAP item 5).
+# arch-id -> module name, in the JAX package's order (all ten).
 _ARCH_MODULES = {
     "deepseek-67b": "deepseek_67b",
     "qwen3-8b": "qwen3_8b",
@@ -26,6 +24,7 @@ _ARCH_MODULES = {
     "gemma2-2b": "gemma2_2b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "dbrx-132b": "dbrx_132b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "xlstm-350m": "xlstm_350m",
     "zamba2-1.2b": "zamba2_1p2b",
     "musicgen-large": "musicgen_large",

@@ -104,13 +104,8 @@ class MigrationManifest:
 def _topology_of(mesh, topology: dict | None) -> dict:
     if topology is not None:
         return topology
-    if mesh is not None:
-        raise NotImplementedError("a migration topology read off a mesh is "
-                                  "not ported to repro_torch yet; pass "
-                                  "topology= (a record like fleet_topology's)")
-    # the trivial topology of an unsharded single-process run, as the JAX
-    # package's mesh_topology(None) records it
-    return {"axes": [], "dp_degree": 1, "device_count": 1, "host_count": 1}
+    from repro_torch.distributed.sharding import mesh_topology
+    return mesh_topology(mesh)
 
 
 def _state_step(state) -> int:
@@ -386,7 +381,8 @@ class ResumeReport:
                                      device=device)
 
 
-def resume(root, *, expected=None, device="cuda",
+def resume(root, *, expected=None, shardings=None, mesh=None,
+           device="cuda",
            host_count: int | None = None, dp_degree: int | None = None,
            global_batch: int | None = None, image_id: str | None = None,
            replicas=(), executor=None, verify_digest: bool = True,
@@ -411,15 +407,30 @@ def resume(root, *, expected=None, device="cuda",
     moment the tree fully materializes (state.materialize() —
     CorruptionError on mismatch, exactly like the eager path, just
     deferred); ``expected`` does not apply to a tree that isn't there yet
-    — materialize() first, then cast."""
-    from repro_torch.core.restore import place, restore_pairs
+    — materialize() first, then cast.
 
+    The new topology comes from ``mesh`` (host/DP counts derived, as the
+    JAX package derives them) or explicit ``host_count``/``dp_degree``.
+    ``shardings`` (a tree of NamedShardings) places the leaves on its
+    mesh's one device in place of ``device``; a mesh over several devices
+    raises NotImplementedError."""
+    from repro_torch.core.restore import place, restore_pairs
+    from repro_torch.distributed.sharding import check_tree, placement_device
+
+    if mesh is not None:
+        placement_device(mesh)          # one device, or raise
+        if host_count is None or dp_degree is None:
+            topo = _topology_of(mesh, None)
+            host_count = host_count or topo["host_count"]
+            dp_degree = dp_degree or topo["dp_degree"]
+    if shardings is not None:
+        device = placement_device(shardings)
     if lazy:
-        if expected is not None:
+        if expected is not None or shardings is not None:
             raise ValueError(
-                "lazy restore serves leaves on fault; target_struct applies "
-                "after materialize() — restore eagerly, or cast the "
-                "materialized tree yourself")
+                "lazy restore serves leaves on fault; target_struct/"
+                "shardings apply after materialize() — restore eagerly, or "
+                "cast/place the materialized tree yourself")
         from repro_torch.core.lazy import lazy_restore
         tree, man, server = lazy_restore(
             root, image_id, replicas=replicas, executor=executor,
@@ -458,6 +469,8 @@ def resume(root, *, expected=None, device="cuda",
                  plan["changes"])
     if not lazy:
         tree = place(pairs, device, expected)
+        if shardings is not None:
+            check_tree(shardings, tree)
     return ResumeReport(state=tree, manifest=man, migration=rec,
                         topology_changed=plan["changed"],
                         changes=plan["changes"],

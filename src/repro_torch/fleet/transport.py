@@ -310,6 +310,8 @@ class WorkerAgent:
         self._replies: dict = {}           # seq -> cached reply envelope
         self._last_seq = 0
         self._epoch = None
+        # notified once a handshake has stored the coordinator's epoch
+        self._epoch_cond = threading.Condition()
         self._conn = None
         self._conn_lock = threading.Lock()
         self._stop = threading.Event()
@@ -339,6 +341,14 @@ class WorkerAgent:
             conn.close()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+
+    def wait_epoch(self, epoch: int, timeout: float = 10.0) -> bool:
+        """Block until a handshake has stored coordinator ``epoch`` (the
+        coordinator counts a transport connected once it has SENT its
+        hello_ack, before this side has read it), or the timeout passes."""
+        with self._epoch_cond:
+            return self._epoch_cond.wait_for(lambda: self._epoch == epoch,
+                                             timeout=float(timeout))
 
     def alive(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
@@ -438,12 +448,14 @@ class WorkerAgent:
         if ch != "hello_ack":
             raise FrameError(f"expected hello_ack, got {ch!r}")
         epoch = env.get("epoch", 0)
-        if epoch != self._epoch:
-            # a different coordinator incarnation: its command sequence
-            # space started over, so the old dedup window is meaningless
-            self._replies.clear()
-            self._last_seq = 0
-            self._epoch = epoch
+        with self._epoch_cond:
+            if epoch != self._epoch:
+                # a different coordinator incarnation: its command sequence
+                # space started over, so the old dedup window is meaningless
+                self._replies.clear()
+                self._last_seq = 0
+                self._epoch = epoch
+            self._epoch_cond.notify_all()
         return dec, pending
 
     def _serve(self, conn, dec, pending):

@@ -106,6 +106,21 @@ def cache_axes(cfg: ModelConfig):
     return out
 
 
+def cache_pspecs(cfg: ModelConfig, rules: dict):
+    """cache_axes mapped through ``rules`` (distributed/sharding
+    cache_rules) to PartitionSpecs."""
+    from repro_torch.distributed.sharding import PartitionSpec
+
+    def one(ax):
+        return PartitionSpec(*[(rules.get(a) if a else None) for a in ax])
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return one(node)
+    return walk(cache_axes(cfg))
+
+
 def cache_bytes(cfg: ModelConfig, B: int, S_max: int,
                 dtype=torch.bfloat16) -> int:
     from repro_torch.core.dump import flatten_with_paths

@@ -1,7 +1,8 @@
-"""Shared layers: norms, rotary embeddings, MLPs, embedding/head.
+"""Shared layers: norms, rotary embeddings (incl. M-RoPE), MLPs,
+embedding/head.
 
 Same math and dtypes as the JAX package's models/layers.py, written on
-tensors. M-RoPE (qwen2-vl) is not ported yet (ROADMAP item 5)."""
+tensors."""
 from __future__ import annotations
 
 import torch
@@ -33,14 +34,29 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 
 def apply_rope(x, positions, theta: float, sections: tuple = ()):
-    """x: [B, S, H, D]; positions: [B, S]."""
-    if sections or positions.ndim != 2:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl-72b) is not ported to repro_torch yet; "
-            "ROADMAP.md item 5 brings it")
+    """x: [B, S, H, D]; positions: [B, S] or [3, B, S] for M-RoPE.
+
+    M-RoPE (qwen2-vl): the D/2 frequency slots are split into ``sections``
+    (t, h, w); each section rotates with its own position stream. With equal
+    position streams this reduces exactly to standard RoPE.
+    """
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                    # [D/2]
-    angles = positions.to(torch.float32)[..., None] * freqs   # [B, S, D/2]
+    if positions.ndim == 2:
+        pos = positions[None].to(torch.float32)               # [1, B, S]
+    else:
+        pos = positions.to(torch.float32)                     # [3, B, S]
+    if sections:
+        assert sum(sections) == d // 2, (sections, d)
+        idx = []
+        for i, s in enumerate(sections):
+            idx.extend([min(i, pos.shape[0] - 1)] * s)
+        stream = torch.tensor(idx, device=pos.device)         # [D/2]
+        # angles[b, s, j] = pos[stream[j], b, s] * freqs[j]
+        angles = pos.index_select(0, stream)                  # [D/2, B, S]
+        angles = torch.movedim(angles, 0, -1) * freqs         # [B, S, D/2]
+    else:
+        angles = pos[0][..., None] * freqs                    # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]                    # [B, S, 1, D/2]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

@@ -57,20 +57,34 @@ class LM:
              device="cuda"):
         return pm.init(self.specs(), generator, dtype, device)
 
+    def pspecs(self, rules: dict):
+        """The params tree of PartitionSpecs under ``rules`` (logical axis
+        -> mesh axis; distributed/sharding.make_rules)."""
+        return pm.pspecs(self.specs(), rules)
+
     def n_params(self) -> int:
         return pm.count(self.specs())
 
     # ---------------------------------------------------------------- forward
-    def forward(self, params, *, tokens, positions=None, mode="train",
-                cache=None, compute_dtype=torch.bfloat16):
-        """tokens [B,S] -> (hidden [B,S,d] after the final norm, new_cache,
-        aux). prefill and decode take a cache (``kvcache.init_cache``) and
-        update it in place; its ``pos`` cursor advances by S (prefill) or 1
-        (decode). train takes none and returns None for it. aux is the sum
-        of the blocks' MoE load-balance losses (fp32 scalar, 0 without
-        experts)."""
+    def forward(self, params, *, tokens=None, embeds=None, positions=None,
+                mode="train", cache=None, compute_dtype=torch.bfloat16):
+        """tokens [B,S] or embeds [B,S,d] (a frontend's output, cast to
+        ``compute_dtype`` in place of the embedding lookup; exactly one of
+        the two) -> (hidden [B,S,d] after the final norm, new_cache, aux).
+        positions: [B,S], or [3,B,S] M-RoPE streams; default the cache
+        cursor onward. prefill and decode take a cache
+        (``kvcache.init_cache``) and update it in place; its ``pos`` cursor
+        advances by S (prefill) or 1 (decode). train takes none and returns
+        None for it. aux is the sum of the blocks' MoE load-balance losses
+        (fp32 scalar, 0 without experts)."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens, cfg, compute_dtype)
+        if (tokens is None) == (embeds is None):
+            raise ValueError("LM.forward takes exactly one of tokens= and "
+                             "embeds=")
+        if embeds is not None:
+            x = embeds.to(compute_dtype)
+        else:
+            x = embed_lookup(params["embed"], tokens, cfg, compute_dtype)
         B, S = x.shape[:2]
         # one host read of the cursor per forward: cache writes and the
         # decode mask slice by it
@@ -124,14 +138,17 @@ class LM:
 
     # ------------------------------------------------------------------- loss
     def loss(self, params, batch, ce_chunk: int = 512):
-        """batch: {"tokens": [B,S]}. Returns (loss, {"ce", "aux", "loss"}):
+        """batch: {"tokens": [B,S]} or {"embeds": [B,S,d], "labels": [B,S]}
+        (+ optional "positions"). Returns (loss, {"ce", "aux", "loss"}):
         with experts the loss adds ``router_aux_coef`` times the mean of
         the layers' load-balance losses."""
         cfg = self.cfg
-        tokens = batch["tokens"]
+        tokens = batch.get("tokens")
+        embeds = batch.get("embeds")
         labels = batch.get("labels", tokens)
-        x, _, aux = self.forward(params, tokens=tokens,
-                                 positions=batch.get("positions"))
+        x, _, aux = self.forward(
+            params, tokens=tokens if embeds is None else None, embeds=embeds,
+            positions=batch.get("positions"))
         ce = self._chunked_ce(params, x[:, :-1], labels[:, 1:], ce_chunk)
         aux_mean = aux / (cfg.num_layers if cfg.num_experts else 1)
         loss = ce + cfg.router_aux_coef * aux_mean if cfg.num_experts else ce
@@ -156,14 +173,16 @@ class LM:
         return tot / (B * T)
 
     # -------------------------------------------------------------- serving
-    def prefill(self, params, *, tokens, positions=None, S_max=None,
-                compute_dtype=torch.bfloat16):
-        """tokens [B,S] -> (last-position logits [B,V] fp32, cache). The
-        cache holds S_max (default S) positions, on the tokens' device."""
-        B, S = tokens.shape
+    def prefill(self, params, *, tokens=None, embeds=None, positions=None,
+                S_max=None, compute_dtype=torch.bfloat16):
+        """tokens [B,S] or embeds [B,S,d] -> (last-position logits [B,V]
+        fp32, cache). The cache holds S_max (default S) positions, on the
+        input's device."""
+        src = tokens if embeds is None else embeds
+        B, S = src.shape[:2]
         cache = kvcache.init_cache(self.cfg, B, S_max or S,
-                                   dtype=compute_dtype, device=tokens.device)
-        x, cache, _ = self.forward(params, tokens=tokens,
+                                   dtype=compute_dtype, device=src.device)
+        x, cache, _ = self.forward(params, tokens=tokens, embeds=embeds,
                                    positions=positions, mode="prefill",
                                    cache=cache, compute_dtype=compute_dtype)
         logits = unembed(params["embed"], x[:, -1:], self.cfg)[:, 0]

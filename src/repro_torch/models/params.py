@@ -110,6 +110,20 @@ def from_jax(tree, device="cuda"):
     return tree_map(one, tree)
 
 
+def pspecs(tree, rules: dict):
+    """Map logical axes -> mesh axes. ``rules[axis]`` is a mesh-axis name,
+    tuple of names, or None."""
+    from repro_torch.distributed.sharding import PartitionSpec
+
+    def one(_, p: ParamSpec) -> PartitionSpec:
+        entries = []
+        for ax in p.axes:
+            r = rules.get(ax) if ax is not None else None
+            entries.append(r if r else None)
+        return PartitionSpec(*entries)
+    return tree_map(one, tree)
+
+
 def count(tree) -> int:
     total = 0
     for p in tree_leaves(tree):

@@ -40,6 +40,15 @@ def train_state_paths(lm: LM, dtype=torch.float32) -> list:
     return leaf_paths_of(abstract_train_state(lm, dtype))
 
 
+def train_state_pspecs(lm: LM, rules: dict):
+    """PartitionSpecs of the train state: m and v take the params' specs,
+    the step is replicated."""
+    from repro_torch.distributed.sharding import PartitionSpec
+    p = lm.pspecs(rules)
+    return {"params": p, "opt": {"m": p, "v": p},
+            "step": PartitionSpec()}
+
+
 def _grads(lm: LM, params, batch, *, accumulate_into=None):
     """(loss, metrics, grads) of ``lm.loss`` on one batch. With
     ``accumulate_into`` (a grads tree from an earlier call) the new grads
@@ -51,7 +60,10 @@ def _grads(lm: LM, params, batch, *, accumulate_into=None):
     with torch.enable_grad():
         loss, metrics = lm.loss(leaves, batch)
         loss.backward()
-    grads = tree_map(lambda _, p: p.grad, leaves)
+    # a leaf the loss never read (the embedding table under embeds=) has
+    # no .grad: its gradient is zeros, as jax.grad gives
+    grads = tree_map(lambda _, p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), leaves)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -92,6 +104,14 @@ def make_per_example_step_fns(lm: LM, opt_cfg: OptConfig):
     return per_example, apply
 
 
+def _batch_slice(x, lo: int, hi: int):
+    """Rows lo:hi of a batch entry: the batch dim is axis 0 for tokens,
+    embeds and labels, axis 1 for M-RoPE positions [3, B, S]."""
+    if x.ndim == 3 and x.shape[0] == 3 and x.dtype == torch.int32:
+        return x[:, lo:hi]
+    return x[lo:hi]
+
+
 def make_train_step(lm: LM, opt_cfg: OptConfig, microbatches: int = 1):
     """-> train_step(state, batch) -> (state, metrics). ``microbatches`` > 1
     accumulates grads over batch slices (axis 0), cutting activation memory
@@ -103,12 +123,13 @@ def make_train_step(lm: LM, opt_cfg: OptConfig, microbatches: int = 1):
         if microbatches == 1:
             _, metrics, grads = _grads(lm, state["params"], batch)
         else:
-            b = batch["tokens"].shape[0]
+            b = batch["tokens" if "tokens" in batch else "embeds"].shape[0]
             assert b % microbatches == 0, (b, microbatches)
             k = b // microbatches
             grads = None
             for i in range(microbatches):
-                mb = {n: v[i * k:(i + 1) * k] for n, v in batch.items()}
+                mb = {n: _batch_slice(v, i * k, (i + 1) * k)
+                      for n, v in batch.items()}
                 _, metrics, grads = _grads(lm, state["params"], mb,
                                            accumulate_into=grads)
             with torch.no_grad():

@@ -1,9 +1,10 @@
 """repro_torch model, optimizer and train state vs the JAX package, on
 qwen3-8b ``tiny()`` (and, for param counts, hidden states and losses, on
-every architecture the port runs: deepseek-67b, qwen3-8b,
-mistral-large-123b, gemma2-2b, granite-moe-3b-a800m, dbrx-132b,
-xlstm-350m, zamba2-1.2b and musicgen-large) with the JAX package's
-weights carried across by ``from_jax``. Tolerances:
+every architecture: deepseek-67b, qwen3-8b, mistral-large-123b,
+gemma2-2b, granite-moe-3b-a800m, dbrx-132b, qwen2-vl-72b (fed tokens here,
+through its embedding table; tests/test_torch_vlm.py feeds it embeddings),
+xlstm-350m, zamba2-1.2b and musicgen-large) with the JAX package's weights
+carried across by ``from_jax``. Tolerances:
 
   * fp32 compute: 1e-5 — the same math in float32, summed in another order;
     ``HIDDEN_ATOL`` = 3e-5 for the two architectures with recurrent
@@ -62,10 +63,10 @@ from repro_torch.training import (abstract_train_state,  # noqa: E402
                                   init_train_state, make_train_step)
 
 
-# the architectures the port's models run, in the JAX package's order
+# every architecture, in the JAX package's order
 ARCHS = ["deepseek-67b", "qwen3-8b", "mistral-large-123b", "gemma2-2b",
-         "granite-moe-3b-a800m", "dbrx-132b", "xlstm-350m", "zamba2-1.2b",
-         "musicgen-large"]
+         "granite-moe-3b-a800m", "dbrx-132b", "qwen2-vl-72b", "xlstm-350m",
+         "zamba2-1.2b", "musicgen-large"]
 RECURRENT = ("xlstm-350m", "zamba2-1.2b")
 HIDDEN_ATOL = 3e-5
 

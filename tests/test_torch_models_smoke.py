@@ -1,10 +1,12 @@
 """Per-arch smoke tests of repro_torch, the twins of
-tests/test_models_smoke.py's non-VLM cases on every architecture the port
-runs (qwen2-vl-72b waits for M-RoPE): the arch's ``tiny()``, one train
-step on the CPU, output shapes and no NaNs; the loss falls on a repeated
-batch; prefill + decode equal the full forward in fp32 (5e-4, as there);
-gemma2's window changes the hidden states. Weights from a seeded
-``torch.Generator``, tokens from seeded numpy."""
+tests/test_models_smoke.py's cases on every architecture: the arch's
+``tiny()``, one train step on the CPU, output shapes and no NaNs; the loss
+falls on a repeated batch; prefill + decode equal the full forward in fp32
+(5e-4, as there); gemma2's window changes the hidden states; qwen2-vl's
+embeddings path and M-RoPE (equal streams reduce it to RoPE within 1e-6,
+as there). Weights from a seeded ``torch.Generator``, tokens from seeded
+numpy; qwen2-vl-72b takes tokens too where a test feeds tokens (its
+embedding table exists)."""
 import functools
 
 import numpy as np
@@ -96,12 +98,36 @@ def test_gemma2_windowing_differs_from_global():
 
 def test_unported_block_kind_raises():
     """No fallback: a block kind the port does not have raises instead of
-    running another block, and so does M-RoPE (qwen2-vl-72b)."""
+    running another block. M-RoPE (qwen2-vl-72b) is ported: it runs on
+    [3, B, S] position streams, and qwen2-vl-72b is an arch."""
     from repro_torch.models.blocks import block_specs
     from repro_torch.models.layers import apply_rope
     cfg = configs.get_tiny("zamba2-1.2b")
     with pytest.raises(NotImplementedError, match="not a block"):
         block_specs("rwkv", cfg)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        apply_rope(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4), 1e4, (2, 1, 1))
-    assert "qwen2-vl-72b" not in configs.ARCH_NAMES
+    x = torch.randn(1, 4, 2, 12, generator=torch.Generator().manual_seed(0))
+    streams = torch.stack([torch.arange(4), torch.arange(4) // 2,
+                           torch.arange(4) % 2])[:, None]
+    out = apply_rope(x, streams, 1e4, (2, 2, 2))
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert "qwen2-vl-72b" in configs.ARCH_NAMES
+
+
+def test_vlm_embeds_path_and_mrope():
+    """Twin of test_models_smoke.py's vlm case: a loss on synthetic vision
+    embeddings with M-RoPE streams is finite, and equal position streams
+    reduce M-RoPE to standard RoPE (1e-6, as there)."""
+    from repro_torch.models.frontends import synthetic_vision_embeds
+    from repro_torch.models.layers import apply_rope
+    cfg = configs.get_tiny("qwen2-vl-72b")
+    lm = LM(cfg)
+    g = torch.Generator().manual_seed(0)
+    p = lm.init(g, device="cpu")
+    batch = synthetic_vision_embeds(cfg, 2, 16, g, device="cpu")
+    loss, m = lm.loss(p, batch)
+    assert bool(torch.isfinite(loss))
+    q = torch.randn(2, 8, 4, 16, generator=g)
+    pos = torch.arange(8)[None].expand(2, 8)
+    a = apply_rope(q, pos, 10000.0, cfg.mrope_sections)
+    b = apply_rope(q, pos, 10000.0, ())
+    assert float((a - b).abs().max()) < 1e-6

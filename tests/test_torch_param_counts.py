@@ -1,5 +1,5 @@
 """The twin of tests/test_param_counts.py on repro_torch: each FULL config
-the port runs against its published size (specs only — no tensors are
+against its published size (specs only — no tensors are
 made), and the analytic count against the spec tree, with the JAX
 test's tolerances."""
 import pytest
@@ -17,6 +17,7 @@ EXPECTED = {
     "gemma2-2b": (2.6, 0.05),
     "granite-moe-3b-a800m": (3.4, 0.08),
     "dbrx-132b": (131.6, 0.03),
+    "qwen2-vl-72b": (72.7, 0.03),
     "xlstm-350m": (0.48, 0.45),   # assigned dims give ~0.48B; see DESIGN.md
     "zamba2-1.2b": (1.2, 0.15),
     "musicgen-large": (2.4, 0.10),

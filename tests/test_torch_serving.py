@@ -7,8 +7,8 @@ numpy:
     tokens, against ``repro.models.LM``, for every architecture the port
     runs (deepseek-67b, qwen3-8b, mistral-large-123b, gemma2-2b with its
     window and softcaps, granite-moe-3b-a800m and dbrx-132b with capacity
-    drops in prefill and the dense oracle in decode, xlstm-350m,
-    zamba2-1.2b, musicgen-large) — fp32 compute: logits within
+    drops in prefill and the dense oracle in decode, qwen2-vl-72b fed
+    tokens, xlstm-350m, zamba2-1.2b, musicgen-large) — fp32 compute: logits within
     ``F32_TOL`` = 1e-5 absolute (the same math in float32, summed in
     another order; measured worst on this config 3.6e-6 of logits up to
     ~4), caches within 1e-5 (``STATE_RTOL`` = 1e-5 of each recurrent
@@ -61,10 +61,10 @@ B, SP, GEN, CUT = 2, 12, 12, 6
 # the arch cases' prompts: decode writes positions 14..17, past gemma2
 # tiny's 16-token window
 SP_ARCH, DECODE = 14, 4
-# the architectures the port's models run, in the JAX package's order
+# every architecture, in the JAX package's order
 ARCHS = ["deepseek-67b", "qwen3-8b", "mistral-large-123b", "gemma2-2b",
-         "granite-moe-3b-a800m", "dbrx-132b", "xlstm-350m", "zamba2-1.2b",
-         "musicgen-large"]
+         "granite-moe-3b-a800m", "dbrx-132b", "qwen2-vl-72b", "xlstm-350m",
+         "zamba2-1.2b", "musicgen-large"]
 ARCH_OF_TINY = {get_tiny(a).name: a for a in ARCHS}
 
 

@@ -1,6 +1,6 @@
 """repro_torch.api and the restore side of migration: the sync parts of
 tests/test_api_session.py and tests/test_migration.py's resume digest
-checks, on the port; the unported parts (restore onto a mesh) raise; and
+checks, on the port; restore onto a mesh over several devices raises; and
 the wire contract,
 which must be the JAX package's frame for frame (the same dicts encode
 and decode in both packages). Exact comparisons throughout: restores are
@@ -111,23 +111,43 @@ def test_sync_dump_receipt_and_restore_result(tmp_path):
 
 @pytest.mark.parametrize("what", ["lazy", "mesh", "load", "load_latest"])
 def test_unported_parts_raise(tmp_path, what):
-    """What stays unported: restore onto a mesh, eagerly or lazily, by the
-    typed request or by ``load``/``load_latest(shardings=...)``. (Async
-    dumps, the orchestrator's rounds, migrate and signal handlers are
-    ported and tested in tests/test_torch_migration.py.)"""
+    """What stays unported: placement onto a mesh over several devices, by
+    the typed request (``mesh=``) or by ``load``/``load_latest(
+    shardings=...)``; a lazy restore takes no shardings (they apply after
+    materialize(), as in the JAX package). One-device meshes restore
+    (tests/test_torch_distributed.py). (Async dumps, the orchestrator's
+    rounds, migrate and signal handlers are ported and tested in
+    tests/test_torch_migration.py.)"""
+    from repro_torch.distributed.sharding import (Mesh, PartitionSpec,
+                                                  named)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.params import tree_map
     root = str(tmp_path / "ck")
     sess = cpu_session(root)
-    sess.dump(DumpRequest(state=small_tree(), step=1))
+    tree = small_tree()
+    sess.dump(DumpRequest(state=tree, step=1))
+    devs = np.empty(2, dtype=object)
+    devs[0], devs[1] = torch.device("cuda", 0), torch.device("cuda", 1)
+    two = Mesh(devs.reshape(1, 2), ("data", "model"))
+
+    def specs(mesh):
+        return named(mesh, tree_map(lambda _, v: PartitionSpec(), tree))
     calls = {
-        "lazy": lambda: sess.restore(RestoreRequest(lazy=True,
-                                                    shardings={})),
-        "mesh": lambda: sess.restore(RestoreRequest(mesh=object())),
+        "lazy": lambda: sess.restore(RestoreRequest(
+            lazy=True, shardings=specs(make_test_mesh((1, 1),
+                                                      device="cpu")))),
+        "mesh": lambda: sess.restore(RestoreRequest(mesh=two)),
         "load": lambda: sess.load(sess.registry.images()[-1]["image_id"],
-                                  shardings={}),
-        "load_latest": lambda: sess.load_latest(shardings={}),
+                                  shardings=specs(two)),
+        "load_latest": lambda: sess.load_latest(shardings=specs(two)),
     }
-    with pytest.raises(NotImplementedError, match="not ported"):
-        calls[what]()
+    if what == "lazy":
+        with pytest.raises(ValueError, match="materialize"):
+            calls[what]()
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="multi-device placement"):
+            calls[what]()
 
 
 def test_session_needs_a_card_unless_cpu_is_asked():

@@ -19,6 +19,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 
@@ -294,6 +295,9 @@ def test_coordinator_restart_readopts_and_cas_holds(tmp_path):
             # live workers redial into the NEW coordinator on their own
             assert server2.wait_connected(["j0", "j1"], timeout=15.0)
             for agent in agents.values():
+                # wait_connected returns once the coordinator has sent
+                # hello_ack; the agent stores the epoch after reading it
+                agent.wait_epoch(server2.epoch, timeout=10.0)
                 assert agent._epoch == server2.epoch   # windows dropped
             # single-winner CAS across the restart: the journaled claim
             # still blocks a second winner
@@ -427,6 +431,23 @@ def _serve_proc(url, journal, root, out, *, die_after=0, timeout=120.0):
     return subprocess.Popen(cmd, env=env)
 
 
+def _journaled(path, jobs, timeout: float) -> bool:
+    """True once the coordinator's journal lists every job in ``jobs`` (it
+    journals each attach), False after ``timeout``. The example's --serve
+    listens before it attaches its jobs, and a worker whose HELLO beats
+    its job's attach is refused for good."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(path) as f:
+                if {j["job_id"] for j in json.load(f)["jobs"]} >= set(jobs):
+                    return True
+        except (OSError, ValueError, KeyError):
+            pass
+        threading.Event().wait(0.02)
+    return False
+
+
 def _wave_digests(tmp_path, name, *, die_after=0):
     """Run the port example's --serve coordinator (a real subprocess) over
     3 in-test workers; with ``die_after`` it SIGKILLs itself mid-wave and
@@ -440,6 +461,8 @@ def _wave_digests(tmp_path, name, *, die_after=0):
     try:
         procs.append(_serve_proc(url, journal, root, out,
                                  die_after=die_after))
+        assert _journaled(f"{root}/journal/fleet/registry.json",
+                          ("j0", "j1", "j2"), timeout=120.0)
         for i, jid in enumerate(("j0", "j1", "j2")):
             _job, _cfg, client = make_client(root, jid, seed=41 + i)
             agents.append(WorkerAgent(

@@ -20,12 +20,13 @@ journal.
       inline, as in tests/test_torch_fleet.py, so the failure strikes the
       same frame in every run).
 
-Every wait has a timeout; nothing sleeps.
+Every wait has a timeout; nothing sleeps a fixed time.
 """
 import dataclasses
 import json
 import os
 import threading
+import time
 import types
 
 import pytest
@@ -77,6 +78,16 @@ def _client(pkg, root, job_id, seed, steps=3):
         job_id, _config(pkg, root, job_id), host=f"w-{job_id}",
         state_provider=lambda: (job.state(), job.step), on_drain=drain,
         on_restore=lambda res: job.adopt(res.state, res.step), **kw)
+
+
+def _until(pred, timeout: float) -> bool:
+    """Poll ``pred`` until it holds or ``timeout`` seconds pass."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() >= deadline:
+            return False
+        threading.Event().wait(0.005)
+    return True
 
 
 def _dial(pkg, client, url):
@@ -215,6 +226,10 @@ def test_journal_readopted_across_packages(tmp_path, first, second):
             assert server2.registry.get("j1").phase == "restoring"
             assert server2.wait_connected(["j0", "j1"], timeout=30.0)
             for agent in agents:
+                # wait_connected returns once the coordinator has SENT
+                # hello_ack; the agent (of either package) stores the
+                # epoch after reading it
+                _until(lambda: agent._epoch == server2.epoch, 10.0)
                 assert agent._epoch == server2.epoch   # windows dropped
             assert server2.coordinator.restore_job("j1") is None
             ack = server2.coordinator.restore_job("j0")
