@@ -223,7 +223,28 @@ Phases, one line each (plus details):
                labels through AdamW; the gradients through compress_tree ->
                decompress_tree (a leaf at a time: within scale/2, the
                error state g - deq, wire bytes <= 0.26 of fp32);
- 15. capabilities: `criu check` of the port on the card
+ 15. dry-run path: repro_torch.launch.dryrun, the planning tool. (a)
+               The whole dry run (--all --both-meshes, no measurement) on
+               the meta device into a temporary directory: 64 records, each
+               n_params the element count of its arch's params tree; one
+               line per arch with its largest per-device bytes and the cell
+               that gives them. (b) measure_totals of qwen3-8b x train_4k,
+               prefill_32k and decode_32k on the (16, 16) mesh record. (c)
+               The card cross-check at full width: the dry run's record of
+               qwen3-8b at 2 of 36 layers, batch 2 x 512 (path 4's
+               trainer) on a (1, 1) mesh: its params + optimizer-state bytes
+               equal the real train state's on the card exactly, and its
+               counted step FLOPs FlopCounterMode's count of one real step
+               on the card exactly (no kernel of the port launched in it);
+               then steady steps under CUDA events, the achieved TFLOP/s and
+               share of the dense bf16 peak on a `dryrun:` line with the
+               card's name and power limit; the serve path's cache bytes
+               (4 x 2081, 36 layers) against kvcache.init_cache on the card.
+               (d) examples/quickstart_torch.py, preemption_drill_torch.py
+               and elastic_resize_torch.py as subprocesses on the card, side
+               by side while (a) and (b) run: exit 0 and their printed
+               invariants;
+ 16. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): every
                capability must be supported.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
@@ -3975,6 +3996,268 @@ def vision_path(torch, dev, args):
     return out
 
 
+# -------------------------------------------------------------- dry-run path
+DRYRUN_ARCH = "qwen3-8b"
+DRYRUN_TRAIN = (512, 2)           # (c): path 4's batch, seq_len x batch
+DRYRUN_STEPS = 5                  # (c): steady steps timed after a warm one
+DRYRUN_MEASURED = ("train_4k", "prefill_32k", "decode_32k")
+# (d): each example and the lines it must print
+DRYRUN_EXAMPLES = {
+    "quickstart_torch.py": (
+        "continuation bitwise identical: True",
+        "migrated serving session identical: True", "quickstart OK"),
+    "preemption_drill_torch.py": (
+        "(migrated: SIGTERM)", ">>> job exited 85", "preemption drill OK"),
+    "elastic_resize_torch.py": (
+        "restore onto (2 data, 4 model): bit-identical, digest verified",
+        "restore onto (8 data, 1 model): bit-identical",
+        "continued on mesh (2 data, 4 model): replay-deterministic",
+        "cross-mesh continuation equals uninterrupted run bitwise",
+        "4-host -> 2-host migration, deterministic DP: bit-identical",
+        "elastic resize drill OK"),
+}
+DRYRUN_EXAMPLE_TIMEOUT_S = 300
+
+
+def dryrun_whole(tmp) -> dict:
+    """(a): --all --both-meshes without measurement -> per-arch summary."""
+    import io
+
+    from repro_torch import configs
+    from repro_torch.configs.base import param_count
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import LM
+    from repro_torch.models.params import tree_leaves
+
+    out_dir = os.path.join(tmp, "records")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dryrun.main(["--all", "--both-meshes", "--no-measure", "--out",
+                     out_dir])
+    wall = time.time() - t0
+    recs = []
+    for fn in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, fn)) as f:
+            recs.append(json.load(f))
+    want = 2 * len(configs.cells())
+    log(f"dryrun: (a) --all --both-meshes --no-measure on meta: "
+        f"{len(recs)} records in {wall:.2f} s")
+    check(len(recs) == want == 64, f"{len(recs)} records, want {want}")
+    per_arch = {}
+    for arch in configs.ARCH_NAMES:
+        cfg = configs.get_config(arch)
+        n = sum(t.numel() for t in tree_leaves(LM(cfg).abstract()))
+        mine = [r for r in recs if r["arch"] == arch]
+        for r in mine:
+            check(r["analytic"]["n_params"] == n,
+                  f"{arch} x {r['shape']}: n_params "
+                  f"{r['analytic']['n_params']} != {n}, its params tree's")
+        top = max(mine, key=lambda r: r["bytes_per_device"]["total"])
+        where = "x".join(str(v) for v in top["mesh"]["axes"].values())
+        per_arch[arch] = {"n_params": n, "param_count": param_count(cfg),
+                          "max_bytes": top["bytes_per_device"]["total"],
+                          "at": f"{top['shape']} on {where}"}
+        parts = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                          top["bytes_per_device"].items() if k != "total")
+        log(f"dryrun: {arch}: n_params {n:,} (analytic param_count "
+            f"{per_arch[arch]['param_count']:,}); largest per-device bytes "
+            f"{per_arch[arch]['max_bytes'] / 1e9:.3f} GB at "
+            f"{per_arch[arch]['at']} ({parts} GB)")
+    return {"records": len(recs), "wall_s": wall, "per_arch": per_arch}
+
+
+def dryrun_measured() -> dict:
+    """(b): measure_totals of qwen3-8b's three shapes on the (16, 16) mesh
+    record."""
+    from repro_torch.launch import dryrun
+    mesh = dryrun.production_mesh_record(multi_pod=False)
+    out = {}
+    for shape in DRYRUN_MEASURED:
+        t0 = time.time()
+        tot = dryrun.measure_totals(DRYRUN_ARCH, shape, mesh)
+        out[shape] = dict(tot, wall_s=time.time() - t0)
+        check("flops" in tot and tot["flops"] > 0,
+              f"measure_totals {DRYRUN_ARCH} x {shape}: {tot}")
+        log(f"dryrun: (b) {DRYRUN_ARCH} x {shape} on 16x16: "
+            f"{tot['flops']:.4e} FLOPs per device, {tot['step_flops']:.4e} a "
+            f"step, traced in {tot['trace_s']:.2f} s ({tot['method']})")
+    return out
+
+
+def dryrun_card(torch, dev, args) -> dict:
+    """(c): the dry run's record of path 4's trainer and of the serve
+    path's cache against the real ones on the card."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import LM
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    one = make_test_mesh((1, 1), device="meta")
+    S, B = DRYRUN_TRAIN
+    t0 = time.time()
+    rec = dryrun.run_cell(DRYRUN_ARCH, ShapeConfig("chip_train", "train", S,
+                                                   B),
+                          mesh=one, num_layers=LAYERS, verbose=False)
+    tot = rec["totals_per_device"]
+    plan_bytes = rec["bytes_per_device"]["params"] + \
+        rec["bytes_per_device"]["opt_state"]
+    out = {"record_s": time.time() - t0, "plan_state_bytes": plan_bytes,
+           "plan_step_flops": tot["step_flops"]}
+    cfg = get_config(DRYRUN_ARCH).replace(num_layers=LAYERS)
+    lm = LM(cfg)
+    state = init_train_state(lm, torch.Generator().manual_seed(args.seed),
+                             device=dev)
+    real = sum(t.numel() * t.element_size() for t in _leaves(state))
+    out["state_bytes"] = real
+    log(f"dryrun: (c) {DRYRUN_ARCH} at {LAYERS} of 36 layers, {B} x {S}, "
+        f"(1, 1) mesh: the record's params + optimizer state {plan_bytes:,} "
+        f"B, the train state on the card {real:,} B")
+    check(real == plan_bytes, f"train state {real} B on the card, the dry "
+          f"run planned {plan_bytes} B")
+    rng = np.random.default_rng(args.seed)
+
+    def batch():
+        t = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
+        return {"tokens": torch.from_numpy(t).to(dev)}
+
+    step = make_train_step(lm, OptConfig())
+    before = (dict(k6.LAUNCHES), dict(ckpt_codec.LAUNCHES))
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, batch())
+    counted = int(fc.get_total_flops())
+    check(before == (dict(k6.LAUNCHES), dict(ckpt_codec.LAUNCHES)),
+          "a kernel of the port launched inside the counted train step")
+    check(np.isfinite(float(m["loss"])), "non-finite loss")
+    out["step_flops"] = counted
+    log(f"dryrun: (c) one real step on the card counts {counted:,} FLOPs "
+        f"(FlopCounterMode), the dry run {tot['step_flops']:,}")
+    check(counted == tot["step_flops"], f"the card's step counts {counted} "
+          f"FLOPs, the dry run {tot['step_flops']}")
+    state, m = step(state, batch())                    # warm, uncounted
+    times = []
+    for _ in range(DRYRUN_STEPS):
+        b = batch()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, b)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / 1e3)
+    check(np.isfinite(float(m["loss"])), "non-finite loss")
+    med = statistics.median(times)
+    out.update(step_s=times, step_s_median=med,
+               tflops=counted / med / 1e12,
+               peak_share=counted / med / BF16_OPS_PER_S)
+    log(f"dryrun: {smi_line()}: qwen3-8b {LAYERS}-layer train step "
+        f"{B} x {S} median {med:.4f} s over {DRYRUN_STEPS} steady steps "
+        f"(CUDA events; {', '.join(f'{t:.4f}' for t in times)}): "
+        f"{out['tflops']:.1f} TFLOP/s counted, "
+        f"{100 * out['peak_share']:.1f}% of the dense bf16 peak "
+        f"({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    full = get_config(DRYRUN_ARCH)
+    S_max = SERVE_PROMPT + SERVE_GEN + 1
+    drec = dryrun.run_cell(DRYRUN_ARCH, ShapeConfig("chip_serve", "decode",
+                                                    S_max, SERVE_B),
+                           mesh=one, measure=False, verbose=False)
+    cache = kvcache.init_cache(full, SERVE_B, S_max, device=dev)
+    real = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    out.update(plan_cache_bytes=drec["bytes_per_device"]["cache"],
+               cache_bytes=real)
+    log(f"dryrun: (c) the serve path's cache ({full.num_layers} layers, "
+        f"{SERVE_B} x {S_max}): the record {out['plan_cache_bytes']:,} B, "
+        f"kvcache.init_cache on the card {real:,} B")
+    check(real == out["plan_cache_bytes"], "cache bytes differ")
+    del cache
+    return out
+
+
+def start_examples(tmp, dev) -> dict:
+    """(d): every example on ``dev``, each a subprocess, all at once."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONUNBUFFERED="1")
+    procs = {}
+    for name in DRYRUN_EXAMPLES:
+        logf = open(os.path.join(tmp, name + ".log"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", name),
+             "--device", dev.type], env=env, stdout=logf,
+            stderr=subprocess.STDOUT, text=True), logf, time.time())
+    return procs
+
+
+def finish_examples(procs, kill=False) -> dict:
+    """Wait for (or kill) every example, then check each one's exit code
+    and printed invariants."""
+    out, texts = {}, {}
+    while len(out) < len(procs):       # each one's own end, polled
+        for name, (proc, logf, t0) in procs.items():
+            if name in out:
+                continue
+            over = time.time() - t0 > DRYRUN_EXAMPLE_TIMEOUT_S
+            if kill or over:
+                proc.kill()
+            rc = proc.wait() if kill or over else proc.poll()
+            if rc is None:
+                continue
+            logf.seek(0)
+            out[name] = {"rc": "timeout" if over else rc,
+                         "wall_s": time.time() - t0}
+            texts[name] = logf.read()
+            logf.close()
+        time.sleep(0.05)
+    if kill:
+        return out
+    for name, r in out.items():
+        log(f"dryrun: (d) {name} --device cuda: exit {r['rc']} after "
+            f"{r['wall_s']:.1f} s (started with (a))")
+        missing = [ln for ln in DRYRUN_EXAMPLES[name]
+                   if ln not in texts[name]]
+        check(r["rc"] == 0 and not missing,
+              f"{name} on the card: exit {r['rc']}, missing {missing}; its "
+              f"output ends:\n{texts[name][-3000:]}")
+    return out
+
+
+def dryrun_path(torch, dev, args):
+    """Path 15: (c) the card cross-check first, alone on the card; then the
+    examples (d) start on the card while (a) and (b) run on the meta
+    device."""
+    import tempfile
+    out = {}
+    t0 = time.time()
+    out["card"] = dryrun_card(torch, dev, args)
+    out["card_s"] = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-dryrun-") as tmp:
+        t0 = time.time()
+        procs = start_examples(tmp, dev)
+        try:
+            out["whole"] = dryrun_whole(tmp)
+            out["measured"] = dryrun_measured()
+        except BaseException:
+            finish_examples(procs, kill=True)
+            raise
+        out["meta_s"] = time.time() - t0
+        out["examples"] = finish_examples(procs)
+        out["examples_s"] = time.time() - t0
+    return out
+
+
 def capability_phase(torch, dev):
     """`criu check` on the card: every capability, one line each, and
     every one must be supported (every module is ported)."""
@@ -4265,6 +4548,18 @@ def main(argv=None) -> int:
         f"{rss_vis.peak_gb - rss_vis.start_gb:.1f} GB above the "
         f"{rss_vis.start_gb:.1f} GB at its start (sampled every 20 ms)")
     rows["flash_attention"]["launches"] += vis["launches"]["flash_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    record["dryrun"] = dryrun_path(torch, dev, args)
+    dr = record["dryrun"]
+    dr.update(wall_s=time.time() - t0,
+              peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"dryrun: path {dr['wall_s']:.1f} s ((c) {dr['card_s']:.1f} s, "
+        f"(a) + (b) {dr['meta_s']:.1f} s beside (d), (d) "
+        f"{dr['examples_s']:.1f} s); peak device memory "
+        f"{dr['peak_device_gb']:.1f} GB in this process")
     gc.collect()
     torch.cuda.empty_cache()
     record["capabilities"] = capability_phase(torch, dev)

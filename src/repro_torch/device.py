@@ -26,13 +26,16 @@ _TORCH_TO_NP = {
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """-> torch.device; raises if a CUDA device is requested but absent."""
+    """-> torch.device; raises if a CUDA device is requested but absent.
+    ``"meta"`` (shapes and dtypes, no memory) is admitted when the caller
+    names it, as the dry run does (launch/dryrun.py); nothing falls back
+    to it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain torch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 

@@ -82,6 +82,25 @@ class NamedSharding:
         self.spec = spec if isinstance(spec, PartitionSpec) \
             else PartitionSpec(*spec)
 
+    def shard_shape(self, global_shape) -> tuple:
+        """The shape of one device's shard of an array of
+        ``global_shape``, as ``jax.sharding.NamedSharding.shard_shape``
+        gives it; raises ValueError where a dim does not divide evenly."""
+        sizes = dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+        out = []
+        for i, dim in enumerate(global_shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            names = () if entry is None else \
+                entry if isinstance(entry, tuple) else (entry,)
+            n = 1
+            for a in names:
+                n *= int(sizes[a])
+            if dim % n:
+                raise ValueError(f"{self.spec} splits axis {i} of "
+                                 f"{tuple(global_shape)} {n} ways")
+            out.append(dim // n)
+        return tuple(out)
+
 
 def _axis_size(mesh: Mesh, name: str) -> int:
     return dict(zip(mesh.axis_names, mesh.devices.shape)).get(name, 1)

@@ -1,0 +1,374 @@
+"""Dry run: build every (arch x shape x mesh) cell on the ``meta`` device
+and count what one step takes, with no device memory touched and no card
+needed — the JAX package's launch/dryrun.py for the port.
+
+Per cell the record holds the analytic parameter and FLOP counts, the
+per-device bytes of params, optimizer state, cache and inputs (each
+leaf's shard shape under its PartitionSpec on a production-shaped mesh
+record over placeholder devices), and the FLOPs of one step as
+``torch.utils.flop_counter.FlopCounterMode`` counts them while the step
+runs on ``meta``. ``measure_totals`` repeats the JAX package's
+reduced-depth L1/L2 linear extrapolation and its guard.
+
+What has no counterpart here: torch has no SPMD partitioner, so there is
+no per-device program — no HLO, no collective statistics, no compiler
+memory analysis. A step's FLOPs are the whole step's, divided evenly over
+the mesh for the per-device figure. ``--act-seq-shard`` and
+``--cast-once`` only shape XLA's SPMD program, and exit with an error.
+FlopCounterMode counts matmul-class ops (mm, bmm, einsum's products,
+attention); XLA also counts elementwise work.
+
+Usage (with PYTHONPATH=src; records go to experiments/dryrun_torch):
+  python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
+  python -m repro_torch.launch.dryrun --all [--both-meshes] [--out DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from dataclasses import dataclass, field
+from typing import Callable
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import configs
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                     flops_per_token)
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import specs as lspecs
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import flags as mflags
+from repro_torch.models import kvcache
+from repro_torch.models.model import LM
+from repro_torch.models.params import tree_leaves
+from repro_torch.optim import OptConfig
+from repro_torch.training.train_loop import (abstract_train_state,
+                                             make_train_step,
+                                             train_state_pspecs)
+
+
+def production_mesh_record(multi_pod: bool = False) -> shd.Mesh:
+    """The production mesh's shape and axes — (data=16, model=16) or
+    (pod=2, data=16, model=16) — over placeholder ``meta`` devices, the
+    counterpart of JAX's 512 forced host devices.
+    (launch/mesh.make_production_mesh wants the real CUDA devices.)"""
+    if multi_pod:
+        return make_test_mesh((2, 16, 16), ("pod", "data", "model"),
+                              device="meta")
+    return make_test_mesh((16, 16), ("data", "model"), device="meta")
+
+
+def shard_bytes(mesh: shd.Mesh, tree, pspecs) -> int:
+    """Bytes one device holds of ``tree`` (tensors) under ``pspecs``."""
+    total = 0
+    for t, spec in zip(tree_leaves(tree), tree_leaves(pspecs)):
+        n = 1
+        for s in shd.NamedSharding(mesh, spec).shard_shape(tuple(t.shape)):
+            n *= s
+        total += n * t.element_size()
+    return total
+
+
+# ------------------------------------------------------------------ building
+@dataclass
+class Cell:
+    """One cell built on ``meta``: its trees with their PartitionSpecs,
+    grouped as the record reports bytes, and the step to trace."""
+    cfg: ModelConfig
+    lm: LM
+    shape: ShapeConfig
+    mesh: shd.Mesh
+    trees: dict = field(default_factory=dict)     # group -> (tree, pspecs)
+    step: Callable | None = None                  # () -> outputs
+
+    def bytes_per_device(self) -> dict:
+        out = {k: shard_bytes(self.mesh, t, ps)
+               for k, (t, ps) in self.trees.items()}
+        out["total"] = sum(out.values())
+        return out
+
+
+def lower_cell(arch: str, shape, mesh: shd.Mesh, *, fsdp=True, ep=False,
+               remat=None, moe_cf=None, microbatches=1, num_layers=None,
+               serve_bf16=False) -> Cell:
+    """Build the cell on ``meta``: configuration overrides, sharding rules
+    on ``mesh``, input and state structs with their PartitionSpecs, and
+    the step over them. ``shape`` is a SHAPES name or a ShapeConfig.
+    ``remat`` is recorded in the config; the port's model does not
+    rematerialize, so it changes no count."""
+    cfg = configs.get_config(arch)
+    if remat:
+        cfg = cfg.replace(remat_policy=remat)
+    if moe_cf:
+        cfg = cfg.replace(capacity_factor=moe_cf)
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    if not configs.shape_applies(cfg, shape):
+        raise ValueError(f"{arch} x {shape.name} skipped per assignment "
+                         f"rule (see DESIGN.md §4.2)")
+    lm = LM(cfg)
+    if serve_bf16 and shape.kind != "train":
+        # bf16 serving weights: pure-TP when a model shard fits HBM
+        # comfortably, else keep the 2D (FSDP x TP) layout
+        model_ax = dict(zip(mesh.axis_names,
+                            mesh.devices.shape)).get("model", 1)
+        fsdp = lm.n_params() * 2 / model_ax / 1e9 > 10.0
+    rules = shd.make_rules(cfg, mesh, fsdp=fsdp, expert_parallel=ep)
+    crules = shd.cache_rules(cfg, mesh, shape)
+    cell = Cell(cfg, lm, shape, mesh)
+    if shape.kind == "train":
+        state = abstract_train_state(lm)
+        sps = train_state_pspecs(lm, rules)
+        batch = lspecs.batch_specs(cfg, shape)
+        cell.trees = {
+            "params": (state["params"], sps["params"]),
+            "opt_state": ({"opt": state["opt"], "step": state["step"]},
+                          {"opt": sps["opt"], "step": sps["step"]}),
+            "inputs": (batch, lspecs.batch_pspecs(cfg, shape, mesh))}
+        step = make_train_step(lm, OptConfig(), microbatches=microbatches)
+        cell.step = lambda: step(state, batch)
+        return cell
+    dtype = torch.bfloat16 if serve_bf16 else torch.float32
+    params = lm.abstract(dtype)
+    cache_ps = kvcache.cache_pspecs(cfg, crules)
+    cell.trees["params"] = (params, lm.pspecs(rules))
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "prefill":
+        batch = lspecs.batch_specs(cfg, shape)
+        cell.trees["cache"] = (kvcache.cache_struct(cfg, B, S), cache_ps)
+        cell.trees["inputs"] = (batch, lspecs.batch_pspecs(cfg, shape, mesh))
+        cell.step = lambda: lm.prefill(params, **batch)
+    else:
+        cache, tokens = lspecs.decode_specs(cfg, shape)
+        cell.trees["cache"] = (cache, cache_ps)
+        cell.trees["inputs"] = ({"tokens": tokens},
+                                {"tokens": shd.PartitionSpec(
+                                    shd.batch_axes(mesh, B), None)})
+        cell.step = lambda: lm.decode_step(params, cache, tokens)
+    return cell
+
+
+def count_flops(fn) -> int:
+    """FLOPs of ``fn()`` as FlopCounterMode counts them."""
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return int(fc.get_total_flops())
+
+
+# Baseline microbatch counts for train cells, the JAX package's (chosen
+# there for its per-device temp memory). measure_totals traces a
+# one-microbatch step, as the JAX package's does.
+DEFAULT_TRAIN_MICROBATCHES = {
+    "deepseek-67b": 16, "mistral-large-123b": 16, "qwen2-vl-72b": 16,
+    "dbrx-132b": 16,
+    "qwen3-8b": 8, "gemma2-2b": 8, "granite-moe-3b-a800m": 8,
+    "musicgen-large": 8, "xlstm-350m": 4, "zamba2-1.2b": 4,
+}
+
+
+def default_microbatches(arch: str, shape_name: str) -> int:
+    if SHAPES[shape_name].kind != "train":
+        return 1
+    return DEFAULT_TRAIN_MICROBATCHES.get(arch, 8)
+
+
+# ------------------------------------------------- loop-aware FLOP totals
+def _slstm_correction(cfg, shape, n_devices: int) -> dict:
+    """The sLSTM token loop traces one step under ``flags.slstm_one_step``;
+    the other S - 1 steps' recurrent work is added analytically (global,
+    divided by device count), as the JAX package does."""
+    n_slstm = (cfg.num_layers // len(cfg.pattern)) * cfg.pattern.count("slstm")
+    if n_slstm == 0 or shape.kind == "decode":
+        return {"flops": 0.0, "flops_global": 0}
+    di = cfg.d_inner
+    H = cfg.num_heads
+    dh = di // H
+    B, S = shape.global_batch, shape.seq_len
+    step_flops = B * 4 * H * dh * dh * 2          # 4 gates' recurrent matmuls
+    grad_mult = 3 if shape.kind == "train" else 1
+    flops = step_flops * (S - 1) * n_slstm * grad_mult
+    return {"flops": flops / n_devices, "flops_global": flops}
+
+
+def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
+    """Per-device FLOP totals by the JAX package's method: trace two
+    reduced-depth variants (L1 = pattern+tail, L2 = 2*pattern+tail) and
+    extrapolate linearly in the group count:
+    total = f(L1) + (f(L2) - f(L1)) * (G - 1). The port's Python loops
+    count every iteration, so for a model without sLSTM this equals the
+    full-depth count exactly; the sLSTM loop counts one step and
+    ``_slstm_correction`` adds the rest. The guard skips the cells the
+    JAX package skips."""
+    cfg = configs.get_config(arch)
+    if opt_kw.get("num_layers"):
+        cfg = cfg.replace(num_layers=opt_kw["num_layers"])
+    P = len(cfg.pattern)
+    tail = cfg.tail_layers
+    G = cfg.num_groups
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    n_dev = mesh.devices.size
+    # the JAX package's unroll-blowup guard, kept so both skip the same
+    # cells (observed there: xlstm/zamba2 prefill_32k)
+    ssm_layers = sum(1 for k in cfg.pattern if k != "attn")
+    inner_bodies = (ssm_layers * (2 * P + tail) / max(P, 1)
+                    * shape.seq_len // 128)
+    if ssm_layers and shape.kind != "decode" and inner_bodies > 1024:
+        return {"skipped": f"unroll blowup ({int(inner_bodies)} inner bodies)"}
+    opt_kw = {k: v for k, v in opt_kw.items() if k != "num_layers"}
+    meas = {}
+    for name, L in (("L1", P + tail), ("L2", 2 * P + tail)):
+        cell = lower_cell(arch, shape, mesh, microbatches=1, num_layers=L,
+                          **opt_kw)
+        t0 = time.time()
+        with mflags.slstm_one_step():
+            flops = count_flops(cell.step)
+        meas[name] = {"flops": flops, "trace_s": round(time.time() - t0, 3)}
+    f1, f2 = meas["L1"]["flops"], meas["L2"]["flops"]
+    corr = _slstm_correction(cfg, shape, n_dev)
+    step = f1 + (f2 - f1) * (G - 1) + corr["flops_global"]
+    return {
+        "flops": step / n_dev,
+        "step_flops": step,
+        "trace_s": round(sum(m["trace_s"] for m in meas.values()), 3),
+        "slstm_correction": corr,
+        "per_variant": meas,
+        "method": ("FlopCounterMode on meta of reduced-depth steps, linear "
+                   f"extrapolation L1={P + tail} L2={2 * P + tail} G={G}, "
+                   f"divided evenly over {n_dev} devices; matmul-class ops "
+                   "only"
+                   + ("; sLSTM loop traced one step, the other S-1 added "
+                      "analytically" if corr["flops_global"] else "")),
+    }
+
+
+def run_cell(arch: str, shape, *, multi_pod=False, mesh=None, fsdp=True,
+             ep=False, remat=None, moe_cf=None, microbatches=1,
+             num_layers=None, act_seq_shard=False, cast_once=False,
+             serve_bf16=False, out_dir=None, tag="baseline", measure=True,
+             verbose=True) -> dict:
+    """Build one cell and write its record (JSON under ``out_dir``).
+    ``mesh`` defaults to the production mesh record; ``shape`` is a
+    SHAPES name or a ShapeConfig."""
+    if act_seq_shard or cast_once:
+        raise ValueError("--act-seq-shard and --cast-once shape XLA's SPMD "
+                         "program; torch has no SPMD partitioner, so the "
+                         "port has no counterpart")
+    if mesh is None:
+        mesh = production_mesh_record(multi_pod)
+        where = "pod2" if multi_pod else "pod1"
+    else:
+        where = "mesh" + "x".join(map(str, mesh.devices.shape))
+    n_dev = int(mesh.devices.size)
+    opt_kw = dict(fsdp=fsdp, ep=ep, remat=remat, moe_cf=moe_cf,
+                  serve_bf16=serve_bf16, num_layers=num_layers)
+    t0 = time.time()
+    cell = lower_cell(arch, shape, mesh, microbatches=microbatches, **opt_kw)
+    t1 = time.time()
+    cfg, shape = cell.cfg, cell.shape
+    rec = {
+        "arch": arch,
+        "shape": shape.name,
+        "kind": shape.kind,
+        "mesh": {"axes": dict(zip(mesh.axis_names,
+                                  map(int, mesh.devices.shape))),
+                 "n_devices": n_dev},
+        "options": {"fsdp": fsdp, "expert_parallel": ep,
+                    "remat": remat or cfg.remat_policy, "moe_cf": moe_cf,
+                    "microbatches": microbatches, "num_layers":
+                    cfg.num_layers, "serve_bf16": serve_bf16, "tag": tag},
+        "build_s": round(t1 - t0, 3),
+        "bytes_per_device": cell.bytes_per_device(),
+        "analytic": {
+            "n_params": cell.lm.n_params(),
+            "model_flops_per_token": flops_per_token(cfg),
+            "tokens": shape.seq_len * shape.global_batch
+                      if shape.kind != "decode" else shape.global_batch,
+        },
+    }
+    if measure:
+        try:
+            rec["totals_per_device"] = measure_totals(
+                arch, shape, mesh, **opt_kw)
+        except Exception as e:
+            rec["totals_per_device"] = {"error": repr(e)}
+    if verbose:
+        tot = rec.get("totals_per_device", {})
+        print(f"[dryrun] {arch} x {shape.name} x "
+              f"{'x'.join(map(str, mesh.devices.shape))}: "
+              f"build {rec['build_s']}s "
+              f"bytes/dev={rec['bytes_per_device']['total']:.4e} "
+              f"total_flops/dev={tot.get('flops', float('nan')):.4e}")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        fn = f"{arch}__{shape.name}__{where}__{tag}.json"
+        with open(os.path.join(out_dir, fn), "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=configs.ARCH_NAMES)
+    ap.add_argument("--shape", choices=sorted(SHAPES))
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--ep", action="store_true", help="expert parallelism")
+    ap.add_argument("--remat", choices=("none", "dots", "full"))
+    ap.add_argument("--moe-cf", type=float, default=None)
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="0 = per-arch default for train cells")
+    ap.add_argument("--no-measure", action="store_true",
+                    help="skip the reduced-depth FLOP-measurement traces")
+    ap.add_argument("--act-seq-shard", action="store_true",
+                    help="no counterpart in the port: exits with an error")
+    ap.add_argument("--cast-once", action="store_true",
+                    help="no counterpart in the port: exits with an error")
+    ap.add_argument("--serve-bf16", action="store_true",
+                    help="bf16 serving params; pure-TP when a shard fits")
+    ap.add_argument("--tag", default="baseline")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--list", action="store_true")
+    args = ap.parse_args(argv)
+
+    for flag in ("act_seq_shard", "cast_once"):
+        if getattr(args, flag):
+            ap.error(f"--{flag.replace('_', '-')} shapes XLA's SPMD program; "
+                     f"torch has no SPMD partitioner, so the port has no "
+                     f"counterpart")
+    if args.list:
+        for arch, shape in configs.cells():
+            print(f"{arch} {shape}")
+        return
+    if not args.all and not (args.arch and args.shape):
+        ap.error("give --arch and --shape, or --all")
+
+    cells = configs.cells() if args.all else [(args.arch, args.shape)]
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    failures = []
+    for arch, shape in cells:
+        for mp in meshes:
+            try:
+                mb = args.microbatches or default_microbatches(arch, shape)
+                run_cell(arch, shape, multi_pod=mp, fsdp=not args.no_fsdp,
+                         ep=args.ep, remat=args.remat, moe_cf=args.moe_cf,
+                         microbatches=mb, serve_bf16=args.serve_bf16,
+                         measure=not args.no_measure, out_dir=args.out,
+                         tag=args.tag)
+            except Exception:
+                traceback.print_exc()
+                failures.append((arch, shape, mp))
+    if failures:
+        print(f"FAILED cells: {failures}")
+        raise SystemExit(1)
+    print("dry-run: all requested cells built OK")
+
+
+if __name__ == "__main__":
+    main()

@@ -86,9 +86,12 @@ class LM:
         else:
             x = embed_lookup(params["embed"], tokens, cfg, compute_dtype)
         B, S = x.shape[:2]
-        # one host read of the cursor per forward: cache writes and the
-        # decode mask slice by it
-        pos = int(cache["pos"]) if cache is not None else 0
+        # one host read of the cursor per decode: its cache write and mask
+        # slice by it. Prefill fills a fresh cache from slot 0 and reads
+        # none, so it also runs on the meta device (launch/dryrun.py),
+        # whose tensors hold no value; a meta decode takes its cursor as a
+        # CPU scalar (launch/specs.decode_specs)
+        pos = int(cache["pos"]) if mode == "decode" else 0
         if positions is None:
             positions = (torch.arange(S, dtype=torch.int32, device=x.device)
                          + pos)[None].expand(B, S)

@@ -59,6 +59,15 @@ def _route(p, xt, cfg: ModelConfig):
     return probs, gate, idx
 
 
+def expert_counts(flat_e, E: int):
+    """Tokens routed to each expert: ``torch.bincount(flat_e,
+    minlength=E)``'s int64 counts, by an integer ``index_add_``, which has
+    a meta kernel (the dry run traces MoE steps on ``meta``; bincount has
+    none). Integer adds are exact in any order."""
+    return torch.zeros(E, dtype=torch.int64, device=flat_e.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
 def _dispatch_group(p, xt, cfg: ModelConfig, C: int):
     """Routing for one token group. xt [T, d] ->
     (disp [E*C, d], slot [T*K], weight [T*K], counts [E], mean_prob [E])."""
@@ -69,7 +78,7 @@ def _dispatch_group(p, xt, cfg: ModelConfig, C: int):
     # position-in-expert via stable sort (memory O(T*K), not O(T*E*C))
     flat_e = idx.reshape(T * K)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = expert_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(T * K, device=xt.device) - starts[flat_e[order]]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)

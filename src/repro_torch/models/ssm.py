@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import flags
 from repro_torch.models import params as pm
 from repro_torch.models.layers import rms_norm
 
@@ -464,15 +465,20 @@ def _slstm_gates_x(p, x):
 def slstm_apply(p, x, cfg: ModelConfig, chunk: int = 0,
                 return_state: bool = False):
     """Sequential scan over time (sLSTM is inherently recurrent): a Python
-    loop of S cell steps."""
-    B = x.shape[0]
+    loop of S cell steps. On the meta device under
+    ``flags.slstm_one_step`` the loop traces one step, repeated S times
+    (the dry run's FLOP count, models/flags.py)."""
+    B, S = x.shape[:2]
     gx = _slstm_gates_x(p, x)
     state = slstm_init_state(cfg, B, x.dtype, x.device)
+    steps = 1 if flags.SLSTM_ONE_STEP and x.device.type == "meta" else S
     hs = []
-    for t in range(x.shape[1]):
+    for t in range(steps):
         state = _slstm_cell(p, gx[:, t], state, cfg)
         hs.append(state["h"])
     h = torch.stack(hs, dim=1).to(x.dtype)                     # [B,S,di]
+    if steps != S:
+        h = h.expand(B, S, h.shape[-1])
     h = rms_norm(h, p["mh_norm"], cfg.norm_eps)
     out = h @ p["w_down"].to(x.dtype)
     if return_state:

@@ -183,3 +183,34 @@ def test_capacity_overflow_drops_the_same_tokens_as_jax():
     # a dropped token's output is the sum over its kept experts only
     y_dense = moe.moe_dense_reference(p, _t(x), cfg)
     assert float((y - y_dense).abs().max()) > 1e-3
+
+
+# ------------------------------------------------ expert counts (meta-able)
+@pytest.mark.parametrize("case", ["random", "uniform", "duplicated_experts"])
+def test_expert_counts_equal_bincount(case):
+    """``expert_counts`` (an integer index_add_, which the meta device
+    runs) gives bincount's int64 counts: over random expert ids with
+    empty experts, and over the routing of tied router probabilities
+    (every token on experts 0..K-1, and duplicated router columns)."""
+    E = 8
+    if case == "random":
+        flat_e = torch.from_numpy(np.random.default_rng(3).integers(
+            0, E - 2, size=97)).long()          # experts 6, 7 get none
+    else:
+        cfg, jp, _, x = setup(cf=1.25, E=E, K=3)
+        router = np.asarray(jp["router"]).copy()
+        if case == "uniform":
+            router[:] = 0.0
+        else:
+            router[:, 5] = router[:, 2]
+            router[:, 7] = router[:, 0]
+        p = from_jax(jax.tree.map(np.asarray, dict(jp, router=router)),
+                     "cpu")
+        _, _, idx = moe._route(p, _t(x).reshape(-1, cfg.d_model), cfg)
+        flat_e = idx.reshape(-1)
+    got = moe.expert_counts(flat_e, E)
+    want = torch.bincount(flat_e, minlength=E)
+    assert got.dtype == want.dtype == torch.int64
+    assert torch.equal(got, want)
+    meta = moe.expert_counts(flat_e.to("meta"), E)
+    assert meta.shape == want.shape and meta.dtype == torch.int64

@@ -344,7 +344,9 @@ def test_socket_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
     try:
         cl.submit_jobs(1, steps=1)
         assert cl.server.wait_connected(["j0"], timeout=10.0)
-        assert cl.agents["j0"].connected.is_set()
+        # the server counts j0 connected once it has sent hello_ack; the
+        # agent sets its event after reading it
+        assert cl.agents["j0"].connected.wait(timeout=10.0)
         sock_dir = os.path.dirname(tfleet.parse_url(cl.socket_url)[1])
     finally:
         cl.shutdown()
