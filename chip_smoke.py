@@ -240,11 +240,28 @@ Phases, one line each (plus details):
                share of the dense bf16 peak on a `dryrun:` line with the
                card's name and power limit; the serve path's cache bytes
                (4 x 2081, 36 layers) against kvcache.init_cache on the card.
-               (d) examples/quickstart_torch.py, preemption_drill_torch.py
-               and elastic_resize_torch.py as subprocesses on the card, side
-               by side while (a) and (b) run: exit 0 and their printed
-               invariants;
- 16. capabilities: `criu check` of the port on the card
+               (d) examples/quickstart_torch.py and elastic_resize_torch.py
+               as subprocesses on the card, side by side while (a) and (b)
+               run: exit 0 and their printed invariants (the preemption
+               drill repeats path 7 and runs in the CPU tests);
+ 16. crash path (on a thread from the start of path 15(d), whose
+               examples leave the card and host mostly idle): a node
+               failure during a dump, through the port's CLI
+               in fresh processes under path 7's wrapper, gemma2-2b at full
+               width with 2 of 26 layers (8.95 GB lossless), batch 2 x 512,
+               10 steps, --ckpt-every 4 to a file:// tier: (a) a reference
+               run beside (b) the victim, SIGKILLed once its step-8 dump
+               has put a file into the pool and before that dump's
+               manifest exists (the pool polled every 20 ms): rc -SIGKILL,
+               no step-8 manifest, the registry's latest image step 4
+               with its manifest digest verified; after gc no
+               unreferenced chunk (the dead writer's temporary files
+               inside gc's quiet period kept); (c) --resume in a new
+               process restores step 4 onto the card (every chunk's
+               SHA-256 verified), re-dumps step 8 and logs losses within
+               1e-5 relative of the reference's (bitwise equality
+               reported); no kernel launched in (a) or (c);
+ 17. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): every
                capability must be supported.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
@@ -1528,11 +1545,16 @@ class Child:
             log(f"  [{self.lines[-1][0]:7.2f} s] {self.lines[-1][1]}")
             yield ln
 
-    def finish(self, timeout=900):
+    def finish(self, timeout=900, record=True):
+        """Wait for the child -> its exit code. ``record``: the wrapper's
+        record must be there (a SIGKILLed child never writes one)."""
         for _ in self:
             pass
         rc = self.p.wait(timeout=timeout)
         self.wall_s = time.time() - self.t0
+        self.rc = rc
+        if not record:
+            return rc
         with open(self.err_path) as f:
             err = f.read()
         recs = [ln[len("LIFECYCLE "):] for ln in err.splitlines()
@@ -1540,7 +1562,6 @@ class Child:
         check(recs, f"no wrapper record from the child (rc {rc}); stderr "
                     f"ends: {err[-3000:]}")
         self.rec = json.loads(recs[-1])
-        self.rc = rc
         return rc
 
     def at(self, text):
@@ -4001,13 +4022,13 @@ DRYRUN_ARCH = "qwen3-8b"
 DRYRUN_TRAIN = (512, 2)           # (c): path 4's batch, seq_len x batch
 DRYRUN_STEPS = 5                  # (c): steady steps timed after a warm one
 DRYRUN_MEASURED = ("train_4k", "prefill_32k", "decode_32k")
-# (d): each example and the lines it must print
+# (d): each example and the lines it must print. The preemption drill
+# repeats path 7's lifecycle and runs on the CPU in
+# tests/test_torch_examples.py; its time went to path 16
 DRYRUN_EXAMPLES = {
     "quickstart_torch.py": (
         "continuation bitwise identical: True",
         "migrated serving session identical: True", "quickstart OK"),
-    "preemption_drill_torch.py": (
-        "(migrated: SIGTERM)", ">>> job exited 85", "preemption drill OK"),
     "elastic_resize_torch.py": (
         "restore onto (2 data, 4 model): bit-identical, digest verified",
         "restore onto (8 data, 1 model): bit-identical",
@@ -4232,10 +4253,35 @@ def finish_examples(procs, kill=False) -> dict:
     return out
 
 
-def dryrun_path(torch, dev, args):
+class Beside:
+    """``fn()`` on a thread; ``join()`` waits, then returns its result or
+    raises its error."""
+
+    def __init__(self, fn):
+        self.result, self.error = None, None
+        self.thread = threading.Thread(target=self._run, args=(fn,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, fn):
+        try:
+            self.result = fn()
+        except BaseException as e:      # re-raised by join()
+            self.error = e
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def dryrun_path(torch, dev, args, beside=None):
     """Path 15: (c) the card cross-check first, alone on the card; then the
     examples (d) start on the card while (a) and (b) run on the meta
-    device."""
+    device. ``beside`` (path 16) starts on a thread with (d), whose
+    examples leave the card and the host mostly idle; the path waits for
+    it and returns its result as ``out["beside"]``."""
     import tempfile
     out = {}
     t0 = time.time()
@@ -4243,18 +4289,313 @@ def dryrun_path(torch, dev, args):
     out["card_s"] = time.time() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip-dryrun-") as tmp:
+    side = Beside(beside) if beside else None
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-dryrun-") as tmp:
+            t0 = time.time()
+            procs = start_examples(tmp, dev)
+            try:
+                out["whole"] = dryrun_whole(tmp)
+                out["measured"] = dryrun_measured()
+            except BaseException:
+                finish_examples(procs, kill=True)
+                raise
+            out["meta_s"] = time.time() - t0
+            out["examples"] = finish_examples(procs)
+            out["examples_s"] = time.time() - t0
+    finally:
+        if side:                        # its processes end with it
+            side.thread.join()
+    if side:
+        out["beside"] = side.join()
+    return out
+
+
+# --------------------------------------------------------------- crash path
+# path 16: a node failure during a dump. gemma2-2b at full width, cut to
+# path 11's 2 of 26 layers (an 8.95 GB lossless train state), path 7's
+# batch, through the training CLI as path 7 runs it. The victim dumps
+# every CRASH_EVERY steps to a file:// tier and is SIGKILLed inside its
+# step-CRASH_KILL_AT dump: once that dump has put a chunk or temporary
+# file into the pool beyond the previous image's set, while its manifest
+# does not exist yet (the pool polled every CRASH_POLL_S)
+CRASH_STEPS, CRASH_EVERY, CRASH_KILL_AT = 10, 4, 8
+CRASH_MODEL = ["--arch", "gemma2-2b", "--full", "--layers", "2"]
+CRASH_POLL_S = 0.02
+CRASH_WAIT_S = 600               # for the step-4 image, then the kill
+
+
+def _crash_cfg(flags):
+    """The model config the launcher builds from ``flags``."""
+    from repro_torch.launch.train import build_cfg
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--full", dest="tiny", action="store_false")
+    for f in ("--layers", "--d-model", "--d-ff", "--vocab"):
+        ap.add_argument(f, type=int, default=0)
+    return build_cfg(ap.parse_args(flags))
+
+
+def _pool(root) -> set:
+    try:
+        return set(os.listdir(os.path.join(root, "chunks")))
+    except FileNotFoundError:
+        return set()
+
+
+def _pool_bytes(root, names) -> int:
+    n = 0
+    for name in names:
+        with contextlib.suppress(FileNotFoundError):
+            n += os.path.getsize(os.path.join(root, "chunks", name))
+    return n
+
+
+def _manifest_of(root, step: int) -> str:
+    return os.path.join(root, "images", f"step_{step:010d}", "manifest.json")
+
+
+def _rss_of(pid: int, page=os.sysconf("SC_PAGE_SIZE")) -> int:
+    with contextlib.suppress(OSError):
+        with open(f"/proc/{pid}/statm") as f:
+            return int(f.read().split()[1]) * page
+    return 0
+
+
+def _read_lines(child):
+    """Read a child's stdout on a thread (each line stamped on arrival)."""
+    t = threading.Thread(target=lambda: [None for _ in child], daemon=True)
+    t.start()
+    return t
+
+
+def crash_path(torch, dev, args):
+    """Path 16: a node failure during a dump, through the port's CLI
+    (python -m repro_torch.launch.train) in fresh processes under path 7's
+    wrapper. (a) a reference run without a checkpoint directory, beside
+    (b) the victim, SIGKILLed inside its step-CRASH_KILL_AT dump. Then: no
+    manifest of that step; the registry's latest image is the previous
+    one, whose manifest digest verifies; after gc every chunk left in the
+    pool is referenced by a retained manifest (temporary files inside
+    gc's quiet period are kept, by design). (c) --resume in a new process
+    restores that image onto the card (every chunk through its SHA-256
+    check), re-dumps step CRASH_KILL_AT and logs losses within 1e-5
+    relative of the reference's."""
+    import shutil
+    import signal as _signal
+    import tempfile
+
+    from repro_torch.core import Registry, flatten_with_paths
+    from repro_torch.core.integrity import manifest_digest
+    from repro_torch.core.registry import GC_TMP_DEAD_PID_GRACE_S
+    from repro_torch.core.restore import read_manifest
+    from repro_torch.models.model import LM
+    from repro_torch.training import abstract_train_state
+
+    t_path = time.time()
+    cfg = _crash_cfg(CRASH_MODEL)
+    struct = flatten_with_paths(abstract_train_state(LM(cfg)))
+    state_bytes = sum(t.numel() * t.element_size() for _, t in struct)
+    before, victim = CRASH_KILL_AT - CRASH_EVERY, CRASH_KILL_AT
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-crash-",
+                           dir=args.lifecycle_dir)
+    root = os.path.join(tmp, "ck")
+    out = {"leaves": len(struct), "state_bytes": state_bytes}
+    started = []
+    try:
+        # the step-4 image, the victim's partial dump, the restart's 8 and 10
+        need = 4 * state_bytes * 1.1 + 2e9
+        free = shutil.disk_usage(tmp).free
+        log(f"crash: {cfg.name} at full width (d_model {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {cfg.num_layers} "
+            f"layers; train state {state_bytes / 1e9:.2f} GB in "
+            f"{len(struct)} leaves, dumped losslessly every {CRASH_EVERY} "
+            f"steps; {tmp}: {free / 1e9:.1f} GB free, {need / 1e9:.1f} GB "
+            f"needed")
+        check(free >= need, f"{tmp} has {free / 1e9:.1f} GB free, the "
+                            f"crash path needs {need / 1e9:.1f} GB; pass "
+                            f"--lifecycle-dir on a larger disk")
+        base = CRASH_MODEL + LIFECYCLE_BATCH + [
+            "--steps", str(CRASH_STEPS), "--log-every", "1"]
+        ck = ["--data-dir", os.path.join(tmp, "data"), "--ckpt-dir",
+              "file://" + root, "--ckpt-every", str(CRASH_EVERY)]
+
+        log(f"crash: (a) reference run (no checkpoint dir) beside (b) the "
+            f"victim, SIGKILLed inside its step-{victim} dump")
+        ref = Child(base + ["--data-dir", os.path.join(tmp, "ref-data")],
+                    tmp, "reference", dev, started)
+        vic = Child(base + ck, tmp, "victim", dev, started)
+        readers = [_read_lines(ref), _read_lines(vic)]
+        vic_peak = 0
         t0 = time.time()
-        procs = start_examples(tmp, dev)
-        try:
-            out["whole"] = dryrun_whole(tmp)
-            out["measured"] = dryrun_measured()
-        except BaseException:
-            finish_examples(procs, kill=True)
-            raise
-        out["meta_s"] = time.time() - t0
-        out["examples"] = finish_examples(procs)
-        out["examples_s"] = time.time() - t0
+        while not os.path.exists(_manifest_of(root, before)):
+            check(vic.p.poll() is None, f"the victim exited "
+                  f"{vic.p.returncode} before its step-{before} image")
+            check(time.time() - t0 < CRASH_WAIT_S,
+                  f"no step-{before} image in {CRASH_WAIT_S} s")
+            vic_peak = max(vic_peak, _rss_of(vic.p.pid))
+            time.sleep(CRASH_POLL_S)
+        t_image = time.time() - vic.t0
+        kept_set = _pool(root)
+        while True:
+            late = os.path.exists(_manifest_of(root, victim))
+            if (_pool(root) - kept_set) and not late:
+                vic.p.send_signal(_signal.SIGKILL)
+                t_kill = time.time() - vic.t0
+                break
+            check(not late, f"the step-{victim} manifest exists before the "
+                            f"poll saw a file of its dump: the kill cannot "
+                            f"land inside the dump (poll faster)")
+            check(vic.p.poll() is None,
+                  f"the victim exited {vic.p.returncode} before the kill")
+            check(time.time() - t0 < CRASH_WAIT_S,
+                  f"no step-{victim} dump in {CRASH_WAIT_S} s")
+            vic_peak = max(vic_peak, _rss_of(vic.p.pid))
+            time.sleep(CRASH_POLL_S)
+        readers[1].join(timeout=60)
+        rc = vic.finish(record=False)
+        check(rc == -_signal.SIGKILL, f"the victim exited {rc}, not "
+                                      f"-SIGKILL ({-_signal.SIGKILL})")
+        check(not os.path.exists(_manifest_of(root, victim)),
+              f"the kill landed after the step-{victim} manifest was "
+              f"committed: the dump had ended (poll faster)")
+        partial = _pool(root) - kept_set
+        t_dump = vic.at(f'"step": {victim},')    # the dump follows the line
+        out.update(victim_first_step_s=vic.at('"step": 1,'),
+                   victim_dump_s=t_image - vic.at(f'"step": {before},'),
+                   kill_s_into_dump=t_kill - t_dump,
+                   kill_bytes=_pool_bytes(root, partial),
+                   kill_files=len(partial),
+                   kill_tmp_files=sum(not n.endswith(".bin")
+                                      for n in partial),
+                   victim_host_peak_gb=vic_peak / 1e9)
+        log(f"crash: the victim's first step line "
+            f"{out['victim_first_step_s']:.2f} s from its start; its "
+            f"step-{before} dump "
+            f"{out['victim_dump_s']:.2f} s (the step line to the manifest); "
+            f"SIGKILL {out['kill_s_into_dump']:.3f} s after the "
+            f"step-{victim} line (the dump starts there), "
+            f"{out['kill_bytes'] / 1e9:.4f} GB of the dump in the pool "
+            f"({len(partial)} files, {out['kill_tmp_files']} of them "
+            f"temporary); rc {rc}; no step-{victim} manifest")
+
+        readers[0].join(timeout=CRASH_WAIT_S)
+        check(ref.finish() == 0, f"the reference run exited {ref.rc}")
+        want = ref.losses()
+        check(sorted(want) == list(range(1, CRASH_STEPS + 1)),
+              f"the reference logged steps {sorted(want)}")
+
+        reg = Registry(root)
+        latest = reg.latest()
+        check(latest is not None and latest["step"] == before,
+              f"the registry's latest image is {latest}, not step {before}")
+        stats = reg.gc()
+        referenced = set()
+        for m in reg.images():
+            for rec in read_manifest(reg.tier, m["image_id"])["leaves"]:
+                referenced.update(rec["chunks"])
+        left = _pool(root)
+        stray = sorted(n for n in left if n.endswith(".bin")
+                       and n.removesuffix(".bin") not in referenced)
+        tmp_kept = sorted(n for n in left if not n.endswith(".bin"))
+        out.update(gc_removed=stats["removed"], gc_tmp_kept=len(tmp_kept),
+                   pool_chunks=len(left) - len(tmp_kept))
+        log(f"crash: latest image {latest['image_id']}; gc reaped "
+            f"{stats['removed']} files (the dump's orphaned chunks), kept "
+            f"{len(tmp_kept)} temporary files inside its "
+            f"{GC_TMP_DEAD_PID_GRACE_S} s quiet period; "
+            f"{out['pool_chunks']} chunks left, unreferenced {len(stray)}")
+        check(not stray, f"{len(stray)} chunks left unreferenced after gc: "
+                         f"{stray[:3]}")
+        for n in tmp_kept:
+            age = reg.tier.age_s(f"chunks/{n}")
+            check(f".tmp.{vic.p.pid}." in n and age is not None
+                  and age <= GC_TMP_DEAD_PID_GRACE_S,
+                  f"gc kept {n} (age {age} s) outside its quiet period")
+
+        # the step-4 image's manifest (read_manifest checks its digest);
+        # (c)'s restore of it reads every chunk through its SHA-256 check
+        man = read_manifest(reg.tier, latest["image_id"])
+        stored = sum(rec["nbytes"] for rec in man["leaves"])
+        check(manifest_digest(man) == man["digest"]
+              and [r["path"] for r in man["leaves"]] == [p for p, _ in struct]
+              and stored == state_bytes,
+              f"the step-{before} manifest holds {len(man['leaves'])} "
+              f"leaves, {stored} B, not the train state's")
+
+        log("crash: (c) restart (--resume, a fresh process)")
+        res = Child(base + ck + ["--resume"], tmp, "restarted", dev, started)
+        check(res.finish() == 0, f"the restarted run exited {res.rc}")
+        (rst,) = res.rec["calls"]["restore"]
+        check(rst["image_id"] == latest["image_id"],
+              f"the restart restored {rst['image_id']}, not "
+              f"{latest['image_id']}")
+        log(f"crash: {latest['image_id']} restored onto the card by the "
+            f"restart in {rst['s']:.2f} s ({stored / 1e9:.2f} GB; the "
+            f"manifest digest and every chunk's SHA-256 verified)")
+        line = next((ln for _, ln in res.lines if "resumed from" in ln), "")
+        check(f"resumed from step_{before:010d} at step {before}" in line,
+              f"the restart did not resume from step {before}: {line!r}")
+        got = res.losses()
+        check(sorted(got) == list(range(before + 1, CRASH_STEPS + 1)),
+              f"the restart logged steps {sorted(got)}")
+        worst, bitwise = 0.0, True
+        for s_, loss in got.items():
+            rel = abs(loss - want[s_]) / abs(want[s_])
+            worst, bitwise = max(worst, rel), bitwise and loss == want[s_]
+            check(rel <= 1e-5, f"step {s_}: loss {loss} vs the reference's "
+                               f"{want[s_]} ({rel:.2e} relative)")
+        images = [m["step"] for m in Registry(root).images()]
+        check(victim in images and images[-1] == CRASH_STEPS,
+              f"after the restart the images are steps {images}")
+        for name, c in (("reference", ref), ("restarted", res)):
+            check(not any(c.rec["launches"].values()),
+                  f"a kernel ran in the {name} run (lossless path): "
+                  f"{c.rec['launches']}")
+        t_first = res.at(f'"step": {before + 1},')
+        saves = res.rec["calls"]["save"]
+        out.update(
+            restart_saves=[(r["image_id"], r["s"], r["bytes_stored"])
+                           for r in saves],
+            reference_done_s=ref.at("done at step"), restart_wall_s=res.wall_s)
+        log(f"crash: the restart's dumps " + ", ".join(
+            f"{i} {t:.2f} s ({b / 1e9:.2f} GB stored)"
+            for i, t, b in out["restart_saves"]) + f"; the restart took "
+            f"{res.wall_s:.1f} s; the reference ended "
+            f"{out['reference_done_s']:.1f} s after its start")
+        out.update(
+            resume_restore_s=rst["s"], resume_to_first_step_s=t_first,
+            resumed_line_to_first_step_s=t_first - res.at("resumed from"),
+            worst_rel_loss=worst, bitwise=bitwise, images=images,
+            reference_losses=want, restarted_losses=got,
+            reference_peak_device_gb=ref.rec["peak_device_bytes"] / 1e9,
+            reference_host_peak_gb=ref.rec["host_peak_rss_bytes"] / 1e9,
+            restarted_peak_device_gb=res.rec["peak_device_bytes"] / 1e9,
+            restarted_host_peak_gb=res.rec["host_peak_rss_bytes"] / 1e9)
+        log(f"crash: restarted at step {before}, re-dumped step {victim} "
+            f"(images now steps {images}); its {len(got)} losses within "
+            f"{worst:.2e} relative of the reference's (limit 1e-5), "
+            f"bitwise equal: {bitwise}")
+        log(f"crash: resume -> first step {t_first:.2f} s from process "
+            f"start (its restore {rst['s']:.2f} s, the first step line "
+            f"{out['resumed_line_to_first_step_s']:.2f} s after the resumed "
+            f"line)")
+        log(f"crash: peak device memory (max_memory_allocated) reference "
+            f"{out['reference_peak_device_gb']:.1f} GB, restarted "
+            f"{out['restarted_peak_device_gb']:.1f} GB (the victim's: not "
+            f"measured, SIGKILL leaves no record); host peak RSS reference "
+            f"{out['reference_host_peak_gb']:.1f} GB, victim "
+            f"{out['victim_host_peak_gb']:.1f} GB (sampled from outside "
+            f"every {CRASH_POLL_S * 1e3:.0f} ms), restarted "
+            f"{out['restarted_host_peak_gb']:.1f} GB")
+    finally:
+        for p in started:               # a failed check leaves none running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.time() - t_path
     return out
 
 
@@ -4552,14 +4893,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    record["dryrun"] = dryrun_path(torch, dev, args)
+    record["dryrun"] = dryrun_path(
+        torch, dev, args, beside=lambda: crash_path(torch, dev, args))
     dr = record["dryrun"]
+    record["crash"] = dr.pop("beside")
     dr.update(wall_s=time.time() - t0,
               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"dryrun: path {dr['wall_s']:.1f} s ((c) {dr['card_s']:.1f} s, "
-        f"(a) + (b) {dr['meta_s']:.1f} s beside (d), (d) "
-        f"{dr['examples_s']:.1f} s); peak device memory "
+    log(f"dryrun: (c) {dr['card_s']:.1f} s, (a) + (b) {dr['meta_s']:.1f} s "
+        f"beside (d), (d) {dr['examples_s']:.1f} s; peak device memory "
         f"{dr['peak_device_gb']:.1f} GB in this process")
+    log(f"crash: path {record['crash']['wall_s']:.1f} s, from (d)'s start "
+        f"(paths 15 and 16 together {dr['wall_s']:.1f} s)")
     gc.collect()
     torch.cuda.empty_cache()
     record["capabilities"] = capability_phase(torch, dev)
