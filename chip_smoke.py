@@ -53,7 +53,7 @@ Phases, one line each (plus details):
                decode step and one prefill run under torch.profiler for the
                kernel-time breakdown and K6's share of it;
   6. pre-copy path on qwen3-8b at full width with num_layers cut from 36
-               to 8 (the image holds the weights): engine A generates 32
+               to 4 (the image holds the weights): engine A generates 32
                tokens; engine P generates 8, then pre-dump round 0 through
                ServeEngine.checkpoint(mode="pre_dump", weights=True) of
                {"params", "session"} (every leaf written), 12 and round 1
@@ -75,20 +75,23 @@ Phases, one line each (plus details):
                and the path's own host peak RSS is sampled.
   7. lifecycle path: preempt-to-migrate of a training job through the
                port's CLI (python -m repro_torch.launch.train --full
-               --layers 2 --device cuda), each run a fresh process under a
+               --layers 1 --device cuda), each run a fresh process under a
                small wrapper that reads the child's launch counters, clocks
                and memory peaks (runpy + atexit): a reference run of 10
-               steps; the same with --ckpt-dir file://... and
-               --predump-rounds 1, SIGTERMed after the line of step 3, which
+               steps, side by side with the same run with --ckpt-dir
+               file://... and --predump-rounds 1, SIGTERMed after the line
+               of step 3, which
                must print the pre-dump round, the preemption and the durable
-               image and exit 85; then --resume, which must report
+               image and exit 85; then --resume (path 12 beside it on a
+               thread), which must report
                "(migrated: SIGTERM)", verify the digest and log losses
                within 1e-5 relative of the reference's. K5 must classify
                every fp32 leaf of the train state once in the round and once
                in the residual dump, K1-K4 and K6 not run. The images go to
                a temporary directory (--lifecycle-dir), checked first for
                room for two images, removed afterwards.
-  8. remote path: the train path's configuration through a faulty
+  8. remote path: the train path's configuration at 1 layer (path 7's)
+               through a faulty
                simulated object store (remote://chip-remote?latency_ms=2
                &bw_mbps=1000&fail_rate=0.02&max_consecutive=1&seed=<seed>,
                virtual clock: network time simulated, not slept): train 3
@@ -156,12 +159,13 @@ Phases, one line each (plus details):
                and K5 and K6 not (counters zeroed just before, read just
                after), the path's host peak RSS under 96 GiB;
  12. socket path: the fleet over real Unix-domain sockets
-               (repro_torch.fleet.transport), path 11's store freed first.
+               (repro_torch.fleet.transport), on a thread beside path 7's
+               resumed run.
                (a) In process: SimCluster(transport="socket") on 4 hosts x 4
                devices, a UDS CoordinatorServer, every job behind a
                WorkerAgent: one musicgen-large trainer at full width
                (d_model 2048, 32/32 heads, d_ff 8192, vocab 2048; num_layers
-               cut from 48 to 8, the only cut: 411,076,608 params, 4.93 GB of
+               cut from 48 to 4, the only cut: 209,733,632 params, 2.52 GB of
                fp32 params + m + v on the card; batch 1 x 512;
                CodecPolicy(optimizer="delta8", device="auto"); images on
                local disk through file://) and 6 SimJobs (3 x 4 MiB on the
@@ -201,7 +205,7 @@ Phases, one line each (plus details):
                C's tokens equal A's and its final cache A's bitwise, the
                image's cache leaves are JAX's init_cache paths, shapes and
                dtypes, K6 14 on wgmma. (c)
-               granite-moe-3b-a800m at full width, 32 -> 4 layers, through
+               granite-moe-3b-a800m at full width, 32 -> 2 layers, through
                the train path's steps, images and checks, its aux metric
                reported, K1 9, K2 9, K3 12, K4 3 exactly;
  14. vision path: qwen2-vl-72b at full width (d_model 8192, 64/8 heads
@@ -230,22 +234,17 @@ Phases, one line each (plus details):
                line per arch with its largest per-device bytes and the cell
                that gives them. (b) measure_totals of qwen3-8b x train_4k,
                prefill_32k and decode_32k on the (16, 16) mesh record. (c)
-               The card cross-check at full width: the dry run's record of
-               qwen3-8b at 2 of 36 layers, batch 2 x 512 (path 4's
-               trainer) on a (1, 1) mesh: its params + optimizer-state bytes
-               equal the real train state's on the card exactly, and its
-               counted step FLOPs FlopCounterMode's count of one real step
-               on the card exactly (no kernel of the port launched in it);
-               then steady steps under CUDA events, the achieved TFLOP/s and
-               share of the dense bf16 peak on a `dryrun:` line with the
-               card's name and power limit; the serve path's cache bytes
-               (4 x 2081, 36 layers) against kvcache.init_cache on the card.
+               The card cross-check of the serve path's cache: the dry
+               run's record (4 x 2081, 36 layers, a (1, 1) mesh) against
+               kvcache.init_cache on the card (the train state's bytes and
+               a step's FLOPs are checked at full depth in path 17(b));
                (d) examples/quickstart_torch.py and elastic_resize_torch.py
-               as subprocesses on the card, side by side while (a) and (b)
-               run: exit 0 and their printed invariants (the preemption
+               as subprocesses on the card, side by side and beside path
+               17: exit 0 and their printed invariants (the preemption
                drill repeats path 7 and runs in the CPU tests);
- 16. crash path (on a thread from the start of path 15(d), whose
-               examples leave the card and host mostly idle): a node
+ 16. crash path (on a thread beside path 9, whose plane holds ~22 GB of
+               the card while this path's trainers run in child
+               processes): a node
                failure during a dump, through the port's CLI
                in fresh processes under path 7's wrapper, gemma2-2b at full
                width with 2 of 26 layers (8.95 GB lossless), batch 2 x 512,
@@ -261,7 +260,37 @@ Phases, one line each (plus details):
                SHA-256 verified), re-dumps step 8 and logs losses within
                1e-5 relative of the reference's (bitwise equality
                reported); no kernel launched in (a) or (c);
- 17. capabilities: `criu check` of the port on the card
+ 17. remat path (on a thread from the start of path 15(d), whose
+               examples leave the card and host mostly idle):
+               rematerialisation in the trainer, gemma2-2b at full
+               width (d_model 2304, 8/4 heads x 256, d_ff 9216, vocab
+               256000, window 4096, softcaps 50/30). (a) At 2 of 26 layers,
+               1 x 4096: one loss and backward pass under each remat policy
+               (none, dots, full) from the same params: the device peak
+               above the state, the bytes kept for the backward pass
+               (models.model.saved_for_backward), the forward + backward ms
+               under CUDA events, the bytes per layer (the 4-layer forward's
+               less the 2-layer one's, halved) extrapolated to 26 layers;
+               the loss and every gradient under dots and full within 1e-5
+               of each leaf's largest magnitude of those under none
+               (bitwise equality reported). (b) All 26 layers, 2 x 4096,
+               the default dots policy, AdamW: the dry run's record on a
+               (1, 1) mesh against the card (params + optimizer-state bytes
+               equal to the train state on the card, its counted step
+               FLOPs, the recompute included, equal to FlopCounterMode's
+               count of the first real step); 3 more steps under CUDA
+               events, the device peak, and the TFLOP/s and share of the
+               dense bf16 peak on a `dryrun:` line with the card's name and
+               power limit. (c) The state after those 4 steps dumped
+               through CheckpointSession to file:// under
+               CodecPolicy(optimizer="bf16", device="auto"): K2 encodes
+               every moment leaf on the card (its launches counted, zeroed
+               just before), params lossless; one more live step; the live
+               state freed, the image restored onto the card (chunk
+               SHA-256 and K2's payload digests verified) and the same step
+               taken from it: its loss equal to the live step's bitwise;
+               the host peak under 90 GB;
+ 18. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): every
                capability must be supported.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
@@ -272,6 +301,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import json
 import os
@@ -304,15 +334,18 @@ SLAB = 2048          # blocks per plain-version call (bounds its temporaries)
 # qwen3-8b has 36 layers: params + m + v are ~98 GB in fp32, more than one
 # 80 GB card; at 2 layers they are 19.6 GB and fit with gradients
 LAYERS = 2
+# the lifecycle (path 7) and remote (path 8) trainers: 1 layer (17.3 GB),
+# which keeps the whole script inside its time limit
+LIFECYCLE_LAYERS = 1
 # serve path: qwen3-8b at full depth, 4 prompts of 2048 tokens, 32 tokens
 # generated, the session checkpointed after 16
 SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CUT = 4, 2048, 32, 16
 # pre-copy path: the image holds the weights too, and the host holds the
 # mem:// tier's copy of them beside the final dump's digest capture: at 36
-# layers (32.8 GB) that would pass the machine's 96 GiB, at 8 (11.2 GB) the
-# host peak stays near 40 GB. Rounds after tokens 8 and 12, the residual
-# dump after 16, the same prompts and 32 tokens as the serve path.
-PRECOPY_LAYERS = 8
+# layers (32.8 GB) that would pass the machine's 96 GiB; 4 (8.1 GB) keep
+# the whole script inside its time limit. Rounds after tokens 8 and 12, the
+# residual dump after 16, the same prompts and 32 tokens as the serve path.
+PRECOPY_LAYERS = 4
 PRECOPY_ROUNDS, PRECOPY_CUT = (8, 12), 16
 # K6 cases: label, B, Sq, Skv, H, KV, hd, dtype, window, softcap, tolerance,
 # qk (q and k are randn times qk), rel. With rel False the tolerance bounds
@@ -1459,7 +1492,7 @@ def precopy_path(torch, dev, args):
 # LR schedule's total_steps depends on K); SIGTERM after the line of step
 # LIFECYCLE_SIGNAL_AT, one pre-copy round
 LIFECYCLE_STEPS, LIFECYCLE_SIGNAL_AT = 10, 3
-LIFECYCLE_MODEL = ["--full", "--layers", str(LAYERS)]
+LIFECYCLE_MODEL = ["--full", "--layers", str(LIFECYCLE_LAYERS)]
 LIFECYCLE_BATCH = ["--global-batch", "2", "--seq-len", "512"]
 # the child's own counters and clocks, read by a wrapper this script owns:
 # the launcher runs unchanged under runpy, and an atexit hook prints what
@@ -1576,14 +1609,17 @@ class Child:
             return {r["step"]: r["loss"] for r in json.load(f)}
 
 
-def lifecycle_path(torch, dev, args):
+def lifecycle_path(torch, dev, args, beside=None):
     """Preempt-to-migrate of a training job through the port's CLI
     (python -m repro_torch.launch.train), in fresh processes: a reference
     run; a run SIGTERMed after step LIFECYCLE_SIGNAL_AT's line, which must
     take a pre-dump round, dump the migration image and exit 85; a
     --resume in a new process, which must verify the digest and continue
     with the reference's losses. K5 must classify every fp32 leaf of the
-    train state on the card in the round and in the residual dump."""
+    train state on the card in the round and in the residual dump.
+    ``beside`` (path 12) runs on a thread while the resumed child runs,
+    which holds a third of the card and leaves this process idle; its
+    result is ``out["beside"]``."""
     import shutil
     import signal as _signal
     import tempfile
@@ -1593,7 +1629,7 @@ def lifecycle_path(torch, dev, args):
     from repro_torch.models.model import LM
     from repro_torch.training import abstract_train_state
 
-    cfg = CONFIG.replace(num_layers=LAYERS)
+    cfg = CONFIG.replace(num_layers=LIFECYCLE_LAYERS)
     struct = flatten_with_paths(abstract_train_state(LM(cfg)))
     state_bytes = sum(t.numel() * t.element_size() for _, t in struct)
     n_fp32 = sum(1 for _, t in struct if t.dtype == torch.float32)
@@ -1607,7 +1643,7 @@ def lifecycle_path(torch, dev, args):
         need = 2 * state_bytes * 1.1 + 2e9
         free = shutil.disk_usage(tmp).free
         log(f"lifecycle: {cfg.name} at full width, num_layers {CONFIG.num_layers}"
-            f" -> {cfg.num_layers} (the train path's cut); train state "
+            f" -> {cfg.num_layers}; train state "
             f"{state_bytes / 1e9:.2f} GB in {len(struct)} leaves ({n_fp32} "
             f"fp32); {tmp}: {free / 1e9:.1f} GB free, the two images need "
             f"{need / 1e9:.1f} GB")
@@ -1619,15 +1655,14 @@ def lifecycle_path(torch, dev, args):
                    "--data-dir", os.path.join(tmp, "data")])
         ck = ["--ckpt-dir", "file://" + os.path.join(tmp, "ck")]
 
-        log("lifecycle: reference run (no checkpoint dir)")
-        ref = Child(base, tmp, "reference", dev, started)
-        check(ref.finish() == 0, f"the reference run exited {ref.rc}")
-        want = ref.losses()
-        check(sorted(want) == list(range(1, LIFECYCLE_STEPS + 1)),
-              f"the reference logged steps {sorted(want)}")
-
-        log(f"lifecycle: preempted run (SIGTERM after the line of step "
+        # the reference beside the preempted run (its own copy of the
+        # seeded data: the two would write the same shards at once); its
+        # lines are read once the preempted run has exited
+        log(f"lifecycle: reference run (no checkpoint dir) beside the "
+            f"preempted run (SIGTERM after the line of step "
             f"{LIFECYCLE_SIGNAL_AT}, --predump-rounds 1)")
+        ref = Child(base[:-1] + [os.path.join(tmp, "data-reference")], tmp,
+                    "reference", dev, started)
         pre = Child(base + ck + ["--predump-rounds", "1"], tmp, "preempted",
                     dev, started)
         t_sig = None
@@ -1636,6 +1671,10 @@ def lifecycle_path(torch, dev, args):
                 pre.p.send_signal(_signal.SIGTERM)
                 t_sig = time.time() - pre.t0
         rc = pre.finish()
+        check(ref.finish() == 0, f"the reference run exited {ref.rc}")
+        want = ref.losses()
+        check(sorted(want) == list(range(1, LIFECYCLE_STEPS + 1)),
+              f"the reference logged steps {sorted(want)}")
         check(t_sig is not None, "the preempted run never logged step "
                                  f"{LIFECYCLE_SIGNAL_AT}")
         out["signal_to_exit_s"] = pre.wall_s - t_sig
@@ -1685,8 +1724,17 @@ def lifecycle_path(torch, dev, args):
               f"{launches}")
 
         log("lifecycle: resume (--resume, a fresh process)")
-        res = Child(base + ck + ["--resume"], tmp, "resumed", dev, started)
-        check(res.finish() == 0, f"the resumed run exited {res.rc}")
+        side = Beside(beside) if beside else None
+        try:
+            res = Child(base + ck + ["--resume"], tmp, "resumed", dev,
+                        started)
+            res.finish()
+        finally:
+            if side:                    # its processes end with it
+                side.thread.join()
+        if side:
+            out["beside"] = side.join()
+        check(res.rc == 0, f"the resumed run exited {res.rc}")
         line = next((ln for _, ln in res.lines if "resumed from" in ln), "")
         check("(migrated: SIGTERM)" in line,
               f"the resume did not report the migration: {line!r}")
@@ -1776,7 +1824,7 @@ def remote_path(torch, dev, args):
     from repro_torch.training import (abstract_train_state, init_train_state,
                                       make_train_step)
 
-    cfg = CONFIG.replace(num_layers=LAYERS)
+    cfg = CONFIG.replace(num_layers=LIFECYCLE_LAYERS)
     lm = LM(cfg)
     uri = REMOTE_URI.format(seed=args.seed)
     tmp = tempfile.mkdtemp(prefix="chip-smoke-remote-",
@@ -1790,7 +1838,7 @@ def remote_path(torch, dev, args):
         need = 1.1 * state_bytes + 2e9
         free = shutil.disk_usage(tmp).free
         log(f"remote: {cfg.name} at full width, num_layers "
-            f"{CONFIG.num_layers} -> {cfg.num_layers} (the train path's cut); "
+            f"{CONFIG.num_layers} -> {cfg.num_layers}; "
             f"store {uri}; hot fronts under {tmp}: {free / 1e9:.1f} GB free, "
             f"they need {need / 1e9:.1f} GB")
         check(free >= need, f"{tmp} has {free / 1e9:.1f} GB free, the hot "
@@ -2784,15 +2832,15 @@ def fleet_path(torch, dev, args):
 # path 12: the fleet over the socket wire (fleet/transport.py). (a) In
 # this process: SimCluster(transport="socket") with a UDS CoordinatorServer;
 # one musicgen-large trainer at full width (d_model 2048, 32/32 heads, d_ff
-# 8192, vocab 2048; num_layers cut from 48 to 8, the only cut: 411,076,608
-# params, 4.93 GB of fp32 params + m + v) with delta8 moments and 6 SimJobs
+# 8192, vocab 2048; num_layers cut from 48 to 4, the only cut: 209,733,632
+# params, 2.52 GB of fp32 params + m + v) with delta8 moments and 6 SimJobs
 # (3 leaves x 4 MiB on the card, lossless). musicgen-large: full width at
-# ~50M params a layer, so 8 layers move in seconds (gemma2-2b's embedding
+# ~50M params a layer, so 4 layers move in seconds (gemma2-2b's embedding
 # alone is 7 GB of fp32 state, and path 11 carries it). (b) Across
 # processes: examples/fleet_multiprocess_torch.py's --serve coordinator
 # SIGKILLs itself mid-wave under 3 --worker subprocesses on the card and is
 # restarted from its journal; a run without the kill runs beside it.
-SOCKET_LAYERS = 8               # FleetTrainer's batch: 1 x 512
+SOCKET_LAYERS = 4               # FleetTrainer's batch: 1 x 512
 SOCKET_HOSTS, SOCKET_DEVICES, SOCKET_CONCURRENCY = 4, 4, 4
 SOCKET_SIMJOBS = 6
 SOCKET_STORE = dict(FLEET_STORE, store="chip-socket")
@@ -2837,7 +2885,7 @@ class _CutSocket:
 
 def socket_path(torch, dev, args):
     """Path 12: the fleet over real Unix-domain sockets. (a) In process:
-    a musicgen-large trainer (8 of 48 layers, full width, delta8 moments)
+    a musicgen-large trainer (4 of 48 layers, full width, delta8 moments)
     and 6 SimJobs answer one UDS CoordinatorServer through WorkerAgents.
     Wave 0 gives every job a raw base image; every job is restored and
     steps 2 more (the trainer's losses against its drained incarnation's
@@ -3333,13 +3381,13 @@ FAMILIES = (("granite-moe-3b-a800m", None, 32), ("dbrx-132b", 2, 2),
 # (b) zamba2-1.2b serving at full depth: the serve path's pattern (4 x
 # 2048, 32 tokens, checkpointed after 16); two prefills of 7 K6 launches
 RECURRENT_ARCH, RECURRENT_K6 = "zamba2-1.2b", 14
-# (c) a granite-moe-3b-a800m trainer at full width, 32 -> 4 layers (the
+# (c) a granite-moe-3b-a800m trainer at full width, 32 -> 2 layers (the
 # only cut), the train path's steps and images. Its 12 moment leaves:
 # delta8 through K1 for the 9 of 64 KiB or more (embed/tok, wq, wk, wv,
 # wo, router, w_up, w_gate, w_down), through K4 for the 3 below the device
 # stage's floor (ln1, ln2: 24 KiB, final_norm: 6 KiB); the 9 large v
 # leaves bf16 through K2; all 12 m leaves decoded by K3 on restore.
-MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_LAUNCHES = {"delta_encode_digest": 9, "bf16_encode_digest": 9,
                       "delta_decode": 12, "delta_encode": 3}
 
@@ -4019,8 +4067,6 @@ def vision_path(torch, dev, args):
 
 # -------------------------------------------------------------- dry-run path
 DRYRUN_ARCH = "qwen3-8b"
-DRYRUN_TRAIN = (512, 2)           # (c): path 4's batch, seq_len x batch
-DRYRUN_STEPS = 5                  # (c): steady steps timed after a warm one
 DRYRUN_MEASURED = ("train_4k", "prefill_32k", "decode_32k")
 # (d): each example and the lines it must print. The preemption drill
 # repeats path 7's lifecycle and runs on the CPU in
@@ -4106,89 +4152,17 @@ def dryrun_measured() -> dict:
 
 
 def dryrun_card(torch, dev, args) -> dict:
-    """(c): the dry run's record of path 4's trainer and of the serve
-    path's cache against the real ones on the card."""
-    import numpy as np
-    from torch.utils.flop_counter import FlopCounterMode
-
+    """(c): the dry run's record of the serve path's cache against the
+    real one on the card (path 17(b) checks a train state's bytes and a
+    step's FLOPs, at full depth)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels.ckpt_codec import ckpt_codec
-    from repro_torch.kernels.flash_attention import flash_attention as k6
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import kvcache
-    from repro_torch.models.model import LM
-    from repro_torch.optim import OptConfig
-    from repro_torch.training import init_train_state, make_train_step
 
     one = make_test_mesh((1, 1), device="meta")
-    S, B = DRYRUN_TRAIN
-    t0 = time.time()
-    rec = dryrun.run_cell(DRYRUN_ARCH, ShapeConfig("chip_train", "train", S,
-                                                   B),
-                          mesh=one, num_layers=LAYERS, verbose=False)
-    tot = rec["totals_per_device"]
-    plan_bytes = rec["bytes_per_device"]["params"] + \
-        rec["bytes_per_device"]["opt_state"]
-    out = {"record_s": time.time() - t0, "plan_state_bytes": plan_bytes,
-           "plan_step_flops": tot["step_flops"]}
-    cfg = get_config(DRYRUN_ARCH).replace(num_layers=LAYERS)
-    lm = LM(cfg)
-    state = init_train_state(lm, torch.Generator().manual_seed(args.seed),
-                             device=dev)
-    real = sum(t.numel() * t.element_size() for t in _leaves(state))
-    out["state_bytes"] = real
-    log(f"dryrun: (c) {DRYRUN_ARCH} at {LAYERS} of 36 layers, {B} x {S}, "
-        f"(1, 1) mesh: the record's params + optimizer state {plan_bytes:,} "
-        f"B, the train state on the card {real:,} B")
-    check(real == plan_bytes, f"train state {real} B on the card, the dry "
-          f"run planned {plan_bytes} B")
-    rng = np.random.default_rng(args.seed)
-
-    def batch():
-        t = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
-        return {"tokens": torch.from_numpy(t).to(dev)}
-
-    step = make_train_step(lm, OptConfig())
-    before = (dict(k6.LAUNCHES), dict(ckpt_codec.LAUNCHES))
-    with FlopCounterMode(display=False) as fc:
-        state, m = step(state, batch())
-    counted = int(fc.get_total_flops())
-    check(before == (dict(k6.LAUNCHES), dict(ckpt_codec.LAUNCHES)),
-          "a kernel of the port launched inside the counted train step")
-    check(np.isfinite(float(m["loss"])), "non-finite loss")
-    out["step_flops"] = counted
-    log(f"dryrun: (c) one real step on the card counts {counted:,} FLOPs "
-        f"(FlopCounterMode), the dry run {tot['step_flops']:,}")
-    check(counted == tot["step_flops"], f"the card's step counts {counted} "
-          f"FLOPs, the dry run {tot['step_flops']}")
-    state, m = step(state, batch())                    # warm, uncounted
-    times = []
-    for _ in range(DRYRUN_STEPS):
-        b = batch()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        state, m = step(state, b)
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / 1e3)
-    check(np.isfinite(float(m["loss"])), "non-finite loss")
-    med = statistics.median(times)
-    out.update(step_s=times, step_s_median=med,
-               tflops=counted / med / 1e12,
-               peak_share=counted / med / BF16_OPS_PER_S)
-    log(f"dryrun: {smi_line()}: qwen3-8b {LAYERS}-layer train step "
-        f"{B} x {S} median {med:.4f} s over {DRYRUN_STEPS} steady steps "
-        f"(CUDA events; {', '.join(f'{t:.4f}' for t in times)}): "
-        f"{out['tflops']:.1f} TFLOP/s counted, "
-        f"{100 * out['peak_share']:.1f}% of the dense bf16 peak "
-        f"({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s)")
-    del state, m
-    gc.collect()
-    torch.cuda.empty_cache()
-
+    out = {}
     full = get_config(DRYRUN_ARCH)
     S_max = SERVE_PROMPT + SERVE_GEN + 1
     drec = dryrun.run_cell(DRYRUN_ARCH, ShapeConfig("chip_serve", "decode",
@@ -4244,7 +4218,7 @@ def finish_examples(procs, kill=False) -> dict:
         return out
     for name, r in out.items():
         log(f"dryrun: (d) {name} --device cuda: exit {r['rc']} after "
-            f"{r['wall_s']:.1f} s (started with (a))")
+            f"{r['wall_s']:.1f} s (started with path 17)")
         missing = [ln for ln in DRYRUN_EXAMPLES[name]
                    if ln not in texts[name]]
         check(r["rc"] == 0 and not missing,
@@ -4277,11 +4251,12 @@ class Beside:
 
 
 def dryrun_path(torch, dev, args, beside=None):
-    """Path 15: (c) the card cross-check first, alone on the card; then the
-    examples (d) start on the card while (a) and (b) run on the meta
-    device. ``beside`` (path 16) starts on a thread with (d), whose
-    examples leave the card and the host mostly idle; the path waits for
-    it and returns its result as ``out["beside"]``."""
+    """Path 15: (c) the card cross-check, then (a) and (b) on the meta
+    device, then the examples (d) on the card. ``beside`` (path 17)
+    starts on a thread with (d), whose examples leave the card and the
+    host mostly idle (after (a) and (b), whose tracing would hold the
+    interpreter); the path waits for it and returns its result as
+    ``out["beside"]``."""
     import tempfile
     out = {}
     t0 = time.time()
@@ -4289,23 +4264,19 @@ def dryrun_path(torch, dev, args, beside=None):
     out["card_s"] = time.time() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    side = Beside(beside) if beside else None
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip-dryrun-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip-dryrun-") as tmp:
+        t0 = time.time()
+        out["whole"] = dryrun_whole(tmp)
+        out["measured"] = dryrun_measured()
+        out["meta_s"] = time.time() - t0
+        side = Beside(beside) if beside else None
+        try:
             t0 = time.time()
-            procs = start_examples(tmp, dev)
-            try:
-                out["whole"] = dryrun_whole(tmp)
-                out["measured"] = dryrun_measured()
-            except BaseException:
-                finish_examples(procs, kill=True)
-                raise
-            out["meta_s"] = time.time() - t0
-            out["examples"] = finish_examples(procs)
+            out["examples"] = finish_examples(start_examples(tmp, dev))
             out["examples_s"] = time.time() - t0
-    finally:
-        if side:                        # its processes end with it
-            side.thread.join()
+        finally:
+            if side:                    # its processes end with it
+                side.thread.join()
     if side:
         out["beside"] = side.join()
     return out
@@ -4599,6 +4570,324 @@ def crash_path(torch, dev, args):
     return out
 
 
+# --------------------------------------------------------------- remat path
+# path 17: rematerialisation in the trainer, gemma2-2b at full width. (a)
+# the three policies side by side at REMAT_A_LAYERS layers, 1 x REMAT_SEQ;
+# (b) the whole depth at REMAT_BATCH x REMAT_SEQ under the default policy,
+# which fits the card only with remat; (c) its state dumped with bf16
+# moments (K2) and continued from the restored image
+REMAT_ARCH = "gemma2-2b"
+REMAT_SEQ = 4096                 # train_4k's length
+REMAT_A_LAYERS = 2
+REMAT_POLICIES = ("none", "dots", "full")
+REMAT_BATCH = 2
+REMAT_MICROBATCHES = 1           # 2 x 4096 fits in one under dots
+REMAT_STEPS = 3                  # (b): timed after the counted first step
+REMAT_GRAD_TOL = 1e-5            # (a): of each leaf's largest magnitude
+REMAT_HOST_GB = 90               # (c): the host peak's limit
+
+
+def _seq_tokens(torch, dev, cfg, rng, B):
+    t = rng.integers(0, cfg.vocab_size, (B, REMAT_SEQ)).astype("int64")
+    return {"tokens": torch.from_numpy(t).to(dev)}
+
+
+def remat_policies(torch, dev, args) -> dict:
+    """(a): one loss and backward pass under each policy from the same
+    params, and a forward at twice the depth for the bytes per layer."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM, saved_for_backward
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    full = get_config(REMAT_ARCH)
+    cfg = full.replace(num_layers=REMAT_A_LAYERS)
+    params = LM(cfg).init(torch.Generator().manual_seed(args.seed),
+                          device=dev)
+    # twice the depth: every stacked leaf's groups repeated
+    deep = dict(params, stack=tree_map(lambda _, t: torch.cat([t, t]),
+                                       params["stack"]))
+    batch = _seq_tokens(torch, dev, cfg, np.random.default_rng(args.seed), 1)
+
+    def kept(policy, layers, p):
+        """Bytes a forward keeps for its backward pass; its graph freed."""
+        lm = LM(cfg.replace(num_layers=layers, remat_policy=policy))
+        leaves = tree_map(lambda _, t: t.detach().requires_grad_(True), p)
+        with saved_for_backward(exclude=tree_leaves(leaves)) as rec:
+            lm.loss(leaves, batch)
+        return rec
+
+    def run(policy):
+        lm = LM(cfg.replace(remat_policy=policy))
+        leaves = tree_map(lambda _, t: t.detach().requires_grad_(True),
+                          params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        with saved_for_backward(exclude=tree_leaves(leaves)) as rec:
+            loss, _ = lm.loss(leaves, batch)
+        loss.backward()
+        e1.record()
+        e1.synchronize()
+        return {"loss": loss.detach(),
+                "grads": [t.grad for t in tree_leaves(leaves)],
+                "saved_bytes": rec.nbytes, "cached": len(rec.cached),
+                "peak_above_state": torch.cuda.max_memory_allocated() - base,
+                "ms": e0.elapsed_time(e1)}
+
+    run("dots")                                       # warm, not kept
+    runs, out = {}, {}
+    for policy in REMAT_POLICIES:
+        r = runs[policy] = run(policy)
+        check(bool(torch.isfinite(r["loss"])), f"{policy}: non-finite loss")
+        deeper = kept(policy, 2 * REMAT_A_LAYERS, deep).nbytes
+        per_layer = (deeper - r["saved_bytes"]) / REMAT_A_LAYERS
+        out[policy] = {
+            "loss": float(r["loss"]), "ms": r["ms"],
+            "peak_above_state": r["peak_above_state"],
+            "saved_bytes": r["saved_bytes"], "cached_outputs": r["cached"],
+            "saved_bytes_deeper": deeper, "per_layer_bytes": per_layer,
+            "saved_bytes_at_full_depth": r["saved_bytes"] + per_layer
+            * (full.num_layers - REMAT_A_LAYERS)}
+        if policy != "none":
+            ref = runs["none"]
+            bitwise = torch.equal(r["loss"], ref["loss"]) and all(
+                torch.equal(g, w) for g, w in zip(r["grads"], ref["grads"]))
+            worst = max(float((g - w).abs().max()) / float(w.abs().max())
+                        for g, w in zip(r["grads"], ref["grads"]))
+            out[policy].update(bitwise=bitwise, worst_grad_rel=worst,
+                               loss_diff=float(r["loss"] - ref["loss"]))
+            check(worst <= REMAT_GRAD_TOL and abs(out[policy]["loss_diff"])
+                  <= REMAT_GRAD_TOL * abs(float(ref["loss"])),
+                  f"{policy}: gradients {worst:.2e} of a leaf's largest "
+                  f"magnitude from none's, the loss "
+                  f"{out[policy]['loss_diff']:.2e} (limit "
+                  f"{REMAT_GRAD_TOL:g})")
+            del r["grads"]
+        o = out[policy]
+        same = ("" if policy == "none" else
+                f"; loss and gradients {'bitwise' if o['bitwise'] else 'not bitwise'}"
+                f" equal to none's (worst {o['worst_grad_rel']:.2e} of a "
+                f"leaf's largest magnitude)")
+        log(f"remat: (a) {REMAT_ARCH} {REMAT_A_LAYERS} of {full.num_layers} "
+            f"layers, 1 x {REMAT_SEQ}, {policy}: forward + backward "
+            f"{o['ms']:.1f} ms; peak {o['peak_above_state'] / 1e9:.3f} GB "
+            f"above the params; kept for the backward pass "
+            f"{o['saved_bytes'] / 1e9:.4f} GB ({o['cached_outputs']} matmul "
+            f"outputs cached), {o['per_layer_bytes'] / 1e6:.2f} MB a layer "
+            f"(4-layer forward {deeper / 1e9:.4f} GB), "
+            f"{o['saved_bytes_at_full_depth'] / 1e9:.3f} GB at "
+            f"{full.num_layers} layers{same}")
+    ratio = out["none"]["per_layer_bytes"] / out["dots"]["per_layer_bytes"]
+    out["none_over_dots_per_layer"] = ratio
+    log(f"remat: (a) per layer, none keeps {ratio:.2f}x the bytes dots "
+        f"keeps; full {out['full']['per_layer_bytes'] / 1e6:.2f} MB")
+    check(out["full"]["saved_bytes"] < out["dots"]["saved_bytes"]
+          < out["none"]["saved_bytes"], "saved bytes do not order full < "
+          "dots < none")
+    return out
+
+
+def remat_trainer(torch, dev, args) -> dict:
+    """(b) and (c): the full-depth trainer under the default policy, the
+    dry run's record against the card, then the dump through K2, one
+    live step, the restore and the same step from the restored state."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.api import (CheckpointSession, CodecPolicy, DumpRequest,
+                                 SessionConfig)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.core.device_codec import DEVICE_MIN_BYTES
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import (abstract_train_state, init_train_state,
+                                      make_train_step)
+
+    cfg = get_config(REMAT_ARCH)
+    lm = LM(cfg)
+    B, S = REMAT_BATCH, REMAT_SEQ
+    t0 = time.time()
+    rec = dryrun.run_cell(REMAT_ARCH, ShapeConfig("chip_remat", "train", S, B),
+                          mesh=make_test_mesh((1, 1), device="meta"),
+                          microbatches=REMAT_MICROBATCHES, verbose=False)
+    plan_bytes = rec["bytes_per_device"]["params"] + \
+        rec["bytes_per_device"]["opt_state"]
+    plan_flops = rec["totals_per_device"]["step_flops"]
+    out = {"record_s": time.time() - t0, "plan_state_bytes": plan_bytes,
+           "plan_step_flops": plan_flops, "remat": rec["options"]["remat"],
+           "microbatches": REMAT_MICROBATCHES}
+    check(out["remat"] == "dots", f"the record's policy {out['remat']}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(lm, torch.Generator().manual_seed(args.seed),
+                             device=dev)
+    real = sum(t.numel() * t.element_size() for t in _leaves(state))
+    out["state_bytes"] = real
+    log(f"remat: (b) {REMAT_ARCH} at full depth ({cfg.num_layers} layers, "
+        f"{lm.n_params():,} params), {B} x {S}, remat_policy "
+        f"{cfg.remat_policy}, microbatches {REMAT_MICROBATCHES}: the dry "
+        f"run's record (1, 1) params + optimizer state {plan_bytes:,} B, "
+        f"the train state on the card {real:,} B")
+    check(real == plan_bytes, f"train state {real} B on the card, the dry "
+          f"run planned {plan_bytes} B")
+    rng = np.random.default_rng(args.seed)
+    step = make_train_step(lm, OptConfig(), microbatches=REMAT_MICROBATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, _seq_tokens(torch, dev, cfg, rng, B))
+    counted = int(fc.get_total_flops())
+    check(np.isfinite(float(m["loss"])), "non-finite loss")
+    out["step_flops"] = counted
+    log(f"remat: (b) the first step on the card counts {counted:,} FLOPs "
+        f"(FlopCounterMode, the recompute included), the dry run "
+        f"{plan_flops:,}")
+    check(counted == plan_flops, f"the card's step counts {counted} FLOPs, "
+          f"the dry run {plan_flops}")
+    times, losses = [], [float(m["loss"])]
+    for _ in range(REMAT_STEPS):
+        b = _seq_tokens(torch, dev, cfg, rng, B)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, b)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / 1e3)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    out.update(losses=losses, step_s=times, step_s_median=med,
+               tflops=counted / med / 1e12,
+               peak_share=counted / med / BF16_OPS_PER_S,
+               peak_device_gb=peak / 1e9,
+               peak_above_state_gb=(peak - base - real) / 1e9)
+    card = smi_line()
+    log(f"remat: (b) {card}: peak device memory {peak / 1e9:.2f} GB "
+        f"(the state {real / 1e9:.2f} GB, {out['peak_above_state_gb']:.2f} "
+        f"GB above it); losses {losses}")
+    log(f"dryrun: {card}: {REMAT_ARCH} {cfg.num_layers}-layer train step "
+        f"{B} x {S} under remat dots median {med:.4f} s over {REMAT_STEPS} "
+        f"steps (CUDA events; {', '.join(f'{t:.4f}' for t in times)}): "
+        f"{out['tflops']:.1f} TFLOP/s counted, "
+        f"{100 * out['peak_share']:.1f}% of the dense bf16 peak "
+        f"({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+
+    # (c)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-remat-", dir=args.lifecycle_dir)
+    try:
+        with RssPeak() as rss:
+            codec = CodecPolicy(optimizer="bf16", device="auto")
+            sess = CheckpointSession(SessionConfig(
+                root="file://" + os.path.join(tmp, "ck"), codec=codec),
+                device=dev)
+            moments = [t for p, t in flatten_with_paths(state)
+                       if p.startswith("opt/")
+                       and t.numel() * t.element_size() >= DEVICE_MIN_BYTES]
+            at = int(state["step"])
+            torch.cuda.synchronize()
+            k6_before = dict(k6.LAUNCHES)
+            ckpt_codec.reset_launches()    # the path's counts start here
+            t0 = time.time()
+            receipt = sess.dump(DumpRequest(state=state, step=at))
+            out["dump_s"] = time.time() - t0
+            launches = dict(ckpt_codec.LAUNCHES)
+            st = receipt.stats
+            out.update(image_bytes=st["bytes_stored"], launches=launches,
+                       leaves_device=st["leaves_device"])
+            log(f"remat: (c) image {receipt.image_id} (params lossless, "
+                f"moments bf16) in {out['dump_s']:.1f} s: "
+                f"{st['bytes_stored'] / 1e9:.2f} GB stored, "
+                f"{st['leaves_device']} leaves through the device stage")
+            log("kernels: remat-path launches " + " ".join(
+                f"{k}={v}" for k, v in launches.items()))
+            check(launches["bf16_encode_digest"] == len(moments)
+                  == st["leaves_device"],
+                  f"K2 launched {launches['bf16_encode_digest']} times, "
+                  f"{st['leaves_device']} leaves went through the device "
+                  f"stage, {len(moments)} moment leaves are eligible")
+            check(all(v == 0 for k, v in launches.items()
+                      if k != "bf16_encode_digest"),
+                  f"a kernel other than K2 ran in the dump: {launches}")
+            b = _seq_tokens(torch, dev, cfg, rng, B)
+            state, m = step(state, b)
+            live = m["loss"].detach().clone()
+            del state, m, moments
+            free_host_and_card(torch)
+            out["rss_before_restore_gb"] = rss.rss_gb()
+            t0 = time.time()
+            tree, man = sess.load(receipt.image_id,
+                                  target_struct=abstract_train_state(lm))
+            torch.cuda.synchronize()
+            out["restore_s"] = time.time() - t0
+            digests = sum(1 for r in man["leaves"]
+                          if "digest" in r["codec_meta"])
+            on_card = all(t.device == dev for t in _leaves(tree))
+            log(f"remat: (c) restore onto the card in "
+                f"{out['restore_s']:.1f} s (host RSS "
+                f"{out['rss_before_restore_gb']:.1f} GB before it); "
+                f"{digests} payload digests re-derived from the stored "
+                f"bytes and verified")
+            check(on_card and int(tree["step"]) == at,
+                  "the restored state is not the step's on the card")
+            check(digests == launches["bf16_encode_digest"],
+                  f"{digests} payload digests, {launches['bf16_encode_digest']}"
+                  f" K2 launches")
+            tree, m = step(tree, b)
+            again = m["loss"].detach()
+            out.update(live_loss=float(live), restored_loss=float(again),
+                       loss_bitwise=bool(torch.equal(live, again)))
+            log(f"remat: (c) step {at + 1}: live loss {float(live)!r}, from "
+                f"the restored state {float(again)!r}")
+            check(out["loss_bitwise"], "the restored state's loss differs "
+                  "from the live state's")
+            check(dict(ckpt_codec.LAUNCHES) == launches
+                  and dict(k6.LAUNCHES) == k6_before,
+                  "a kernel launched in the restore or a train step")
+            del tree, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["host_peak_rss_gb"] = rss.peak_gb
+        log(f"remat: (c) host peak RSS {rss.peak_gb:.1f} GB (sampled every "
+            f"20 ms; {rss.start_gb:.1f} GB at its start)")
+        check(rss.peak_gb < REMAT_HOST_GB, f"host peak {rss.peak_gb:.1f} GB, "
+              f"over {REMAT_HOST_GB} GB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def remat_path(torch, dev, args) -> dict:
+    """Path 17: (a), then (b) and (c) on a freed card."""
+    out = {}
+    t0 = time.time()
+    out["policies"] = remat_policies(torch, dev, args)
+    out["policies_s"] = time.time() - t0
+    free_host_and_card(torch)
+    t1 = time.time()
+    out["trainer"] = remat_trainer(torch, dev, args)
+    out["trainer_s"] = time.time() - t1
+    out["launches"] = out["trainer"]["launches"]
+    out["wall_s"] = time.time() - t0
+    log(f"remat: path {out['wall_s']:.1f} s ((a) {out['policies_s']:.1f} s, "
+        f"(b) + (c) {out['trainer_s']:.1f} s)")
+    return out
+
+
 def capability_phase(torch, dev):
     """`criu check` on the card: every capability, one line each, and
     every one must be supported (every module is ported)."""
@@ -4617,6 +4906,16 @@ def capability_phase(torch, dev):
     check(not out["unsupported"], "unsupported on the card: " + "; ".join(
         f"{c.name}: {c.detail}" for c in rep if not c.supported))
     return out
+
+
+def free_host_and_card(torch):
+    """Release what a finished path leaves: Python garbage, the caching
+    allocator's free blocks, and the C heap's free pages (glibc's
+    malloc_trim), which would otherwise stay in the process's RSS and
+    crowd the next path's reads out of the page cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctypes.CDLL(None).malloc_trim(0)
 
 
 def _rss_gb() -> float:
@@ -4761,15 +5060,13 @@ def main(argv=None) -> int:
     record["train_peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for k, n in record["launches"].items():
         rows[k]["launches"] = n
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     record["serve"] = serve_path(torch, dev, args)
     record["serve"]["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rows["flash_attention"]["launches"] = \
         record["serve"]["launches"]["flash_attention"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     with RssPeak() as rss:
         record["precopy"] = precopy_path(torch, dev, args)
@@ -4778,14 +5075,39 @@ def main(argv=None) -> int:
         torch.cuda.max_memory_allocated() / 1e9
     rows["flash_attention"]["launches"] += \
         record["precopy"]["launches"]["flash_attention"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    record["lifecycle"] = lifecycle_path(torch, dev, args)
+    free_host_and_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    def socket_beside():
+        """Path 12 with its own clock, host and device peaks."""
+        t0 = time.time()
+        with RssPeak() as rss:
+            out = socket_path(torch, dev, args)
+        out.update(host_peak_rss_gb=rss.peak_gb,
+                   host_rss_at_start_gb=rss.start_gb,
+                   wall_s=time.time() - t0,
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return out
+
+    t0 = time.time()
+    record["lifecycle"] = lifecycle_path(torch, dev, args,
+                                         beside=socket_beside)
+    record["socket"] = sock = record["lifecycle"].pop("beside")
+    log(f"socket: path {sock['wall_s']:.1f} s beside path 7's resume (in "
+        f"process {sock['in_process_s']:.1f} s, the restart "
+        f"{sock['restart']['wall_s']:.1f} s); peak device memory "
+        f"{sock['peak_device_gb']:.1f} GB in this process; host peak RSS of "
+        f"the path {sock['host_peak_rss_gb']:.1f} GB, "
+        f"{sock['host_peak_rss_gb'] - sock['host_rss_at_start_gb']:.1f} GB "
+        f"above the {sock['host_rss_at_start_gb']:.1f} GB at its start "
+        f"(sampled every 20 ms; the subprocesses' own not included); paths 7 "
+        f"and 12 together {time.time() - t0:.1f} s")
+    for k in ckpt_codec.KERNELS:
+        rows[k]["launches"] += sock["launches"][k]
     rows["digest_blocks"]["launches"] = \
         record["precopy"]["launches"]["digest_blocks"] \
         + record["lifecycle"]["launches"]["digest_blocks"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with RssPeak() as rss_remote:
@@ -4798,18 +5120,27 @@ def main(argv=None) -> int:
         f"of the path {rss_remote.peak_gb:.1f} GB (sampled every 20 ms)")
     for k, n in record["remote"]["launches"].items():
         rows[k]["launches"] += n
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    with RssPeak() as rss_plane:
-        record["plane"] = plane_path(torch, dev, args)
-    record["plane"].update(
-        host_peak_rss_gb=rss_plane.peak_gb, wall_s=time.time() - t0,
-        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"plane: path {record['plane']['wall_s']:.1f} s; peak device memory "
-        f"{record['plane']['peak_device_gb']:.1f} GB; host peak RSS of the "
-        f"path {rss_plane.peak_gb:.1f} GB (sampled every 20 ms)")
+    # path 16 beside path 9: the plane holds ~22 GB of the card and the
+    # crash path's trainers run in child processes (2 x 19 GB)
+    side = Beside(lambda: crash_path(torch, dev, args))
+    try:
+        with RssPeak() as rss_plane:
+            record["plane"] = plane_path(torch, dev, args)
+        record["plane"].update(
+            host_peak_rss_gb=rss_plane.peak_gb, wall_s=time.time() - t0,
+            peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        side.thread.join()              # its processes end with it
+    record["crash"] = side.join()
+    log(f"plane: path {record['plane']['wall_s']:.1f} s beside path 16; "
+        f"peak device memory {record['plane']['peak_device_gb']:.1f} GB; "
+        f"host peak RSS of the path {rss_plane.peak_gb:.1f} GB (sampled "
+        f"every 20 ms)")
+    log(f"crash: path {record['crash']['wall_s']:.1f} s, from path 9's "
+        f"start (paths 9 and 16 together {time.time() - t0:.1f} s)")
     t0 = time.time()
     record["archs"] = archs_phase(torch, dev, args)
     record["archs_s"] = time.time() - t0
@@ -4817,8 +5148,7 @@ def main(argv=None) -> int:
     rows["flash_attention"]["launches"] += \
         record["plane"]["launches"]["flash_attention"] + sum(
             sum(a["k6_routes"].values()) for a in record["archs"].values())
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with RssPeak() as rss_fleet:
@@ -4834,28 +5164,7 @@ def main(argv=None) -> int:
           f"machine's 96 GiB")
     for k in ckpt_codec.KERNELS:
         rows[k]["launches"] += record["fleet"]["launches"][k]
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    with RssPeak() as rss_socket:
-        record["socket"] = socket_path(torch, dev, args)
-    record["socket"].update(
-        host_peak_rss_gb=rss_socket.peak_gb,
-        host_rss_at_start_gb=rss_socket.start_gb, wall_s=time.time() - t0,
-        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"socket: path {record['socket']['wall_s']:.1f} s (in process "
-        f"{record['socket']['in_process_s']:.1f} s, the restart "
-        f"{record['socket']['restart']['wall_s']:.1f} s); peak device "
-        f"memory {record['socket']['peak_device_gb']:.1f} GB; host peak RSS "
-        f"of the path {rss_socket.peak_gb:.1f} GB, "
-        f"{rss_socket.peak_gb - rss_socket.start_gb:.1f} GB above the "
-        f"{rss_socket.start_gb:.1f} GB at its start (sampled every 20 ms; "
-        f"the subprocesses' own not included)")
-    for k in ckpt_codec.KERNELS:
-        rows[k]["launches"] += record["socket"]["launches"][k]
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with RssPeak() as rss_fam:
@@ -4872,8 +5181,7 @@ def main(argv=None) -> int:
         f"{rss_fam.start_gb:.1f} GB at its start (sampled every 20 ms)")
     for k, n in fam["launches"].items():
         rows[k]["launches"] += n
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with RssPeak() as rss_vis:
@@ -4889,23 +5197,20 @@ def main(argv=None) -> int:
         f"{rss_vis.peak_gb - rss_vis.start_gb:.1f} GB above the "
         f"{rss_vis.start_gb:.1f} GB at its start (sampled every 20 ms)")
     rows["flash_attention"]["launches"] += vis["launches"]["flash_attention"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     record["dryrun"] = dryrun_path(
-        torch, dev, args, beside=lambda: crash_path(torch, dev, args))
+        torch, dev, args, beside=lambda: remat_path(torch, dev, args))
     dr = record["dryrun"]
-    record["crash"] = dr.pop("beside")
-    dr.update(wall_s=time.time() - t0,
-              peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"dryrun: (c) {dr['card_s']:.1f} s, (a) + (b) {dr['meta_s']:.1f} s "
-        f"beside (d), (d) {dr['examples_s']:.1f} s; peak device memory "
-        f"{dr['peak_device_gb']:.1f} GB in this process")
-    log(f"crash: path {record['crash']['wall_s']:.1f} s, from (d)'s start "
-        f"(paths 15 and 16 together {dr['wall_s']:.1f} s)")
-    gc.collect()
-    torch.cuda.empty_cache()
+    record["remat"] = dr.pop("beside")
+    dr["wall_s"] = time.time() - t0
+    log(f"dryrun: (c) {dr['card_s']:.1f} s, (a) + (b) {dr['meta_s']:.1f} s, "
+        f"(d) {dr['examples_s']:.1f} s beside path 17 (paths 15 and 17 "
+        f"together {dr['wall_s']:.1f} s)")
+    for k, n in record["remat"]["launches"].items():
+        rows[k]["launches"] += n
+    free_host_and_card(torch)
     record["capabilities"] = capability_phase(torch, dev)
     record["kernels"] = list(rows.values())
     record["card"] = card

@@ -7,8 +7,10 @@ per-device bytes of params, optimizer state, cache and inputs (each
 leaf's shard shape under its PartitionSpec on a production-shaped mesh
 record over placeholder devices), and the FLOPs of one step as
 ``torch.utils.flop_counter.FlopCounterMode`` counts them while the step
-runs on ``meta``. ``measure_totals`` repeats the JAX package's
-reduced-depth L1/L2 linear extrapolation and its guard.
+runs on ``meta``: a train step's backward pass included, and with it the
+recompute that the config's ``remat_policy`` (``--remat``) makes it do.
+``measure_totals`` repeats the JAX package's reduced-depth L1/L2 linear
+extrapolation and its guard.
 
 What has no counterpart here: torch has no SPMD partitioner, so there is
 no per-device program — no HLO, no collective statistics, no compiler
@@ -98,8 +100,8 @@ def lower_cell(arch: str, shape, mesh: shd.Mesh, *, fsdp=True, ep=False,
     """Build the cell on ``meta``: configuration overrides, sharding rules
     on ``mesh``, input and state structs with their PartitionSpecs, and
     the step over them. ``shape`` is a SHAPES name or a ShapeConfig.
-    ``remat`` is recorded in the config; the port's model does not
-    rematerialize, so it changes no count."""
+    ``remat`` (none | dots | full) replaces the config's policy: a train
+    step's count then includes what its backward pass recomputes."""
     cfg = configs.get_config(arch)
     if remat:
         cfg = cfg.replace(remat_policy=remat)
@@ -190,7 +192,12 @@ def _slstm_correction(cfg, shape, n_devices: int) -> dict:
     dh = di // H
     B, S = shape.global_batch, shape.seq_len
     step_flops = B * 4 * H * dh * dh * 2          # 4 gates' recurrent matmuls
-    grad_mult = 3 if shape.kind == "train" else 1
+    # forward + two backward products; a remat policy other than none
+    # recomputes the forward once more (the recurrent product is batched
+    # over heads, so dots does not keep it)
+    grad_mult = 1
+    if shape.kind == "train":
+        grad_mult = 3 if cfg.remat_policy == "none" else 4
     flops = step_flops * (S - 1) * n_slstm * grad_mult
     return {"flops": flops / n_devices, "flops_global": flops}
 
@@ -207,6 +214,8 @@ def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
     cfg = configs.get_config(arch)
     if opt_kw.get("num_layers"):
         cfg = cfg.replace(num_layers=opt_kw["num_layers"])
+    if opt_kw.get("remat"):
+        cfg = cfg.replace(remat_policy=opt_kw["remat"])
     P = len(cfg.pattern)
     tail = cfg.tail_layers
     G = cfg.num_groups
@@ -320,7 +329,10 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--ep", action="store_true", help="expert parallelism")
-    ap.add_argument("--remat", choices=("none", "dots", "full"))
+    ap.add_argument("--remat", choices=("none", "dots", "full"),
+                    help="a train cell's remat policy (default the "
+                         "config's, dots); the count includes the "
+                         "recompute")
     ap.add_argument("--moe-cf", type=float, default=None)
     ap.add_argument("--microbatches", type=int, default=0,
                     help="0 = per-arch default for train cells")

@@ -12,6 +12,11 @@ Where each runs: training uses ``xla_flash`` (K6 has no backward yet);
 prefill goes through ``kernels.flash_attention.ops.flash_attention``,
 which sends a CUDA tensor to the Hopper kernel K6 and a CPU tensor back
 to ``xla_flash``; decode uses ``decode_attention`` (plain torch ops).
+
+Under autograd every chunk step of ``_dense_flash`` and ``_windowed`` is
+checkpointed, as the JAX package's are: the backward pass recomputes a
+chunk's scores instead of keeping them (O(S^2) in all), and keeps only
+each step's inputs and the O(S) online-softmax carries.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as pm
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import apply_rope, checkpointed, rms_norm
 
 _NEG = -1e30
 _MFLOOR = -1e9  # clamp for the online-softmax running max (fully-masked rows)
@@ -122,12 +127,10 @@ def _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv,
     qpos = (q_offset + torch.arange(Sq, device=dev)).reshape(nq, cq)[
         None, :, :, None, None]
 
-    m = torch.full((B, nq, cq, H), -torch.inf, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, nq, cq, H), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, nq, cq, H, hd), dtype=torch.float32, device=dev)
-    for j in range(nkv):
-        kc = k[:, j * ckv:(j + 1) * ckv]
-        vc = v[:, j * ckv:(j + 1) * ckv]
+    # one KV chunk against every query chunk; checkpointed, so the backward
+    # pass recomputes the chunk's scores (the flash-attention backward
+    # strategy) instead of keeping them
+    def step(m, l, acc, q5, kc, vc, j):
         s = _scores(q5, kc, softcap)                          # [B,nq,cq,H,ckv]
         kpos = (j * ckv + torch.arange(ckv, device=dev))[
             None, None, None, None, :]
@@ -137,7 +140,15 @@ def _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv,
         if window:
             mask = mask & (qpos - kpos < window)
         s = torch.where(mask, s, torch.full_like(s, _NEG))
-        m, l, acc = _online_update((m, l, acc), s, vc)
+        return _online_update((m, l, acc), s, vc)
+
+    m = torch.full((B, nq, cq, H), -torch.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, nq, cq, H), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nq, cq, H, hd), dtype=torch.float32, device=dev)
+    for j in range(nkv):
+        m, l, acc = checkpointed(step, m, l, acc, q5,
+                                 k[:, j * ckv:(j + 1) * ckv],
+                                 v[:, j * ckv:(j + 1) * ckv], j)
     out = acc / torch.clamp_min(l, 1e-20)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -153,13 +164,10 @@ def _windowed(q, k, v, window, softcap, chunk_q, q_offset):
     pad = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype, device=dev)
     kp = torch.cat([pad, k], dim=1)                           # [B, W+Skv, H, hd]
     vp = torch.cat([pad.to(v.dtype), v], dim=1)
-    outs = []
-    for n in range(nq):
-        # q rows [n*cq, n*cq+cq); allowed k in (q-W, q]; padded index base n*cq
-        qc = q[:, n * cq:(n + 1) * cq]
-        start = n * cq + q_offset
-        kc = kp[:, start:start + W + cq]
-        vc = vp[:, start:start + W + cq]
+
+    # one query chunk; checkpointed, so the backward pass recomputes its
+    # scores instead of keeping them
+    def one_chunk(qc, kc, vc, start):
         s = torch.einsum("bchd,bkhd->bchk", qc.to(torch.float32),
                          kc.to(torch.float32))
         if softcap:
@@ -170,9 +178,17 @@ def _windowed(q, k, v, window, softcap, chunk_q, q_offset):
         valid = (qpos >= kpos) & (qpos - kpos < W) & (kpos >= 0)
         s = torch.where(valid, s, torch.full_like(s, _NEG))
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bchk,bkhd->bchd",
-                                 p.to(vc.dtype).to(torch.float32),
-                                 vc.to(torch.float32)))
+        return torch.einsum("bchk,bkhd->bchd",
+                            p.to(vc.dtype).to(torch.float32),
+                            vc.to(torch.float32))
+
+    outs = []
+    for n in range(nq):
+        # q rows [n*cq, n*cq+cq); allowed k in (q-W, q]; padded index base n*cq
+        start = n * cq + q_offset
+        outs.append(checkpointed(one_chunk, q[:, n * cq:(n + 1) * cq],
+                                 kp[:, start:start + W + cq],
+                                 vp[:, start:start + W + cq], start))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 

@@ -1,5 +1,5 @@
 """Shared layers: norms, rotary embeddings (incl. M-RoPE), MLPs,
-embedding/head.
+embedding/head, and ``checkpointed`` (a step run under a checkpoint).
 
 Same math and dtypes as the JAX package's models/layers.py, written on
 tensors."""
@@ -7,9 +7,22 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as pm
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint when autograd records
+    (the JAX package's ``jax.checkpoint`` on a step): the backward pass
+    keeps only the tensor arguments and recomputes the rest. Pass every
+    activation the step reads as an argument. Without autograd (prefill,
+    decode) it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def rms_norm(x, scale, eps: float = 1e-6):

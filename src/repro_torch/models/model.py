@@ -14,18 +14,132 @@ and once more before the tail layers (``params/tail/t<j>``), each
 application with its own KV cache. Blocks dispatch by ``cfg.pattern``
 (attention with an MLP or MoE, mamba2, mlstm, slstm); the MoE aux loss is
 summed through the stack. Compute runs in bf16 on fp32 masters by default,
-as in the JAX package. Remat is not used (at the sizes the port runs,
-activations are small next to the state).
+as in the JAX package.
+
+Rematerialisation follows the JAX package: in train mode each group's body
+(zamba2's shared application and the pattern's blocks) runs under
+``torch.utils.checkpoint`` with ``cfg.remat_policy`` — ``none`` (no
+checkpoint), ``dots`` (keep the outputs of matmuls without a batch
+dimension, recompute the rest; the default) or ``full`` (keep only the
+group's inputs). The tail layers stay outside, the final norm and every
+cross-entropy chunk are checkpointed on their own, and so is every chunk
+step of the training attention (models/attention.py): the backward pass
+keeps no score tensor and no chunk's logits. ``saved_for_backward``
+measures what a forward keeps for the backward pass.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache
 from repro_torch.models import params as pm
 from repro_torch.models.blocks import apply_block, block_specs
-from repro_torch.models.layers import embed_lookup, embed_specs, rms_norm, unembed
+from repro_torch.models.layers import (checkpointed, embed_lookup,
+                                       embed_specs, rms_norm, unembed)
+
+_aten = torch.ops.aten
+# the SavedForBackward record of the innermost ``saved_for_backward`` block
+_RECORD = contextvars.ContextVar("saved_for_backward", default=None)
+
+
+def _dots_with_no_batch_dims_saveable(ctx, func, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` on aten
+    ops: keep the output of a matmul without a batch dimension — an ``mm``
+    (``x @ w``: the MLP, the MoE router, the SSM projections) or a ``bmm``
+    of batch 1, which is what ``torch.einsum`` makes of a weight product
+    such as ``bsd,dhk->bshk`` (q, k, v and the output projection) — and
+    recompute everything else: attention scores, expert and recurrent
+    products (their batch is heads or experts), norms, rope, casts.
+    A batched product whose batch happens to be 1 (B * heads = 1) is kept
+    too; no configuration trains at that size."""
+    if func is _aten.mm.default:
+        a, b = args
+        shape = (a.shape[0], b.shape[1])
+    elif func is _aten.bmm.default and args[0].shape[0] == 1:
+        a, b = args
+        shape = (1, a.shape[1], b.shape[2])
+    else:
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    rec = _RECORD.get()
+    if rec is not None and not ctx.is_recompute:
+        rec.add_cached(func, shape, a.dtype)
+    return CheckpointPolicy.MUST_SAVE
+
+
+def _nothing_saveable(ctx, func, *args, **kwargs):
+    """``jax.checkpoint_policies.nothing_saveable``: keep only the inputs."""
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {
+    "none": None,
+    "dots": _dots_with_no_batch_dims_saveable,
+    "full": _nothing_saveable,
+}
+
+
+def _remat(fn, policy_name: str):
+    """``fn`` checkpointed under the named policy, as the JAX package's
+    ``_remat``: ``none`` returns it unchanged. The forward draws no random
+    numbers, so no RNG state is stashed for the recompute."""
+    if policy_name == "none":
+        return fn
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _POLICIES[policy_name])
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, context_fn=context_fn)
+
+
+class SavedForBackward:
+    """What the backward pass keeps, recorded by ``saved_for_backward``:
+    ``saved`` the tensors autograd saved outside any checkpoint (a
+    checkpoint's inputs among them) as (shape, dtype, bytes), ``cached``
+    the matmul outputs a selective checkpoint kept as (op, shape, dtype,
+    bytes). ``nbytes`` counts each storage once and leaves out storages
+    shared with the excluded tensors (the params)."""
+
+    def __init__(self, exclude=()):
+        self.saved, self.cached = [], []
+        self.nbytes = 0
+        self._seen = {t.untyped_storage().data_ptr() for t in exclude}
+
+    def pack(self, t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in self._seen:
+            self._seen.add(st.data_ptr())
+            self.saved.append((tuple(t.shape), t.dtype, st.nbytes()))
+            self.nbytes += st.nbytes()
+        return t
+
+    def add_cached(self, func, shape, dtype):
+        n = dtype.itemsize
+        for s in shape:
+            n *= s
+        self.cached.append((func.__name__, tuple(shape), dtype, n))
+        self.nbytes += n
+
+
+@contextlib.contextmanager
+def saved_for_backward(exclude=()):
+    """Record what a forward run inside the block keeps for its backward
+    pass (``SavedForBackward``): the tensors autograd saves, seen through
+    ``torch.autograd.graph.saved_tensors_hooks`` (inside a checkpoint
+    the checkpoint's own hooks take over and keep nothing), plus the
+    outputs the ``dots`` policy caches, which no hook sees."""
+    rec = SavedForBackward(exclude)
+    token = _RECORD.set(rec)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(rec.pack, lambda t: t):
+            yield rec
+    finally:
+        _RECORD.reset(token)
 
 
 class LM:
@@ -113,7 +227,8 @@ class LM:
 
         shared = params.get("shared")
         stack = params["stack"]
-        for g in range(cfg.num_groups):
+
+        def group(x, aux, g):
             if shared is not None:
                 x, a = run("attn", shared, x, 0, entry("shared", g))
                 aux = aux + a
@@ -121,6 +236,11 @@ class LM:
             for j, (kind, win) in enumerate(zip(cfg.pattern, cfg.windows)):
                 x, a = run(kind, gp[f"b{j}"], x, win, entry(f"b{j}", g))
                 aux = aux + a
+            return x, aux
+
+        body = _remat(group, cfg.remat_policy if mode == "train" else "none")
+        for g in range(cfg.num_groups):
+            x, aux = body(x, aux, g)
         # ---- tail layers (zamba2: 38 = 6*6 + 2) after one more shared
         # application, with the last shared cache
         if cfg.tail_layers:
@@ -132,7 +252,10 @@ class LM:
                            cfg.windows[j],
                            None if cache is None else cache["tail"][f"t{j}"])
                 aux = aux + a
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # checkpointed: the final norm sits outside the remat'd stack and
+        # would keep fp32 [B,S,d] intermediates for the backward pass
+        x = checkpointed(lambda h, s: rms_norm(h, s, cfg.norm_eps), x,
+                         params["final_norm"])
         new_cache = None
         if cache is not None and mode != "train":
             new_cache = dict(cache, pos=cache["pos"]
@@ -158,21 +281,26 @@ class LM:
         return loss, {"ce": ce, "aux": aux_mean, "loss": loss}
 
     def _chunked_ce(self, params, x, labels, chunk: int):
-        """Streaming CE over seq chunks — never materializes [B, S, V]
-        logits for more than one chunk at a time."""
+        """Streaming CE over seq chunks: one chunk's [B, c, V] logits at a
+        time. Each chunk step is checkpointed, as in the JAX package, so
+        the backward pass recomputes a chunk's logits instead of keeping
+        every chunk's."""
         cfg = self.cfg
         B, T, d = x.shape
         c = min(chunk, T)
         while T % c:
             c -= 1
-        tot = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(T // c):
-            xc = x[:, i * c:(i + 1) * c]
-            lc = labels[:, i * c:(i + 1) * c]
+
+        def step(xc, lc):
             logits = unembed(params["embed"], xc, cfg)       # fp32 [B,c,V]
             lz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
-            tot = tot + (lz - gold).sum()
+            return (lz - gold).sum()
+
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(T // c):
+            tot = tot + checkpointed(step, x[:, i * c:(i + 1) * c],
+                                     labels[:, i * c:(i + 1) * c])
         return tot / (B * T)
 
     # -------------------------------------------------------------- serving

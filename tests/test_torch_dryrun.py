@@ -10,21 +10,25 @@ production meshes, the cells its ``measure_totals`` guard skips (its
 ``lower_cell`` replaced by a probe, so nothing compiles), each arch's
 parameter count, and — in a second, slower subprocess — each arch's
 unrolled ``cost_analysis`` FLOPs of a tiny train cell (2 x 256, mesh
-(1, 1)). The port builds the same cells on the meta device.
+(1, 1)) under each remat policy. The port builds the same cells on the
+meta device.
 
 Exact comparisons: shapes, specs, shard shapes, the guard's skip set and
 parameter counts are integer facts. Token ids and labels are int64 in the
 port (its real batches' dtype) where JAX's are int32. FLOP counts: the
 meta count equals the count of the same step on CPU tensors exactly, and
-the L1/L2 extrapolation equals the full-depth count exactly, every arch;
-the port counts matmul-class ops only (XLA also counts elementwise work),
-so its tiny train count is at most JAX's. ``python
-tests/test_torch_dryrun.py`` prints each arch's ratio.
+the L1/L2 extrapolation equals the full-depth count exactly, every arch,
+under each remat policy (none, dots, full), whose recompute the count of
+a train step includes; the port counts matmul-class ops only (XLA also
+counts elementwise work), so its tiny train count is at most JAX's under
+the same policy. ``python tests/test_torch_dryrun.py`` prints each arch's
+ratio.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import textwrap
 
 import numpy as np
@@ -54,6 +58,7 @@ CELLS_ALL = configs.cells(include_skips=True)
 CELLS = configs.cells()
 MESHES = ("pod1", "pod2")
 TINY_TRAIN = (256, 2)                     # (seq_len, batch) of the ratio
+REMAT = ("none", "dots", "full")
 TINY = {k: ShapeConfig(f"tiny_{k}", k, 32, 2)
         for k in ("train", "prefill", "decode")}
 INT_TOKENS = ("tokens", "labels")         # int32 in JAX, int64 in the port
@@ -149,31 +154,77 @@ _JAX_SIDE = textwrap.dedent("""
         jd.SHAPES["tiny_train"] = ShapeConfig("tiny_train", "train", S, B)
         configs.get_config = configs.get_tiny
         mesh = make_test_mesh((1, 1))
-        res = {a: jd.measure_totals(a, "tiny_train", mesh)["flops"]
+        res = {a: jd.measure_totals(a, "tiny_train", mesh,
+                                    remat=sys.argv[3])["flops"]
                for a in configs.ARCH_NAMES}
     print("JSON" + json.dumps(res))
 """)
 
 
-def run_jax_side(*args) -> dict:
+def start_jax_side(*calls) -> list:
+    """Start the JAX side once per argument tuple, the runs side by side
+    (each compiles on one core); -> their processes. Their output goes
+    to files, so a run that nobody reads yet never blocks on a pipe."""
     env = subprocess_env()
     env["JAX_PLATFORMS"] = "cpu"
-    out = subprocess.run([sys.executable, "-c", _JAX_SIDE, *args], env=env,
-                         capture_output=True, text=True, timeout=900)
-    assert out.returncode == 0, out.stderr[-4000:]
-    line = next(ln for ln in out.stdout.splitlines()
-                if ln.startswith("JSON"))
-    return json.loads(line[4:])
+    procs = []
+    for args in calls:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", _JAX_SIDE, *args], env=env, stdout=out,
+            stderr=err), out, err))
+    return procs
+
+
+def finish_jax_side(procs) -> list:
+    """Each process's JSON result in order; none is left running."""
+    results = []
+    try:
+        for p, out, err in procs:
+            p.wait(timeout=900)
+            out.seek(0)
+            err.seek(0)
+            assert p.returncode == 0, err.read()[-4000:]
+            line = next(ln for ln in out.read().splitlines()
+                        if ln.startswith("JSON"))
+            results.append(json.loads(line[4:]))
+    finally:
+        kill_jax_side(procs)
+    return results
+
+
+def kill_jax_side(procs):
+    for p, out, err in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+        err.close()
+
+
+def run_jax_side(*calls) -> list:
+    return finish_jax_side(start_jax_side(*calls))
 
 
 @pytest.fixture(scope="module")
-def jax_records():
-    return run_jax_side("records")
+def jax_tiny_started():
+    """The tiny train cells' JAX compiles, one per remat policy, started
+    with the module's first JAX fixture so that they run while the
+    port's own cases do; the results are read by jax_tiny_train_flops."""
+    procs = start_jax_side(*[("tiny", json.dumps(TINY_TRAIN), r)
+                             for r in REMAT])
+    yield procs
+    kill_jax_side(procs)
 
 
 @pytest.fixture(scope="module")
-def jax_tiny_train_flops():
-    return run_jax_side("tiny", json.dumps(TINY_TRAIN))
+def jax_records(jax_tiny_started):
+    return run_jax_side(("records",))[0]
+
+
+@pytest.fixture(scope="module")
+def jax_tiny_train_flops(jax_tiny_started):
+    return dict(zip(REMAT, finish_jax_side(jax_tiny_started)))
 
 
 def _flat(t, path=""):
@@ -383,13 +434,14 @@ def _cpu_step(cfg, shape, seed=0):
     return lambda: lm.decode_step(params, cache, batch["tokens"][:, :1])
 
 
-def _both(arch, kind):
-    if (arch, kind) not in _RUNS:
+def _both(arch, kind, remat=None):
+    if (arch, kind, remat) not in _RUNS:
         cell = dryrun.lower_cell(arch, TINY[kind],
-                                 make_test_mesh((1, 1), device="meta"))
-        _RUNS[arch, kind] = (_counted(cell.step),
-                             _counted(_cpu_step(cell.cfg, TINY[kind])))
-    return _RUNS[arch, kind]
+                                 make_test_mesh((1, 1), device="meta"),
+                                 remat=remat)
+        _RUNS[arch, kind, remat] = (_counted(cell.step),
+                                    _counted(_cpu_step(cell.cfg, TINY[kind])))
+    return _RUNS[arch, kind, remat]
 
 
 @pytest.mark.parametrize("kind", list(TINY))
@@ -401,40 +453,60 @@ def test_meta_step_gives_cpu_output_shapes(tiny_configs, arch, kind):
     assert meta_shapes == cpu_shapes and meta_shapes
 
 
+@pytest.mark.parametrize("remat", REMAT)
 @pytest.mark.parametrize("kind", list(TINY))
 @pytest.mark.parametrize("arch", configs.ARCH_NAMES)
-def test_meta_count_equals_cpu_count(tiny_configs, arch, kind):
-    (meta_flops, _), (cpu_flops, _) = _both(arch, kind)
+def test_meta_count_equals_cpu_count(tiny_configs, arch, kind, remat):
+    """The meta count of a step equals the count of the same step on CPU
+    tensors, its backward pass and recompute included."""
+    (meta_flops, _), (cpu_flops, _) = _both(arch, kind, remat)
     assert meta_flops == cpu_flops > 0
 
 
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_train_count_grows_with_the_recompute(tiny_configs, arch):
+    """A train step recomputes in its backward pass what its remat policy
+    did not keep: dots counts more than none (the products with a batch
+    dimension, attention scores among them), full more again (every
+    product); prefill and decode do not rematerialize."""
+    counts = [_both(arch, "train", r)[0][0] for r in REMAT]
+    assert counts[0] < counts[1] < counts[2], counts
+    for kind in ("prefill", "decode"):
+        assert len({_both(arch, kind, r)[0][0] for r in REMAT}) == 1
+
+
+@pytest.mark.parametrize("remat", REMAT)
 @pytest.mark.parametrize("kind", ["train", "prefill"])
 @pytest.mark.parametrize("arch", configs.ARCH_NAMES)
-def test_extrapolation_equals_full_depth_count(tiny_configs, arch, kind):
+def test_extrapolation_equals_full_depth_count(tiny_configs, arch, kind,
+                                               remat):
     """measure_totals' L1/L2 extrapolation (with the sLSTM loop traced
     one step and the rest added analytically) equals the count of the
     whole-depth step, exactly, at three pattern groups."""
     cfg = configs.get_tiny(arch)
     L = cfg.num_layers + 2 * len(cfg.pattern)
     mesh = make_test_mesh((1, 1), device="meta")
-    tot = dryrun.measure_totals(arch, TINY[kind], mesh, num_layers=L)
+    tot = dryrun.measure_totals(arch, TINY[kind], mesh, num_layers=L,
+                                remat=remat)
     full = dryrun.count_flops(dryrun.lower_cell(
-        arch, TINY[kind], mesh, num_layers=L).step)
+        arch, TINY[kind], mesh, num_layers=L, remat=remat).step)
     assert tot["step_flops"] == full > 0
     assert tot["flops"] == full / mesh.devices.size
 
 
-def port_tiny_train_flops(arch) -> int:
+def port_tiny_train_flops(arch, remat=None) -> int:
     shape = ShapeConfig("tiny_train", "train", *TINY_TRAIN)
     return dryrun.measure_totals(
-        arch, shape, make_test_mesh((1, 1), device="meta"))["step_flops"]
+        arch, shape, make_test_mesh((1, 1), device="meta"),
+        remat=remat)["step_flops"]
 
 
+@pytest.mark.parametrize("remat", REMAT)
 @pytest.mark.parametrize("arch", configs.ARCH_NAMES)
-def test_train_count_at_most_jax_cost_analysis(tiny_configs, arch,
+def test_train_count_at_most_jax_cost_analysis(tiny_configs, arch, remat,
                                                jax_tiny_train_flops):
-    got = port_tiny_train_flops(arch)
-    assert 0 < got <= jax_tiny_train_flops[arch]
+    got = port_tiny_train_flops(arch, remat)
+    assert 0 < got <= jax_tiny_train_flops[remat][arch]
 
 
 # ------------------------------------------------------------- devices
@@ -456,11 +528,14 @@ if __name__ == "__main__":
     # each arch's tiny train-cell ratio: the port's count / JAX's
     sys.path.insert(0, os.path.dirname(__file__))
     configs.get_config = configs.get_tiny
-    jax_flops = run_jax_side("tiny", json.dumps(TINY_TRAIN))
+    jax_flops = dict(zip(REMAT, run_jax_side(
+        *[("tiny", json.dumps(TINY_TRAIN), r) for r in REMAT])))
     print(f"tiny train cell {TINY_TRAIN[1]} x {TINY_TRAIN[0]}, mesh (1, 1)")
-    print("| arch | port FlopCounterMode | JAX cost_analysis | ratio |")
-    print("|---|---|---|---|")
+    print("| arch | remat | port FlopCounterMode | JAX cost_analysis | "
+          "ratio |")
+    print("|---|---|---|---|---|")
     for a in configs.ARCH_NAMES:
-        p = port_tiny_train_flops(a)
-        print(f"| {a} | {p:.4e} | {jax_flops[a]:.4e} | "
-              f"{p / jax_flops[a]:.3f} |")
+        for r in REMAT:
+            p = port_tiny_train_flops(a, r)
+            print(f"| {a} | {r} | {p:.4e} | {jax_flops[r][a]:.4e} | "
+                  f"{p / jax_flops[r][a]:.3f} |")
