@@ -77,13 +77,13 @@ Phases, one line each (plus details):
                port's CLI (python -m repro_torch.launch.train --full
                --layers 1 --device cuda), each run a fresh process under a
                small wrapper that reads the child's launch counters, clocks
-               and memory peaks (runpy + atexit): a reference run of 10
-               steps, side by side with the same run with --ckpt-dir
+               and memory peaks (runpy + atexit): a run with --ckpt-dir
                file://... and --predump-rounds 1, SIGTERMed after the line
-               of step 3, which
+               of step 3 (paths 13 and 6 beside it on a thread), which
                must print the pre-dump round, the preemption and the durable
-               image and exit 85; then --resume (path 12 beside it on a
-               thread), which must report
+               image and exit 85; then --resume, side by side with a
+               reference run of 10 steps (path 12 (b) and path 17's record
+               beside them on a thread), which must report
                "(migrated: SIGTERM)", verify the digest and log losses
                within 1e-5 relative of the reference's. K5 must classify
                every fp32 leaf of the train state once in the round and once
@@ -109,7 +109,7 @@ Phases, one line each (plus details):
                store's objects and the fronts' directories are released
                at the end;
   9. plane path: the live serving plane (Table-1 row 16) on gemma2-2b at
-               full width and depth (26 layers, 2,614,341,888 params, fp32
+               full width, 14 of 26 layers (fp32
                on the card, bf16 compute, head_dim 256, window 4096 on the
                even layers, softcaps 50/30) through SessionManager (8 slots
                of 4800 positions) under seeded Poisson traffic
@@ -159,8 +159,8 @@ Phases, one line each (plus details):
                and K5 and K6 not (counters zeroed just before, read just
                after), the path's host peak RSS under 96 GiB;
  12. socket path: the fleet over real Unix-domain sockets
-               (repro_torch.fleet.transport), on a thread beside path 7's
-               resumed run.
+               (repro_torch.fleet.transport): (a) after path 9 beside
+               path 16, (b) on a thread beside path 7's resume.
                (a) In process: SimCluster(transport="socket") on 4 hosts x 4
                devices, a UDS CoordinatorServer, every job behind a
                WorkerAgent: one musicgen-large trainer at full width
@@ -242,9 +242,9 @@ Phases, one line each (plus details):
                as subprocesses on the card, side by side and beside path
                17: exit 0 and their printed invariants (the preemption
                drill repeats path 7 and runs in the CPU tests);
- 16. crash path (on a thread beside path 9, whose plane holds ~22 GB of
-               the card while this path's trainers run in child
-               processes): a node
+ 16. crash path (on a thread beside paths 9 and then 12 (a), which
+               hold 13 and 10 GB of the card while this path's trainers run
+               in child processes): a node
                failure during a dump, through the port's CLI
                in fresh processes under path 7's wrapper, gemma2-2b at full
                width with 2 of 26 layers (8.95 GB lossless), batch 2 x 512,
@@ -273,16 +273,21 @@ Phases, one line each (plus details):
                less the 2-layer one's, halved) extrapolated to 26 layers;
                the loss and every gradient under dots and full within 1e-5
                of each leaf's largest magnitude of those under none
-               (bitwise equality reported). (b) All 26 layers, 2 x 4096,
-               the default dots policy, AdamW: the dry run's record on a
-               (1, 1) mesh against the card (params + optimizer-state bytes
-               equal to the train state on the card, its counted step
-               FLOPs, the recompute included, equal to FlopCounterMode's
-               count of the first real step); 3 more steps under CUDA
-               events, the device peak, and the TFLOP/s and share of the
-               dense bf16 peak on a `dryrun:` line with the card's name and
-               power limit. (c) The state after those 4 steps dumped
-               through CheckpointSession to file:// under
+               (bitwise equality reported); the same pass traced on meta
+               (launch/stepcost.py): its peak within 5% of the card's.
+               (b) All 26 layers, 2 x 4096, the default dots policy,
+               AdamW: the dry run's record on a (1, 1) mesh (traced beside
+               path 7's resume) against the card (params + optimizer-state
+               bytes equal to the train state on the card and to the
+               record's alias, its counted step FLOPs, the recompute
+               included, equal to FlopCounterMode's count of the first
+               real step, its argument + temp within 5% of the steps'
+               device peak above what was allocated before the state); 3
+               more steps under CUDA events, the TFLOP/s and share of the
+               dense bf16 peak and the record's bytes and FLOPs bounds
+               (each at most the median step) on `dryrun:` lines with the
+               card's name and power limit. (c) The state after those 4
+               steps dumped through CheckpointSession to file:// under
                CodecPolicy(optimizer="bf16", device="auto"): K2 encodes
                every moment leaf on the card (its launches counted, zeroed
                just before), params lossless; one more live step; the live
@@ -1609,7 +1614,7 @@ class Child:
             return {r["step"]: r["loss"] for r in json.load(f)}
 
 
-def lifecycle_path(torch, dev, args, beside=None):
+def lifecycle_path(torch, dev, args, beside=None, beside_resume=None):
     """Preempt-to-migrate of a training job through the port's CLI
     (python -m repro_torch.launch.train), in fresh processes: a reference
     run; a run SIGTERMed after step LIFECYCLE_SIGNAL_AT's line, which must
@@ -1617,9 +1622,14 @@ def lifecycle_path(torch, dev, args, beside=None):
     --resume in a new process, which must verify the digest and continue
     with the reference's losses. K5 must classify every fp32 leaf of the
     train state on the card in the round and in the residual dump.
-    ``beside`` (path 12) runs on a thread while the resumed child runs,
-    which holds a third of the card and leaves this process idle; its
-    result is ``out["beside"]``."""
+    ``beside`` (paths 13 and 6) runs on a thread while the preempted
+    child runs alone, which holds a third of the card and leaves this
+    process idle; its result is ``out["beside"]``. The reference runs
+    beside the resume, once ``beside`` has returned: two lifecycle
+    children and an in-process path would not fit the card together.
+    ``beside_resume`` (work with little of the card: path 12 (b)'s
+    subprocesses, path 17's trace on meta) runs on a thread beside those
+    two; its result is ``out["beside_resume"]``."""
     import shutil
     import signal as _signal
     import tempfile
@@ -1655,26 +1665,25 @@ def lifecycle_path(torch, dev, args, beside=None):
                    "--data-dir", os.path.join(tmp, "data")])
         ck = ["--ckpt-dir", "file://" + os.path.join(tmp, "ck")]
 
-        # the reference beside the preempted run (its own copy of the
-        # seeded data: the two would write the same shards at once); its
-        # lines are read once the preempted run has exited
-        log(f"lifecycle: reference run (no checkpoint dir) beside the "
-            f"preempted run (SIGTERM after the line of step "
-            f"{LIFECYCLE_SIGNAL_AT}, --predump-rounds 1)")
-        ref = Child(base[:-1] + [os.path.join(tmp, "data-reference")], tmp,
-                    "reference", dev, started)
-        pre = Child(base + ck + ["--predump-rounds", "1"], tmp, "preempted",
-                    dev, started)
-        t_sig = None
-        for ln in pre:
-            if t_sig is None and f'"step": {LIFECYCLE_SIGNAL_AT},' in ln:
-                pre.p.send_signal(_signal.SIGTERM)
-                t_sig = time.time() - pre.t0
-        rc = pre.finish()
-        check(ref.finish() == 0, f"the reference run exited {ref.rc}")
-        want = ref.losses()
-        check(sorted(want) == list(range(1, LIFECYCLE_STEPS + 1)),
-              f"the reference logged steps {sorted(want)}")
+        log(f"lifecycle: the preempted run (SIGTERM after the line of step "
+            f"{LIFECYCLE_SIGNAL_AT}, --predump-rounds 1)"
+            + (" beside paths 13 and 6 in this process" if beside else ""))
+        side = Beside(beside) if beside else None
+        try:
+            pre = Child(base + ck + ["--predump-rounds", "1"], tmp,
+                        "preempted", dev, started)
+            t_sig = None
+            for ln in pre:
+                if t_sig is None and f'"step": {LIFECYCLE_SIGNAL_AT},' in ln:
+                    pre.p.send_signal(_signal.SIGTERM)
+                    t_sig = time.time() - pre.t0
+            rc = pre.finish()
+            out["preempted_wall_s"] = pre.wall_s
+        finally:
+            if side:                    # its processes end with it
+                side.thread.join()
+        if side:
+            out["beside"] = side.join()
         check(t_sig is not None, "the preempted run never logged step "
                                  f"{LIFECYCLE_SIGNAL_AT}")
         out["signal_to_exit_s"] = pre.wall_s - t_sig
@@ -1723,17 +1732,29 @@ def lifecycle_path(torch, dev, args, beside=None):
               f"a kernel other than K5 ran on the lossless lifecycle path: "
               f"{launches}")
 
-        log("lifecycle: resume (--resume, a fresh process)")
-        side = Beside(beside) if beside else None
+        # the reference beside the resume (its own copy of the seeded
+        # data: the two would write the same shards at once); its lines
+        # are read once the resume has exited
+        log("lifecycle: resume (--resume, a fresh process) beside the "
+            "reference run (no checkpoint dir)")
+        t_phase = time.time()
+        side = Beside(beside_resume) if beside_resume else None
         try:
+            ref = Child(base[:-1] + [os.path.join(tmp, "data-reference")],
+                        tmp, "reference", dev, started)
             res = Child(base + ck + ["--resume"], tmp, "resumed", dev,
                         started)
             res.finish()
+            check(ref.finish() == 0, f"the reference run exited {ref.rc}")
         finally:
             if side:                    # its processes end with it
                 side.thread.join()
         if side:
-            out["beside"] = side.join()
+            out["beside_resume"] = side.join()
+        out["resume_phase_wall_s"] = time.time() - t_phase
+        want = ref.losses()
+        check(sorted(want) == list(range(1, LIFECYCLE_STEPS + 1)),
+              f"the reference logged steps {sorted(want)}")
         check(res.rc == 0, f"the resumed run exited {res.rc}")
         line = next((ln for _, ln in res.lines if "resumed from" in ln), "")
         check("(migrated: SIGTERM)" in line,
@@ -2013,6 +2034,10 @@ def remote_path(torch, dev, args):
 # PLANE_CUT, and the replicas the rest; at the cut every slot but one is
 # busy, and nov0, arriving then, takes the last.
 PLANE_SLOTS, PLANE_PAGE = 8, 4800
+# gemma2-2b cut from 26 layers to 14 (7 of its 13 local/global pairs):
+# the schedule depends on the slots only, and with path 12 (a) after it
+# the path ends about when path 16 beside it does
+PLANE_LAYERS = 14
 PLANE_TRAFFIC = dict(rate=1.5, prompt_support=(256, 512, 1024, 2048),
                      target_max=32)
 PLANE_LONG = (4608, 48)        # long0: prompt tokens, target
@@ -2064,10 +2089,11 @@ def _plane_outputs(mgr, skip=()):
 
 
 def plane_path(torch, dev, args):
-    """The live serving plane (Table-1 row 16) on gemma2-2b at full width
-    and depth: reference R uninterrupted; the source plane to the cut, then
-    drain and checkpoint into mem://; replica B restored eagerly and
-    replica C lazily (nov0's first token before complete_restore), both
+    """The live serving plane (Table-1 row 16) on gemma2-2b at full width,
+    PLANE_LAYERS of its 26 layers: reference R uninterrupted; the source
+    plane to the cut, then drain and checkpoint into mem://; replica B
+    restored eagerly and replica C lazily (nov0's first token before
+    complete_restore), both
     continued to PLANE_TICKS. Every session's tokens in B and C must equal
     R's; every prefill attention through K6 (the wgmma route at head dim
     256)."""
@@ -2081,7 +2107,7 @@ def plane_path(torch, dev, args):
     from repro_torch.models.model import LM
     from repro_torch.serving import Request, SessionManager, TrafficGenerator
 
-    cfg = CONFIG
+    cfg = CONFIG.replace(num_layers=PLANE_LAYERS)
     lm = LM(cfg)
     t0 = time.time()
     params = lm.init(torch.Generator().manual_seed(args.seed), device=dev)
@@ -2091,10 +2117,11 @@ def plane_path(torch, dev, args):
     out = {"params": lm.n_params(), "layers": cfg.num_layers,
            "params_gb": pbytes / 1e9,
            "pool_gb": PLANE_SLOTS * slot_bytes / 1e9}
-    log(f"plane: {cfg.name} at full width and depth ({cfg.num_layers} "
-        f"layers, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
-        f"heads x {cfg.resolved_head_dim}, windows {cfg.windows}, softcaps "
-        f"{cfg.attn_softcap}/{cfg.final_softcap}, no cut); params="
+    log(f"plane: {cfg.name} at full width ({cfg.num_layers} of "
+        f"{CONFIG.num_layers} layers, the only cut; d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, windows {cfg.windows}, softcaps "
+        f"{cfg.attn_softcap}/{cfg.final_softcap}); params="
         f"{lm.n_params():,} ({pbytes / 1e9:.2f} GB fp32 on the card), init "
         f"{time.time() - t0:.1f} s; pool {PLANE_SLOTS} slots x "
         f"{PLANE_PAGE} = {out['pool_gb']:.2f} GB bf16")
@@ -2562,6 +2589,7 @@ def fleet_path(torch, dev, args):
         coord = cl.coordinator
         step_fn = make_train_step(lm, OptConfig())
         trainers, frames_retired = {}, [0]
+        retire_lock = threading.Lock()    # trainers restore side by side
 
         class TimedTransport(LoopbackTransport):
             """A trainer's wire: the loopback transport, keeping the
@@ -2601,7 +2629,8 @@ def fleet_path(torch, dev, args):
             old, transport = trainers[rec.job_id]
             old.paused = True                # the old incarnation is gone:
             transport.client.close()         # its baseline's host copy too
-            frames_retired[0] += transport.frames_received
+            with retire_lock:
+                frames_retired[0] += transport.frames_received
             job = FleetTrainer(rec.job_id, seed=old.seed, lm=lm,
                                step_fn=step_fn, dev=dev,
                                incarnation=old.incarnation + 1)
@@ -2689,11 +2718,20 @@ def fleet_path(torch, dev, args):
         check(report0.complete and len(report0.dumped) == 20,
               f"wave 0 incomplete: {report0}")
         out["wave0"]["t0_image"] = report0.dumped["t0"]
-        out["wave0"]["trainer_restores"] = {}
-        for jid in [r.job_id for r in coord.registry.jobs()]:
-            _, times = restore_planned(jid)
-            if times:
-                out["wave0"]["trainer_restores"][jid] = times
+        # the trainers restore side by side, each on its own host, as the
+        # hosts of a fleet restore their jobs; then the SimJobs
+        jobs0 = [r.job_id for r in coord.registry.jobs()]
+        t_restores = time.time()
+        sides = {j: Beside(lambda j=j: restore_planned(j)) for j in jobs0
+                 if j in trainers}
+        out["wave0"]["trainer_restores"] = {
+            j: side.join()[1] for j, side in sides.items()}
+        out["wave0"]["trainer_restores_wall_s"] = time.time() - t_restores
+        log(f"fleet: wave 0's trainer restores side by side in "
+            f"{out['wave0']['trainer_restores_wall_s']:.2f} s")
+        for jid in jobs0:
+            if jid not in trainers:
+                restore_planned(jid)
         gc.collect()                     # the incarnations before wave 0
         torch.cuda.empty_cache()
         # wave 0's moments: the delta8 baseline of T0's wave-1 dump (the
@@ -2883,7 +2921,7 @@ class _CutSocket:
         return getattr(self.sock, name)
 
 
-def socket_path(torch, dev, args):
+def socket_path(torch, dev, args, restart=True):
     """Path 12: the fleet over real Unix-domain sockets. (a) In process:
     a musicgen-large trainer (4 of 48 layers, full width, delta8 moments)
     and 6 SimJobs answer one UDS CoordinatorServer through WorkerAgents.
@@ -2898,7 +2936,8 @@ def socket_path(torch, dev, args):
     not (counters zeroed just before, read just after). (b) Across
     processes: the example's coordinator SIGKILLs itself mid-wave and
     restarts from its journal under 3 worker subprocesses on the card; its
-    digests must equal those of a run without the kill."""
+    digests must equal those of a run without the kill (``restart``; else
+    socket_restart runs it on its own)."""
     import shutil
     import tempfile
 
@@ -3233,13 +3272,26 @@ def socket_path(torch, dev, args):
         del new, job
         gc.collect()
         torch.cuda.empty_cache()
-        out["restart"] = _socket_restart(dev, args, tmp)
+        if restart:
+            out["restart"] = _socket_restart(dev, args, tmp)
     finally:
         if cl is not None:
             cl.shutdown()
         reset_tier_registry()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def socket_restart(dev, args) -> dict:
+    """Path 12 (b) on its own, in a temporary directory of its own."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-socket-restart-",
+                           dir=args.lifecycle_dir)
+    try:
+        return _socket_restart(dev, args, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _socket_restart(dev, args, tmp):
@@ -4585,6 +4637,7 @@ REMAT_MICROBATCHES = 1           # 2 x 4096 fits in one under dots
 REMAT_STEPS = 3                  # (b): timed after the counted first step
 REMAT_GRAD_TOL = 1e-5            # (a): of each leaf's largest magnitude
 REMAT_HOST_GB = 90               # (c): the host peak's limit
+REMAT_PEAK_TOL = 0.05            # (a), (b): the dry run's peak vs the card's
 
 
 def _seq_tokens(torch, dev, cfg, rng, B):
@@ -4594,10 +4647,13 @@ def _seq_tokens(torch, dev, cfg, rng, B):
 
 def remat_policies(torch, dev, args) -> dict:
     """(a): one loss and backward pass under each policy from the same
-    params, and a forward at twice the depth for the bytes per layer."""
+    params, and a forward at twice the depth for the bytes per layer;
+    the same pass traced on meta, whose peak above the params (the dry
+    run's StepCost) must lie within REMAT_PEAK_TOL of the card's."""
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.stepcost import StepCost
     from repro_torch.models.model import LM, saved_for_backward
     from repro_torch.models.params import tree_leaves, tree_map
 
@@ -4639,6 +4695,16 @@ def remat_policies(torch, dev, args) -> dict:
                 "peak_above_state": torch.cuda.max_memory_allocated() - base,
                 "ms": e0.elapsed_time(e1)}
 
+    def traced(policy):
+        """The peak of what the same pass allocates, traced on meta."""
+        lm = LM(cfg.replace(remat_policy=policy))
+        leaves = tree_map(lambda _, t: t.requires_grad_(True), lm.abstract())
+        tokens = torch.empty_like(batch["tokens"], device="meta")
+        with StepCost() as sc:
+            loss, _ = lm.loss(leaves, {"tokens": tokens})
+            loss.backward()
+        return sc.peak
+
     run("dots")                                       # warm, not kept
     runs, out = {}, {}
     for policy in REMAT_POLICIES:
@@ -4646,9 +4712,11 @@ def remat_policies(torch, dev, args) -> dict:
         check(bool(torch.isfinite(r["loss"])), f"{policy}: non-finite loss")
         deeper = kept(policy, 2 * REMAT_A_LAYERS, deep).nbytes
         per_layer = (deeper - r["saved_bytes"]) / REMAT_A_LAYERS
+        planned = traced(policy)
         out[policy] = {
             "loss": float(r["loss"]), "ms": r["ms"],
             "peak_above_state": r["peak_above_state"],
+            "planned_peak_above_state": planned,
             "saved_bytes": r["saved_bytes"], "cached_outputs": r["cached"],
             "saved_bytes_deeper": deeper, "per_layer_bytes": per_layer,
             "saved_bytes_at_full_depth": r["saved_bytes"] + per_layer
@@ -4673,15 +4741,24 @@ def remat_policies(torch, dev, args) -> dict:
                 f"; loss and gradients {'bitwise' if o['bitwise'] else 'not bitwise'}"
                 f" equal to none's (worst {o['worst_grad_rel']:.2e} of a "
                 f"leaf's largest magnitude)")
+        miss = planned / o["peak_above_state"] - 1
+        o["planned_miss"] = miss
         log(f"remat: (a) {REMAT_ARCH} {REMAT_A_LAYERS} of {full.num_layers} "
             f"layers, 1 x {REMAT_SEQ}, {policy}: forward + backward "
             f"{o['ms']:.1f} ms; peak {o['peak_above_state'] / 1e9:.3f} GB "
-            f"above the params; kept for the backward pass "
+            f"above the params (the dry run on meta {planned / 1e9:.3f} GB, "
+            f"{100 * miss:+.2f}%); kept for the backward pass "
             f"{o['saved_bytes'] / 1e9:.4f} GB ({o['cached_outputs']} matmul "
             f"outputs cached), {o['per_layer_bytes'] / 1e6:.2f} MB a layer "
             f"(4-layer forward {deeper / 1e9:.4f} GB), "
             f"{o['saved_bytes_at_full_depth'] / 1e9:.3f} GB at "
             f"{full.num_layers} layers{same}")
+    for policy in REMAT_POLICIES:
+        o = out[policy]
+        check(abs(o["planned_miss"]) <= REMAT_PEAK_TOL,
+              f"{policy}: the dry run's peak {o['planned_peak_above_state']} B"
+              f" is {100 * o['planned_miss']:+.2f}% of the card's "
+              f"{o['peak_above_state']} B (limit {100 * REMAT_PEAK_TOL:g}%)")
     ratio = out["none"]["per_layer_bytes"] / out["dots"]["per_layer_bytes"]
     out["none_over_dots_per_layer"] = ratio
     log(f"remat: (a) per layer, none keeps {ratio:.2f}x the bytes dots "
@@ -4692,10 +4769,26 @@ def remat_policies(torch, dev, args) -> dict:
     return out
 
 
-def remat_trainer(torch, dev, args) -> dict:
+def remat_record() -> tuple:
+    """(b)'s dry-run record of the full-depth step on a (1, 1) mesh, traced
+    on meta (CPU only) -> (record, seconds)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.time()
+    rec = dryrun.run_cell(
+        REMAT_ARCH, ShapeConfig("chip_remat", "train", REMAT_SEQ, REMAT_BATCH),
+        mesh=make_test_mesh((1, 1), device="meta"),
+        microbatches=REMAT_MICROBATCHES, verbose=False)
+    return rec, time.time() - t0
+
+
+def remat_trainer(torch, dev, args, planned=None) -> dict:
     """(b) and (c): the full-depth trainer under the default policy, the
     dry run's record against the card, then the dump through K2, one
-    live step, the restore and the same step from the restored state."""
+    live step, the restore and the same step from the restored state.
+    ``planned``: remat_record()'s result, traced earlier where this
+    process was idle; traced here when None."""
     import shutil
     import tempfile
 
@@ -4705,13 +4798,11 @@ def remat_trainer(torch, dev, args) -> dict:
     from repro_torch.api import (CheckpointSession, CodecPolicy, DumpRequest,
                                  SessionConfig)
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import flatten_with_paths
     from repro_torch.core.device_codec import DEVICE_MIN_BYTES
     from repro_torch.kernels.ckpt_codec import ckpt_codec
     from repro_torch.kernels.flash_attention import flash_attention as k6
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.model import LM
     from repro_torch.optim import OptConfig
     from repro_torch.training import (abstract_train_state, init_train_state,
@@ -4720,16 +4811,20 @@ def remat_trainer(torch, dev, args) -> dict:
     cfg = get_config(REMAT_ARCH)
     lm = LM(cfg)
     B, S = REMAT_BATCH, REMAT_SEQ
-    t0 = time.time()
-    rec = dryrun.run_cell(REMAT_ARCH, ShapeConfig("chip_remat", "train", S, B),
-                          mesh=make_test_mesh((1, 1), device="meta"),
-                          microbatches=REMAT_MICROBATCHES, verbose=False)
+    rec, record_s = planned or remat_record()
     plan_bytes = rec["bytes_per_device"]["params"] + \
         rec["bytes_per_device"]["opt_state"]
     plan_flops = rec["totals_per_device"]["step_flops"]
-    out = {"record_s": time.time() - t0, "plan_state_bytes": plan_bytes,
+    mem, cost = rec["memory_analysis_per_device"], \
+        rec["cost_analysis_per_device"]
+    out = {"record_s": record_s, "plan_state_bytes": plan_bytes,
            "plan_step_flops": plan_flops, "remat": rec["options"]["remat"],
-           "microbatches": REMAT_MICROBATCHES}
+           "microbatches": REMAT_MICROBATCHES, "memory_analysis": mem,
+           "cost_analysis": cost}
+    log(f"remat: (b) the dry run's record (1, 1): memory_analysis "
+        f"{dryrun.memory_line(mem)}; {cost['flops']:,} FLOPs and "
+        f"{cost['bytes accessed']:,} bytes accessed a step (one trace, "
+        f"{cost['trace_s']:.1f} s on meta)")
     check(out["remat"] == "dots", f"the record's policy {out['remat']}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4771,21 +4866,44 @@ def remat_trainer(torch, dev, args) -> dict:
     check(all(np.isfinite(losses)), f"non-finite losses {losses}")
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
+    planned = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    miss = planned / (peak - base) - 1
+    bounds = {"bytes": cost["bytes accessed"] / HBM_BYTES_PER_S,
+              "flops": cost["flops"] / BF16_OPS_PER_S}
     out.update(losses=losses, step_s=times, step_s_median=med,
                tflops=counted / med / 1e12,
                peak_share=counted / med / BF16_OPS_PER_S,
-               peak_device_gb=peak / 1e9,
-               peak_above_state_gb=(peak - base - real) / 1e9)
+               peak_device_gb=peak / 1e9, base_device_bytes=base,
+               peak_above_state_gb=(peak - base - real) / 1e9,
+               planned_peak_bytes=planned, planned_miss=miss,
+               bound_s=bounds, bound_share=max(bounds.values()) / med)
     card = smi_line()
     log(f"remat: (b) {card}: peak device memory {peak / 1e9:.2f} GB "
-        f"(the state {real / 1e9:.2f} GB, {out['peak_above_state_gb']:.2f} "
-        f"GB above it); losses {losses}")
+        f"({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB "
+        f"allocated before the state; the state {real / 1e9:.2f} GB, "
+        f"{out['peak_above_state_gb']:.2f} GB above it); the dry run's "
+        f"argument + temp {planned / 1e9:.3f} GB ({100 * miss:+.2f}%); "
+        f"losses {losses}")
     log(f"dryrun: {card}: {REMAT_ARCH} {cfg.num_layers}-layer train step "
         f"{B} x {S} under remat dots median {med:.4f} s over {REMAT_STEPS} "
         f"steps (CUDA events; {', '.join(f'{t:.4f}' for t in times)}): "
         f"{out['tflops']:.1f} TFLOP/s counted, "
         f"{100 * out['peak_share']:.1f}% of the dense bf16 peak "
         f"({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+    log(f"dryrun: {card}: the record's bounds for that step: bytes "
+        f"{cost['bytes accessed']:,} / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{bounds['bytes']:.4f} s, FLOPs {cost['flops']:,} / "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s = {bounds['flops']:.4f} s; the "
+        f"larger is {100 * out['bound_share']:.1f}% of the median step")
+    check(mem["alias_size_in_bytes"] == real,
+          f"the dry run's alias {mem['alias_size_in_bytes']} B, the state "
+          f"on the card {real} B")
+    check(abs(miss) <= REMAT_PEAK_TOL,
+          f"the dry run's argument + temp {planned} B is {100 * miss:+.2f}% "
+          f"of the card's peak {peak - base} B above what was allocated "
+          f"before the state (limit {100 * REMAT_PEAK_TOL:g}%)")
+    check(all(b <= med for b in bounds.values()),
+          f"a bound of the step {bounds} exceeds its median {med:.4f} s")
 
     # (c)
     tmp = tempfile.mkdtemp(prefix="chip-smoke-remat-", dir=args.lifecycle_dir)
@@ -4871,15 +4989,16 @@ def remat_trainer(torch, dev, args) -> dict:
     return out
 
 
-def remat_path(torch, dev, args) -> dict:
-    """Path 17: (a), then (b) and (c) on a freed card."""
+def remat_path(torch, dev, args, planned=None) -> dict:
+    """Path 17: (a), then (b) and (c) on a freed card; ``planned`` as
+    remat_trainer takes it."""
     out = {}
     t0 = time.time()
     out["policies"] = remat_policies(torch, dev, args)
     out["policies_s"] = time.time() - t0
     free_host_and_card(torch)
     t1 = time.time()
-    out["trainer"] = remat_trainer(torch, dev, args)
+    out["trainer"] = remat_trainer(torch, dev, args, planned)
     out["trainer_s"] = time.time() - t1
     out["launches"] = out["trainer"]["launches"]
     out["wall_s"] = time.time() - t0
@@ -5053,10 +5172,18 @@ def main(argv=None) -> int:
           f"the wgmma kernels spill or are missing from ptxas's report: "
           f"{spills}")
 
+    marks = [("build", time.time() - t_start)]
+
+    def mark(label):
+        """The script's clock at the end of a phase."""
+        marks.append((label, time.time() - t_start))
+
     rows = kernel_phase(torch, dev, args.seed)
     rows["flash_attention"] = flash_phase(torch, dev, args.seed)
+    mark("kernels")
     torch.cuda.reset_peak_memory_stats()
     record = train_path(torch, dev, args)
+    mark("train")
     record["train_peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for k, n in record["launches"].items():
         rows[k]["launches"] = n
@@ -5066,47 +5193,73 @@ def main(argv=None) -> int:
     record["serve"]["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rows["flash_attention"]["launches"] = \
         record["serve"]["launches"]["flash_attention"]
-    free_host_and_card(torch)
-    torch.cuda.reset_peak_memory_stats()
-    with RssPeak() as rss:
-        record["precopy"] = precopy_path(torch, dev, args)
-    record["precopy"]["host_peak_rss_gb"] = rss.peak_gb
-    record["precopy"]["peak_device_gb"] = \
-        torch.cuda.max_memory_allocated() / 1e9
-    rows["flash_attention"]["launches"] += \
-        record["precopy"]["launches"]["flash_attention"]
+    mark("serve")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
 
-    def socket_beside():
-        """Path 12 with its own clock, host and device peaks."""
+    def own_clock(path, **kw):
+        """A path with its own clock, host and device peaks."""
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with RssPeak() as rss:
-            out = socket_path(torch, dev, args)
+            out = path(torch, dev, args, **kw)
         out.update(host_peak_rss_gb=rss.peak_gb,
                    host_rss_at_start_gb=rss.start_gb,
                    wall_s=time.time() - t0,
                    peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        free_host_and_card(torch)
         return out
+
+    def beside_preempted():
+        """Paths 13 and 6, one after the other, beside path 7's preempted
+        child (a third of the card; this process idle)."""
+        return {"families": own_clock(families_path),
+                "precopy": own_clock(precopy_path)}
+
+    def beside_resume():
+        """Path 12 (b) (subprocesses with little of the card), then path
+        17's record traced on meta, beside path 7's resume and
+        reference."""
+        t0 = time.time()
+        restart = socket_restart(dev, args)
+        restart["wall_s"] = time.time() - t0
+        return {"restart": restart, "remat_record": remat_record()}
 
     t0 = time.time()
     record["lifecycle"] = lifecycle_path(torch, dev, args,
-                                         beside=socket_beside)
-    record["socket"] = sock = record["lifecycle"].pop("beside")
-    log(f"socket: path {sock['wall_s']:.1f} s beside path 7's resume (in "
-        f"process {sock['in_process_s']:.1f} s, the restart "
-        f"{sock['restart']['wall_s']:.1f} s); peak device memory "
-        f"{sock['peak_device_gb']:.1f} GB in this process; host peak RSS of "
-        f"the path {sock['host_peak_rss_gb']:.1f} GB, "
-        f"{sock['host_peak_rss_gb'] - sock['host_rss_at_start_gb']:.1f} GB "
-        f"above the {sock['host_rss_at_start_gb']:.1f} GB at its start "
-        f"(sampled every 20 ms; the subprocesses' own not included); paths 7 "
-        f"and 12 together {time.time() - t0:.1f} s")
-    for k in ckpt_codec.KERNELS:
-        rows[k]["launches"] += sock["launches"][k]
+                                         beside=beside_preempted,
+                                         beside_resume=beside_resume)
+    side = record["lifecycle"].pop("beside")
+    later = record["lifecycle"].pop("beside_resume")
+    remat_planned = later["remat_record"]
+    record["families"] = fam = side["families"]
+    record["precopy"] = pre = side["precopy"]
+    log(f"families: path {fam['wall_s']:.1f} s ((a) {fam['archs_s']:.1f} s, "
+        f"(b) {fam['session_s']:.1f} s, (c) {fam['train_s']:.1f} s) beside "
+        f"path 7's preempted run; peak device memory "
+        f"{fam['peak_device_gb']:.1f} GB; host peak RSS of the path "
+        f"{fam['host_peak_rss_gb']:.1f} GB, "
+        f"{fam['host_peak_rss_gb'] - fam['host_rss_at_start_gb']:.1f} GB "
+        f"above the {fam['host_rss_at_start_gb']:.1f} GB at its start "
+        f"(sampled every 20 ms)")
+    log(f"precopy: path {pre['wall_s']:.1f} s after path 13, beside path 7's "
+        f"preempted run; peak device memory {pre['peak_device_gb']:.1f} GB; "
+        f"host peak RSS of the path {pre['host_peak_rss_gb']:.1f} GB "
+        f"(sampled every 20 ms)")
+    log(f"lifecycle: the preempted run {record['lifecycle']['preempted_wall_s']:.1f}"
+        f" s, paths 13 and 6 beside it {fam['wall_s'] + pre['wall_s']:.1f} "
+        f"s; the resume beside the reference "
+        f"{record['lifecycle']['resume_phase_wall_s']:.1f} s, path 12 (b) "
+        f"({later['restart']['wall_s']:.1f} s) and path 17's record on meta "
+        f"({remat_planned[1]:.1f} s) beside those; paths 7, 13, 6 and 12 (b) "
+        f"together {time.time() - t0:.1f} s")
+    for k, n in fam["launches"].items():
+        rows[k]["launches"] += n
+    rows["flash_attention"]["launches"] += pre["launches"]["flash_attention"]
     rows["digest_blocks"]["launches"] = \
-        record["precopy"]["launches"]["digest_blocks"] \
+        pre["launches"]["digest_blocks"] \
         + record["lifecycle"]["launches"]["digest_blocks"]
+    mark("lifecycle+families+precopy")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -5120,27 +5273,38 @@ def main(argv=None) -> int:
         f"of the path {rss_remote.peak_gb:.1f} GB (sampled every 20 ms)")
     for k, n in record["remote"]["launches"].items():
         rows[k]["launches"] += n
+    mark("remote")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    # path 16 beside path 9: the plane holds ~22 GB of the card and the
-    # crash path's trainers run in child processes (2 x 19 GB)
+    # paths 9 and 12 (a) beside path 16: the crash path's trainers run in
+    # child processes (2 x 19 GB of the card), the plane holds 13 GB of it
+    # and path 12 (a) 10 GB after it
     side = Beside(lambda: crash_path(torch, dev, args))
     try:
-        with RssPeak() as rss_plane:
-            record["plane"] = plane_path(torch, dev, args)
-        record["plane"].update(
-            host_peak_rss_gb=rss_plane.peak_gb, wall_s=time.time() - t0,
-            peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        record["plane"] = own_clock(plane_path)
+        record["socket"] = sock = own_clock(socket_path, restart=False)
     finally:
         side.thread.join()              # its processes end with it
     record["crash"] = side.join()
+    sock["restart"] = later["restart"]
     log(f"plane: path {record['plane']['wall_s']:.1f} s beside path 16; "
         f"peak device memory {record['plane']['peak_device_gb']:.1f} GB; "
-        f"host peak RSS of the path {rss_plane.peak_gb:.1f} GB (sampled "
-        f"every 20 ms)")
+        f"host peak RSS of the path {record['plane']['host_peak_rss_gb']:.1f}"
+        f" GB (sampled every 20 ms)")
+    log(f"socket: path (a) {sock['wall_s']:.1f} s after path 9, beside path "
+        f"16 (in process {sock['in_process_s']:.1f} s); (b) "
+        f"{sock['restart']['wall_s']:.1f} s beside path 7's resume; peak "
+        f"device memory {sock['peak_device_gb']:.1f} GB in this process; "
+        f"host peak RSS of the path {sock['host_peak_rss_gb']:.1f} GB, "
+        f"{sock['host_peak_rss_gb'] - sock['host_rss_at_start_gb']:.1f} GB "
+        f"above the {sock['host_rss_at_start_gb']:.1f} GB at its start "
+        f"(sampled every 20 ms; the subprocesses' own not included)")
     log(f"crash: path {record['crash']['wall_s']:.1f} s, from path 9's "
-        f"start (paths 9 and 16 together {time.time() - t0:.1f} s)")
+        f"start (paths 9, 12 (a) and 16 together {time.time() - t0:.1f} s)")
+    for k in ckpt_codec.KERNELS:
+        rows[k]["launches"] += sock["launches"][k]
+    mark("plane+socket+crash")
     t0 = time.time()
     record["archs"] = archs_phase(torch, dev, args)
     record["archs_s"] = time.time() - t0
@@ -5164,23 +5328,7 @@ def main(argv=None) -> int:
           f"machine's 96 GiB")
     for k in ckpt_codec.KERNELS:
         rows[k]["launches"] += record["fleet"]["launches"][k]
-    free_host_and_card(torch)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    with RssPeak() as rss_fam:
-        record["families"] = families_path(torch, dev, args)
-    fam = record["families"]
-    fam.update(host_peak_rss_gb=rss_fam.peak_gb,
-               host_rss_at_start_gb=rss_fam.start_gb, wall_s=time.time() - t0,
-               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"families: path {fam['wall_s']:.1f} s ((a) {fam['archs_s']:.1f} s, "
-        f"(b) {fam['session_s']:.1f} s, (c) {fam['train_s']:.1f} s); peak "
-        f"device memory {fam['peak_device_gb']:.1f} GB; host peak RSS of "
-        f"the path {rss_fam.peak_gb:.1f} GB, "
-        f"{rss_fam.peak_gb - rss_fam.start_gb:.1f} GB above the "
-        f"{rss_fam.start_gb:.1f} GB at its start (sampled every 20 ms)")
-    for k, n in fam["launches"].items():
-        rows[k]["launches"] += n
+    mark("archs+fleet")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -5197,11 +5345,13 @@ def main(argv=None) -> int:
         f"{rss_vis.peak_gb - rss_vis.start_gb:.1f} GB above the "
         f"{rss_vis.start_gb:.1f} GB at its start (sampled every 20 ms)")
     rows["flash_attention"]["launches"] += vis["launches"]["flash_attention"]
+    mark("vision")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     record["dryrun"] = dryrun_path(
-        torch, dev, args, beside=lambda: remat_path(torch, dev, args))
+        torch, dev, args,
+        beside=lambda: remat_path(torch, dev, args, remat_planned))
     dr = record["dryrun"]
     record["remat"] = dr.pop("beside")
     dr["wall_s"] = time.time() - t0
@@ -5210,8 +5360,13 @@ def main(argv=None) -> int:
         f"together {dr['wall_s']:.1f} s)")
     for k, n in record["remat"]["launches"].items():
         rows[k]["launches"] += n
+    mark("dryrun+remat")
     free_host_and_card(torch)
     record["capabilities"] = capability_phase(torch, dev)
+    mark("capabilities")
+    record["timeline"] = marks
+    log("timeline (s since start at each phase's end): " + ", ".join(
+        f"{label} {t:.1f}" for label, t in marks))
     record["kernels"] = list(rows.values())
     record["card"] = card
     record["wall_s"] = time.time() - t_start

@@ -140,9 +140,11 @@ def run_serve(args) -> int:
         base = server.registry.on_change
 
         def journal_then_maybe_die():
-            base()              # the dump record is durable FIRST
-            dumped = sum(1 for r in server.registry.jobs()
-                         if r.phase == "dumped")
+            # the dump record is durable FIRST; counted in the snapshot
+            # written, not the live table, which a dump on another thread
+            # may have moved on since
+            snap = base()
+            dumped = sum(1 for r in snap["jobs"] if r["phase"] == "dumped")
             if dumped >= args.die_after_dumps:
                 print(f"serve: SIGKILL self after {dumped} dumps",
                       flush=True)

@@ -1,6 +1,7 @@
 """Markdown table of the port's dry-run records (one row per arch, one
 column per shape): per-device bytes on the (16, 16) and (2, 16, 16) mesh
-records, and the counted FLOPs of one step, or the guard's skip.
+records, and the counted FLOPs and bytes accessed of one step, or the
+guard's skip.
 
 Run after the sweep:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes
@@ -33,7 +34,8 @@ def main(root="experiments/dryrun_torch"):
             gb = (f"{one['bytes_per_device']['total'] / 1e9:.3f} / "
                   f"{two['bytes_per_device']['total'] / 1e9:.3f} GB")
             tot = one.get("totals_per_device", {})
-            what = (f"{tot['step_flops']:.3e}" if "step_flops" in tot
+            what = (f"{tot['step_flops']:.3e} FLOPs, "
+                    f"{tot['step_bytes']:.3e} B" if "step_flops" in tot
                     else tot.get("skipped", tot.get("error", "not measured")))
             cells.append(f"{gb}; {what}")
         n = next(r for k, r in recs.items() if k[0] == arch)

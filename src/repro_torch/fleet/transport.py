@@ -680,6 +680,7 @@ class CoordinatorServer:
         self._transports: dict = {}
         self._conns: set = set()
         self._lock = threading.Lock()
+        self._journal_lock = threading.Lock()
         self._closing = threading.Event()
         self._listener = _listen(url)
         scheme, _addr = parse_url(url)
@@ -768,15 +769,19 @@ class CoordinatorServer:
     def journal(self):
         """Persist ``registry.to_wire()`` (plus this coordinator's epoch)
         atomically — the restart story is only as good as the last
-        committed snapshot."""
+        committed snapshot — and return it. Mutations on other threads
+        (heartbeats beside a dump) journal one at a time, so the last
+        snapshot written is the newest."""
         tier = self.registry_tier
         if tier is None:
-            return
-        snap = self.registry.to_wire()
-        snap["epoch"] = self.epoch
-        tier.write_bytes(REGISTRY_REL,
-                         json.dumps(snap, indent=1).encode("utf-8"),
-                         atomic=True)
+            return None
+        with self._journal_lock:
+            snap = self.registry.to_wire()
+            snap["epoch"] = self.epoch
+            tier.write_bytes(REGISTRY_REL,
+                             json.dumps(snap, indent=1).encode("utf-8"),
+                             atomic=True)
+        return snap
 
     # ------------------------------------------------------------ accepting
     def _accept_loop(self):

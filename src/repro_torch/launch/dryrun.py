@@ -5,17 +5,31 @@ needed — the JAX package's launch/dryrun.py for the port.
 Per cell the record holds the analytic parameter and FLOP counts, the
 per-device bytes of params, optimizer state, cache and inputs (each
 leaf's shard shape under its PartitionSpec on a production-shaped mesh
-record over placeholder devices), and the FLOPs of one step as
-``torch.utils.flop_counter.FlopCounterMode`` counts them while the step
-runs on ``meta``: a train step's backward pass included, and with it the
-recompute that the config's ``remat_policy`` (``--remat``) makes it do.
-``measure_totals`` repeats the JAX package's reduced-depth L1/L2 linear
-extrapolation and its guard.
+record over placeholder devices), and what one step does as it runs on
+``meta``: its FLOPs as ``torch.utils.flop_counter.FlopCounterMode``
+counts them and, in the same trace, its bytes accessed and live bytes
+as ``launch/stepcost.StepCost`` counts them (the counting rules are in
+that module's docstring). A train step's backward pass is included, and
+with it the recompute that the config's ``remat_policy`` (``--remat``)
+makes it do. ``measure_totals`` repeats the JAX package's reduced-depth
+L1/L2 linear extrapolation and its guard, for FLOPs and bytes.
+
+The record's ``memory_analysis_per_device`` has the JAX fields: argument
+(the step's input trees), output, alias (the outputs that take the place
+of a donated argument: a train step's state, decode's cache) and temp
+bytes (the peak of live bytes above the arguments). The temp comes from
+a trace of the cell's whole step, its microbatches included, and is per
+device only on a one-device mesh (``make_test_mesh((1, 1),
+device="meta")``); that trace also gives the record's
+``cost_analysis_per_device``. A prefill on ``meta`` runs the plain
+attention (``xla_flash``), not K6, so a prefill cell's bytes and temp
+describe the plain path.
 
 What has no counterpart here: torch has no SPMD partitioner, so there is
-no per-device program — no HLO, no collective statistics, no compiler
-memory analysis. A step's FLOPs are the whole step's, divided evenly over
-the mesh for the per-device figure. ``--act-seq-shard`` and
+no per-device program on a larger mesh — no HLO and no collective
+statistics (``collectives_per_device`` is zero on one device, null
+elsewhere). A step's FLOPs and bytes are the whole step's, divided evenly
+over the mesh for the per-device figure. ``--act-seq-shard`` and
 ``--cast-once`` only shape XLA's SPMD program, and exit with an error.
 FlopCounterMode counts matmul-class ops (mm, bmm, einsum's products,
 attention); XLA also counts elementwise work.
@@ -43,6 +57,7 @@ from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import specs as lspecs
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.stepcost import StepCost, tensor_bytes
 from repro_torch.models import flags as mflags
 from repro_torch.models import kvcache
 from repro_torch.models.model import LM
@@ -76,6 +91,12 @@ def shard_bytes(mesh: shd.Mesh, tree, pspecs) -> int:
 
 
 # ------------------------------------------------------------------ building
+# the groups a step returns in place of a donated argument (JAX's
+# donate_argnums: the train state, the decode cache)
+DONATED = {"train": ("params", "opt_state"), "prefill": (),
+           "decode": ("cache",)}
+
+
 @dataclass
 class Cell:
     """One cell built on ``meta``: its trees with their PartitionSpecs,
@@ -92,6 +113,21 @@ class Cell:
                for k, (t, ps) in self.trees.items()}
         out["total"] = sum(out.values())
         return out
+
+    def arguments(self) -> list:
+        """The groups the step takes: all but a prefill's cache, which
+        the step returns."""
+        return [k for k in self.trees
+                if not (k == "cache" and self.shape.kind == "prefill")]
+
+    def donated(self) -> dict | None:
+        """The donated argument tree as the step returns it: the train
+        state {params, opt, step}, or the decode cache."""
+        kind = self.shape.kind
+        if kind == "train":
+            return {"params": self.trees["params"][0],
+                    **self.trees["opt_state"][0]}
+        return self.trees["cache"][0] if kind == "decode" else None
 
 
 def lower_cell(arch: str, shape, mesh: shd.Mesh, *, fsdp=True, ep=False,
@@ -162,6 +198,45 @@ def count_flops(fn) -> int:
     return int(fc.get_total_flops())
 
 
+def trace_cost(fn):
+    """Run ``fn()`` once under FlopCounterMode and StepCost, one trace ->
+    (its outputs, {"flops", "bytes", "temp"}): FLOPs, bytes accessed, and
+    the peak of the bytes it allocated that were live at once."""
+    with FlopCounterMode(display=False) as fc, StepCost() as sc:
+        out = fn()
+    return out, {"flops": int(fc.get_total_flops()),
+                 "bytes": sc.bytes_accessed, "temp": sc.peak}
+
+
+def _leaves_at(tree, path=""):
+    if isinstance(tree, dict):
+        return {p: t for k in sorted(tree)
+                for p, t in _leaves_at(tree[k], f"{path}/{k}").items()}
+    return {path: tree}
+
+
+def split_outputs(kind: str, out):
+    """A step's outputs -> (the tree in the cell's own groups, the rest):
+    a train step's (state, metrics); prefill's and decode's (cache,
+    logits)."""
+    return (out[0], out[1]) if kind == "train" else (out[1], out[0])
+
+
+def output_bytes(kind: str, out, donated=None) -> dict:
+    """The outputs' bytes, whole: ``output`` every output leaf's,
+    ``alias`` those that replace a leaf of the ``donated`` argument tree
+    (``Cell.donated``) of the same path, shape and dtype, ``other`` those
+    outside the cell's groups (the metrics, the logits)."""
+    own, other = (_leaves_at(t) for t in split_outputs(kind, out))
+    donated = {} if donated is None else _leaves_at(donated)
+    alias = sum(tensor_bytes(t) for p, t in own.items()
+                if p in donated and donated[p].shape == t.shape
+                and donated[p].dtype == t.dtype)
+    rest = sum(tensor_bytes(t) for t in other.values())
+    return {"output": sum(tensor_bytes(t) for t in own.values()) + rest,
+            "alias": alias, "other": rest}
+
+
 # Baseline microbatch counts for train cells, the JAX package's (chosen
 # there for its per-device temp memory). measure_totals traces a
 # one-microbatch step, as the JAX package's does.
@@ -182,11 +257,13 @@ def default_microbatches(arch: str, shape_name: str) -> int:
 # ------------------------------------------------- loop-aware FLOP totals
 def _slstm_correction(cfg, shape, n_devices: int) -> dict:
     """The sLSTM token loop traces one step under ``flags.slstm_one_step``;
-    the other S - 1 steps' recurrent work is added analytically (global,
-    divided by device count), as the JAX package does."""
+    the other S - 1 steps' recurrent work and state I/O are added
+    analytically (global, divided by device count), as the JAX package
+    does."""
     n_slstm = (cfg.num_layers // len(cfg.pattern)) * cfg.pattern.count("slstm")
     if n_slstm == 0 or shape.kind == "decode":
-        return {"flops": 0.0, "flops_global": 0}
+        return {"flops": 0.0, "flops_global": 0, "bytes": 0.0,
+                "bytes_global": 0}
     di = cfg.d_inner
     H = cfg.num_heads
     dh = di // H
@@ -199,18 +276,24 @@ def _slstm_correction(cfg, shape, n_devices: int) -> dict:
     if shape.kind == "train":
         grad_mult = 3 if cfg.remat_policy == "none" else 4
     flops = step_flops * (S - 1) * n_slstm * grad_mult
-    return {"flops": flops / n_devices, "flops_global": flops}
+    # the JAX package's state I/O per step (weights assumed resident)
+    step_bytes = B * di * 4 * 6
+    nbytes = step_bytes * (S - 1) * n_slstm * grad_mult
+    return {"flops": flops / n_devices, "flops_global": flops,
+            "bytes": nbytes / n_devices, "bytes_global": nbytes}
 
 
 def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
-    """Per-device FLOP totals by the JAX package's method: trace two
-    reduced-depth variants (L1 = pattern+tail, L2 = 2*pattern+tail) and
-    extrapolate linearly in the group count:
+    """Per-device FLOP and byte totals by the JAX package's method: trace
+    two reduced-depth variants (L1 = pattern+tail, L2 = 2*pattern+tail)
+    and extrapolate linearly in the group count:
     total = f(L1) + (f(L2) - f(L1)) * (G - 1). The port's Python loops
     count every iteration, so for a model without sLSTM this equals the
     full-depth count exactly; the sLSTM loop counts one step and
     ``_slstm_correction`` adds the rest. The guard skips the cells the
-    JAX package skips."""
+    JAX package skips. ``other_output_bytes`` is the L1 step's outputs
+    outside its cell's groups (metrics, logits), which depth leaves as
+    they are."""
     cfg = configs.get_config(arch)
     if opt_kw.get("num_layers"):
         cfg = cfg.replace(num_layers=opt_kw["num_layers"])
@@ -229,30 +312,109 @@ def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
     if ssm_layers and shape.kind != "decode" and inner_bodies > 1024:
         return {"skipped": f"unroll blowup ({int(inner_bodies)} inner bodies)"}
     opt_kw = {k: v for k, v in opt_kw.items() if k != "num_layers"}
-    meas = {}
+    meas, other = {}, 0
     for name, L in (("L1", P + tail), ("L2", 2 * P + tail)):
         cell = lower_cell(arch, shape, mesh, microbatches=1, num_layers=L,
                           **opt_kw)
         t0 = time.time()
         with mflags.slstm_one_step():
-            flops = count_flops(cell.step)
-        meas[name] = {"flops": flops, "trace_s": round(time.time() - t0, 3)}
-    f1, f2 = meas["L1"]["flops"], meas["L2"]["flops"]
+            out, cost = trace_cost(cell.step)
+        if name == "L1":
+            other = output_bytes(shape.kind, out)["other"]
+        del out
+        meas[name] = {"flops": cost["flops"], "bytes": cost["bytes"],
+                      "trace_s": round(time.time() - t0, 3)}
     corr = _slstm_correction(cfg, shape, n_dev)
-    step = f1 + (f2 - f1) * (G - 1) + corr["flops_global"]
+    step = {k: meas["L1"][k] + (meas["L2"][k] - meas["L1"][k]) * (G - 1)
+            + corr[f"{k}_global"] for k in ("flops", "bytes")}
     return {
-        "flops": step / n_dev,
-        "step_flops": step,
+        "flops": step["flops"] / n_dev,
+        "bytes": step["bytes"] / n_dev,
+        "step_flops": step["flops"],
+        "step_bytes": step["bytes"],
+        "other_output_bytes": other,
         "trace_s": round(sum(m["trace_s"] for m in meas.values()), 3),
         "slstm_correction": corr,
         "per_variant": meas,
-        "method": ("FlopCounterMode on meta of reduced-depth steps, linear "
-                   f"extrapolation L1={P + tail} L2={2 * P + tail} G={G}, "
-                   f"divided evenly over {n_dev} devices; matmul-class ops "
-                   "only"
+        "method": ("FlopCounterMode and StepCost on meta of reduced-depth "
+                   f"steps, linear extrapolation L1={P + tail} "
+                   f"L2={2 * P + tail} G={G}, divided evenly over {n_dev} "
+                   "devices; FLOPs of matmul-class ops only"
                    + ("; sLSTM loop traced one step, the other S-1 added "
-                      "analytically" if corr["flops_global"] else "")),
+                      "analytically" if corr["flops_global"] else "")
+                   + ("; prefill through the plain attention (xla_flash), "
+                      "not K6" if shape.kind == "prefill" else "")),
     }
+
+
+NO_PROGRAM = ("torch has no SPMD partitioner: on a mesh of {} devices the "
+              "port runs no per-device program")
+
+
+def analyse_cell(cell: Cell, totals: dict | None) -> tuple:
+    """-> (memory_analysis_per_device, cost_analysis_per_device) of the
+    cell's step. On a one-device mesh one trace of the whole step (its
+    microbatches included) gives the output, alias and temp bytes and the
+    FLOPs and bytes accessed; on a larger mesh the alias is the donated
+    groups' bytes per device, the output those (or a prefill's cache)
+    plus the step's other outputs (``totals``' L1 trace: metrics
+    replicated, logits split over the batch axes), the costs
+    ``measure_totals``' (one microbatch), and the temp is null.
+    ``totals`` is measure_totals' result, None when not measured."""
+    kind, n_dev = cell.shape.kind, int(cell.mesh.devices.size)
+    bpd = cell.bytes_per_device()
+    mem = {"argument_size_in_bytes": sum(bpd[k] for k in cell.arguments()),
+           "output_size_in_bytes": None,
+           "alias_size_in_bytes": sum(bpd[k] for k in DONATED[kind]),
+           "temp_size_in_bytes": None}
+    prefill = ("; a prefill runs the plain attention (xla_flash) on meta, "
+               "not K6" if kind == "prefill" else "")
+    why = ("not measured (--no-measure)" if totals is None else
+           totals.get("skipped") or totals.get("error"))
+    if why:
+        mem["null_reason"] = why
+        return mem, {"flops": None, "bytes accessed": None,
+                     "null_reason": why}
+    if n_dev == 1:
+        t0 = time.time()
+        out, cost = trace_cost(cell.step)
+        ob = output_bytes(kind, out, cell.donated())
+        del out
+        mem.update(output_size_in_bytes=ob["output"],
+                   alias_size_in_bytes=ob["alias"],
+                   temp_size_in_bytes=cost["temp"])
+        mem["method"] = ("StepCost over one trace of the whole step on meta "
+                         "(launch/stepcost.py)" + prefill)
+        return mem, {"flops": cost["flops"], "bytes accessed": cost["bytes"],
+                     "trace_s": round(time.time() - t0, 3),
+                     "method": "FlopCounterMode and StepCost over the same "
+                               "trace" + prefill}
+    other = totals["other_output_bytes"]
+    if kind != "train":                 # logits [B, V], split by batch
+        B = cell.shape.global_batch
+        spec = shd.PartitionSpec(shd.batch_axes(cell.mesh, B))
+        other = other * shd.NamedSharding(cell.mesh, spec) \
+            .shard_shape((B,))[0] // B
+    own = bpd["cache"] if kind == "prefill" else mem["alias_size_in_bytes"]
+    mem["output_size_in_bytes"] = own + other
+    mem["null_reason"] = NO_PROGRAM.format(n_dev)
+    mem["method"] = ("argument, output and alias from the trees' shard "
+                     "shapes and the L1 trace's other outputs; no temp "
+                     "without a per-device program" + prefill)
+    return mem, {"flops": totals["flops"], "bytes accessed": totals["bytes"],
+                 "method": "measure_totals' extrapolation (one microbatch), "
+                           "divided evenly over the mesh" + prefill}
+
+
+def memory_line(mem: dict) -> str:
+    """The memory analysis as one line, the counterpart of XLA's repr."""
+    def gb(k):
+        v = mem[k]
+        return "null" if v is None else f"{v:,} B ({v / 1e9:.3f} GB)"
+    return (f"argument {gb('argument_size_in_bytes')}, output "
+            f"{gb('output_size_in_bytes')}, alias "
+            f"{gb('alias_size_in_bytes')}, temp {gb('temp_size_in_bytes')}"
+            + (f" ({mem['null_reason']})" if mem.get("null_reason") else ""))
 
 
 def run_cell(arch: str, shape, *, multi_pod=False, mesh=None, fsdp=True,
@@ -305,13 +467,24 @@ def run_cell(arch: str, shape, *, multi_pod=False, mesh=None, fsdp=True,
                 arch, shape, mesh, **opt_kw)
         except Exception as e:
             rec["totals_per_device"] = {"error": repr(e)}
+    rec["memory_analysis_per_device"], rec["cost_analysis_per_device"] = \
+        analyse_cell(cell, rec.get("totals_per_device"))
+    if n_dev == 1:
+        rec["collectives_per_device"] = {"total": {
+            "count": 0, "operand_bytes": 0, "modeled_traffic_bytes": 0.0}}
+    else:
+        rec["collectives_per_device"] = None
+        rec["collectives_null_reason"] = NO_PROGRAM.format(n_dev)
     if verbose:
         tot = rec.get("totals_per_device", {})
         print(f"[dryrun] {arch} x {shape.name} x "
               f"{'x'.join(map(str, mesh.devices.shape))}: "
               f"build {rec['build_s']}s "
               f"bytes/dev={rec['bytes_per_device']['total']:.4e} "
-              f"total_flops/dev={tot.get('flops', float('nan')):.4e}")
+              f"total_flops/dev={tot.get('flops', float('nan')):.4e} "
+              f"total_bytes/dev={tot.get('bytes', float('nan')):.4e}")
+        print(f"[dryrun] memory_analysis: "
+              f"{memory_line(rec['memory_analysis_per_device'])}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         fn = f"{arch}__{shape.name}__{where}__{tag}.json"

@@ -1,0 +1,149 @@
+"""What one step moves and what it holds, counted while the step runs:
+the dry run's bytes accessed and memory analysis (launch/dryrun.py).
+
+``StepCost`` is a ``TorchDispatchMode``, so it runs in the same trace as
+``FlopCounterMode`` and sees every aten op that reaches the dispatcher (a
+composite op as the ops it decomposes into; an op a selective checkpoint
+serves from its cache is never run, and counts nothing). On the ``meta``
+device and on CPU tensors it gives the same numbers.
+
+Bytes accessed (``bytes_accessed``), per op:
+
+- a view or metadata op (``func.is_view``: view, slice, select,
+  transpose, expand, unbind, ``detach``, ...) counts 0, and so does
+  ``_unsafe_view``, a reshape's view that its schema does not mark;
+  shape queries never reach the dispatcher; ``empty``, ``empty_like``
+  and ``empty_strided`` only allocate, and count 0;
+- any other op counts the bytes of its tensor inputs, each read once,
+  and of its tensor outputs, each written once. An in-place op's mutated
+  operand is both, so it counts once as read and once as written; an
+  ``out=`` operand counts only as written;
+- a gather-class op (``embedding``, ``index_select``, ``gather``,
+  ``index``) counts the rows it reads, which are its output's bytes, and
+  its indices, not the whole source; and its output as written.
+
+A tensor's bytes are its element count times its element size: a view
+counts its own elements, not its storage's.
+
+Live bytes (``live``, ``peak``): a storage that an op allocates is live
+from that op until the storage is freed. A storage is the op's own when
+the op is not a view and its output does not share an input's storage.
+Its end is seen through ``weakref.finalize`` on the storage object,
+which torch keeps alive exactly as long as the storage. Storages that
+existed before the block (the step's arguments) are never counted.
+``peak`` is the most bytes live at once: the step's temp above its
+arguments. Autograd's saved tensors, the gradients, a microbatch loop's
+accumulation buffers and what a remat policy recomputes all count for as
+long as they are really held.
+
+The counter must not change what it counts. Under any dispatch mode
+autograd adds the contributions to one gradient out of place (torch's
+``isTensorSubclassLike`` holds whenever a mode is on). Without one, on
+the card (measured on an H100, torch 2.11), it adds the second
+contribution to the first out of place and every later one into that sum
+in place. So an ``add`` in a backward pass whose first operand is the sum
+of such an earlier ``add`` and is freed before the next op counts as
+that in-place add: its output raises no peak.
+"""
+from __future__ import annotations
+
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+aten = torch.ops.aten
+
+_NO_DATA = {aten.empty, aten.empty_like, aten.empty_strided,
+            aten._unsafe_view}
+_GATHER = {aten.embedding, aten.index_select, aten.gather, aten.index}
+
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(tree) -> list:
+    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+
+
+class StepCost(TorchDispatchMode):
+    """Counts ``bytes_accessed`` and tracks ``live`` / ``peak`` bytes of
+    the storages allocated inside the block (the module's rules)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes_accessed = 0
+        self.live = 0
+        self.peak = 0
+        self._own = {}               # id(storage) -> (nbytes, finalizer)
+        self._open = True
+        self._held = None            # an add's (first operand, peak with it)
+        self._sums = set()           # storages that gradient adds made
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self._settle()
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        packet = func.overloadpacket
+        if func.is_view or packet in _NO_DATA:
+            return out
+        outs = _tensors(out)
+        out_names = {a.name for a in func._schema.arguments if a.is_out}
+        ins = _tensors((args, {k: v for k, v in kwargs.items()
+                               if k not in out_names}))
+        written = sum(tensor_bytes(t) for t in outs)
+        if packet in _GATHER:
+            indices = [t for t in ins if not t.is_floating_point()]
+            read = written + sum(tensor_bytes(t) for t in indices)
+        else:
+            read = sum(tensor_bytes(t) for t in ins)
+        self.bytes_accessed += read + written
+        inputs = {id(t.untyped_storage()) for t in ins}
+        inputs |= {id(t.untyped_storage()) for t in _tensors(kwargs)}
+        peak = self.peak
+        for t in outs:
+            st = t.untyped_storage()
+            if id(st) not in inputs and id(st) not in self._own:
+                self._allocate(st)
+        first = args[0] if args else None
+        if (func is aten.add.Tensor and not torch.is_grad_enabled()
+                and not kwargs and isinstance(first, torch.Tensor)
+                and id(first.untyped_storage()) in self._own):
+            # a gradient's contributions added by autograd
+            key = id(first.untyped_storage())
+            self._sums.add(id(outs[0].untyped_storage()))
+            if key in self._sums and self.peak > peak:
+                # into a running sum: settled at the next op, once it is
+                # known whether nothing else held the sum
+                self._held = (key, self.peak)
+                self.peak = peak
+        return out
+
+    def _settle(self):
+        """An add held back: in place if its first operand is gone."""
+        if self._held is not None:
+            key, peak = self._held
+            self._held = None
+            if key in self._own:
+                self.peak = max(self.peak, peak)
+
+    def _allocate(self, st):
+        key, n = id(st), st.nbytes()
+        self._own[key] = (n, weakref.finalize(st, self._free, key))
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _free(self, key):
+        if self._open:
+            n, _ = self._own.pop(key)
+            self.live -= n
+            self._sums.discard(key)
+
+    def __exit__(self, *exc):
+        self._settle()
+        self._open = False           # storages that outlive the block
+        for _, fin in self._own.values():
+            fin.detach()
+        return super().__exit__(*exc)

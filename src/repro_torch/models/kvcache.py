@@ -16,7 +16,6 @@ a recurrent one is its block's state (``models/ssm.py``: mamba2's fp32
 
 A cache built with B = n_slots doubles as a pool of per-session pages
 (``slot_axes`` / ``slot_take`` / ``slot_put``, the serving plane's).
-``cache_pspecs`` (sharding) is not ported.
 """
 from __future__ import annotations
 
@@ -54,7 +53,10 @@ def _entry(kind: str, cfg: ModelConfig, B: int, S_max: int, dtype, dev,
     if kind == "attn":
         return _attn_entry(cfg, B, S_max, dtype, dev, lead)
     one = _SSM_INIT[kind](cfg, B, dtype, dev)
-    return {n: t.expand(lead + t.shape).contiguous() for n, t in one.items()}
+    # a fresh copy at every depth (``contiguous()`` would skip the copy of
+    # a one-group stack, and a depth-extrapolated count would miss it)
+    return {n: t.expand(lead + t.shape).clone(
+        memory_format=torch.contiguous_format) for n, t in one.items()}
 
 
 def _entry_axes(kind: str, cfg: ModelConfig):

@@ -226,13 +226,17 @@ class LM:
             return {n: t[g] for n, t in tree.items()}
 
         shared = params.get("shared")
-        stack = params["stack"]
+        # each stacked leaf unbound once: a group's slice is a view, and
+        # the backward pass stacks the groups' gradients once (``t[g]`` in
+        # every group would write a zero-filled gradient of the whole
+        # stack per group, quadratic in depth)
+        layers = pm.tree_map(lambda _, t: t.unbind(0), params["stack"])
 
         def group(x, aux, g):
             if shared is not None:
                 x, a = run("attn", shared, x, 0, entry("shared", g))
                 aux = aux + a
-            gp = pm.tree_map(lambda _, t: t[g], stack)
+            gp = pm.tree_map(lambda _, ts: ts[g], layers)
             for j, (kind, win) in enumerate(zip(cfg.pattern, cfg.windows)):
                 x, a = run(kind, gp[f"b{j}"], x, win, entry(f"b{j}", g))
                 aux = aux + a

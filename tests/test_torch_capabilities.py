@@ -30,9 +30,11 @@ from repro_torch.api import (CheckpointSession, RestoreRequest,  # noqa: E402
 from repro_torch.api.capabilities import NOT_PORTED  # noqa: E402
 from test_api_surface import (EXPECTED_ALL, EXPECTED_FIELDS,  # noqa: E402
                               EXPECTED_SESSION_METHODS, EXPECTED_WIRE_SCHEMA)
+from test_docs import _LINK, _anchors  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DOC = ROOT / "docs" / "capabilities_torch.md"
+PORT_HEADING = "## PyTorch/CUDA port"
 
 
 @pytest.fixture(scope="module")
@@ -234,6 +236,43 @@ def test_core_reexports_api_names_once():
     assert "CheckpointSession" in dir(repro_torch.core)
     with pytest.raises(AttributeError):
         repro_torch.core.not_a_name  # noqa: B018
+
+
+# ------------------------------------ tests/test_docs.py twin (gate 3)
+def _port_docs():
+    """docs/capabilities_torch.md, and the README's port section: from its
+    heading to the next second-level heading."""
+    readme = (ROOT / "README.md").read_text()
+    start = readme.index(PORT_HEADING)
+    end = readme.find("\n## ", start + len(PORT_HEADING))
+    return [(DOC, DOC.read_text()),
+            (ROOT / "README.md", readme[start:end if end > 0 else None])]
+
+
+def test_markdown_links_resolve():
+    """Every relative link of the port's docs points at a file that exists
+    (and, for a #fragment, a heading that exists); the README's port
+    section has links to check."""
+    bad, checked = [], 0
+    for doc, text in _port_docs():
+        for m in _LINK.finditer(text):
+            target = m.group(1)
+            if target.startswith(("http://", "https://", "mailto:")):
+                continue
+            path_part, _, frag = target.partition("#")
+            dest = (doc.parent / path_part).resolve() if path_part \
+                else doc.resolve()
+            if ROOT not in dest.parents and dest != ROOT:
+                continue            # escapes the repo
+            checked += 1
+            if not dest.exists():
+                bad.append(f"{doc.name}: {target} (missing file)")
+                continue
+            if frag and dest.suffix == ".md" \
+                    and frag not in _anchors(dest):
+                bad.append(f"{doc.name}: {target} (missing anchor)")
+    assert checked > 0
+    assert not bad, "broken links:\n  " + "\n  ".join(bad)
 
 
 # ---------------------------------- tests/test_docs.py twins (gates 1 and 2)

@@ -1,7 +1,7 @@
 """repro_torch.api and the restore side of migration: the sync parts of
 tests/test_api_session.py and tests/test_migration.py's resume digest
-checks, on the port; restore onto a mesh over several devices raises; and
-the wire contract,
+checks, on the port, with the tier URIs and the async receipts and policy;
+restore onto a mesh over several devices raises; and the wire contract,
 which must be the JAX package's frame for frame (the same dicts encode
 and decode in both packages). Exact comparisons throughout: restores are
 bit-identical, digests and wire dicts equal."""
@@ -16,8 +16,9 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.api as japi  # noqa: E402
 from repro.core.integrity import tree_digest as jtree_digest  # noqa: E402
-from repro_torch.api import (CheckpointSession, CodecPolicy,  # noqa: E402
-                             DumpReceipt, DumpRequest, MigrateRequest,
+from repro_torch.api import (AsyncPolicy, CheckpointSession,  # noqa: E402
+                             CodecPolicy, DumpReceipt, DumpRequest,
+                             MigrateRequest,
                              MigrationTicket,
                              RestoreRequest, RetentionPolicy, SessionConfig,
                              WireCodingError, WireVersionError)
@@ -61,6 +62,20 @@ def test_as_tier_rejects_unknown_scheme():
         cpu_session("gs://bucket/x")
 
 
+def test_file_uri_and_plain_path_agree(tmp_path):
+    t1 = as_tier(f"file://{tmp_path}/ck")
+    t2 = as_tier(str(tmp_path / "ck"))
+    assert t1.root == t2.root
+
+
+def test_mem_uri_names_one_tier_per_process():
+    a = as_tier("mem://test-roundtrip-name")
+    b = as_tier("mem://test-roundtrip-name")
+    c = as_tier("mem://other")
+    assert a is b and a is not c
+    assert isinstance(a, MemoryTier)
+
+
 def test_mem_tier_dump_restore_round_trip():
     """A dump through one session restores bit-identically through
     another session addressing the same mem:// URI."""
@@ -88,6 +103,26 @@ def test_typed_methods_reject_untyped_arguments(tmp_path):
         sess.dump({"state": small_tree(), "step": 1})
     with pytest.raises(TypeError, match="RestoreRequest"):
         sess.restore("latest")
+
+
+def test_async_dump_receipts_arrive_on_wait(tmp_path):
+    sess = cpu_session(str(tmp_path / "ck"))
+    pending = sess.dump(DumpRequest(state=small_tree(1), step=1,
+                                    mode="async"))
+    assert not pending.committed and pending.image_id is None
+    sess.dump(DumpRequest(state=small_tree(2), step=2, mode="async"))
+    done = sess.wait()
+    assert [d.step for d in done] == [1, 2]
+    assert all(d.committed and d.image_id and d.stats for d in done)
+    assert sess.wait() == []                       # barrier drained
+
+
+def test_async_disabled_by_policy(tmp_path):
+    sess = CheckpointSession(SessionConfig(
+        root=str(tmp_path / "ck"), async_dumps=AsyncPolicy(enabled=False)),
+        device="cpu")
+    with pytest.raises(RuntimeError, match="AsyncPolicy"):
+        sess.dump(DumpRequest(state=small_tree(), step=1, mode="async"))
 
 
 def test_sync_dump_receipt_and_restore_result(tmp_path):
