@@ -16,11 +16,13 @@ Phases, one line each (plus details):
                bitwise, all four lanes (the embedding, a stacked 8-layer
                MLP leaf, a bf16 KV-cache leaf, a ragged length, a leaf with
                -0.0, denormals and inf and the same with its last element
-               changed), timed beside its bound; K6 at the serving shape in
-               bf16 (2e-2), an fp32 case (2e-6), a ragged length, a query
-               offset and window + softcap in fp32 and in bf16 at head_dim
-               128, gemma2's long prefill (1 x 4608, window 4096, softcap
-               50), its odd layers, a query offset, a 256-token prefill,
+               changed), timed beside its bound on the embedding and on
+               the bf16 KV-cache leaf (path 6's largest); K6 at the
+               serving shape in bf16 (2e-2), an fp32 case (2e-6), a ragged
+               length, a query offset and window + softcap in fp32 and in
+               bf16 at head_dim 128, gemma2's long prefill (1 x 4608,
+               window 4096, softcap 50), its odd layers, a query offset, a
+               256-token prefill,
                window 128 + softcap 50, a ragged length and fp32 cases at
                head_dim 256, each on the route route() gives it (wgmma for
                bf16 at head_dim 64/128/256, SIMT otherwise) and
@@ -51,7 +53,16 @@ Phases, one line each (plus details):
                each of the two prefills, every launch on the wgmma route
                (counters zeroed just before, read just after). Then one
                decode step and one prefill run under torch.profiler for the
-               kernel-time breakdown and K6's share of it;
+               kernel-time breakdown and K6's share of it; then the dry
+               run's record of the prefill step (LM.prefill, 4 x 2048, a
+               (1, 1) mesh, traced on meta) against the card: the step once
+               under FlopCounterMode and StepCost, its FLOPs and bytes
+               accessed equal to the record's (K6 one op,
+               repro_torch::flash_attention_fwd, on both), its device peak
+               above what was allocated before it within 5% of the
+               record's temp, and the record's bytes and FLOPs bounds each
+               at most the median of 5 prefills under CUDA events
+               (`dryrun:` lines with the card's name and power limit);
   6. pre-copy path on qwen3-8b at full width with num_layers cut from 36
                to 4 (the image holds the weights): engine A generates 32
                tokens; engine P generates 8, then pre-dump round 0 through
@@ -124,6 +135,10 @@ Phases, one line each (plus details):
                24. Every session's tokens in B and C must equal R's, and
                K6 must have launched once per layer per prefill, all on the
                wgmma route (counters zeroed just before, read just after);
+               then long0's prefill (1 x 4608: window 4096 on the even
+               layers, softcap 50, head dim 256) against the dry run's
+               record, as path 5's (the record traced beside path 7's
+               resume);
  10. archs: deepseek-67b and mistral-large-123b (2 layers) and
                musicgen-large (full depth) at full width: ServeEngine
                prefill 1 x 2048 and 8 greedy tokens, K6 once per layer on
@@ -619,7 +634,7 @@ def digest_phase(torch, dev, gen, slabbed):
         ("-0.0, denormals, inf; 3x16384+5 fp32", edge),
         ("the same with its last element changed", edge_changed),
     ]
-    row, edge_lanes = None, []
+    row, bf16, edge_lanes = None, None, []
     for label, x in cases:
         got = ckpt_codec.digest_blocks(x, w)
         want = plain(x)
@@ -647,27 +662,26 @@ def digest_phase(torch, dev, gen, slabbed):
             log(f"kernels: digest_blocks on {label}: {ms:.3f} ms (bound "
                 f"{row['bound_ms']:.3f} ms, {row['bound_ms'] / ms:.0%} of "
                 f"HBM peak), plain {plain_ms:.1f} ms")
-        elif "bf16" in label:
+        elif "bf16" in label:    # the largest bf16 leaf path 6 classifies
             ms = cuda_ms(torch, lambda: ckpt_codec.digest_blocks(x, w),
                          iters=10)
+            plain_ms = cuda_ms(torch, lambda: plain(x), iters=2)
             nbytes = x.numel() * 2 + 2 * B * 4 + 16 * got.shape[1]
+            bf16 = {"leaf": label, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "shape": [got.shape[1], B],
+                    "bytes": nbytes}
             log(f"kernels: digest_blocks on {label}: {ms:.3f} ms (bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms by bytes)")
+                f"{bf16['bound_ms']:.3f} ms by bytes, "
+                f"{bf16['bound_ms'] / ms:.0%} of HBM peak), plain "
+                f"{plain_ms:.1f} ms")
         del got, want
     check(not torch.equal(edge_lanes[0], edge_lanes[1]),
           "digest_blocks did not see a changed last element")
     del cases, x, edge, edge_changed
     torch.cuda.empty_cache()
+    row["bf16"] = bf16
     return row
-
-
-def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave live: the work this input needs."""
-    import numpy as np
-    qp = (Skv - Sq) + np.arange(Sq, dtype=np.int64)
-    hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
-    lo = np.maximum(0, qp - window + 1) if window else np.zeros(Sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def flash_phase(torch, dev, seed):
@@ -785,9 +799,12 @@ PLANE_PREFILL_LENGTHS = (256, 300, 512, 1024, 2048, 4608)
 
 
 def _bound(B, Sq, Skv, H, KV, hd, window, es=2):
-    """(bound ms, bound_by, live pairs, ops, bytes) of one causal K6 call."""
+    """(bound ms, bound_by, live pairs, ops, bytes) of one causal K6 call:
+    its operations are the op's FLOP formula (flash_attention.flops)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flops, live_pairs)
     pairs = live_pairs(Sq, Skv, True, window)
-    ops = 4 * B * H * hd * pairs
+    ops = flops(B, Sq, Skv, H, hd, True, window)
     nbytes = es * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
     t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -1202,9 +1219,143 @@ def serve_path(torch, dev, args):
             f"busy); K6 {k6_ms:.2f} ms x{k6_n} ({k6_ms / busy_ms:.1%} of the "
             f"kernel time); top: " + "; ".join(
                 f"{k[:48]} {ms:.2f} ms x{n}" for ms, k, n in rows[:6]))
-    del c, params
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dry run's record of this prefill against the card
+    out["record"] = prefill_against_record(
+        torch, dev, lm, params, "qwen3-8b", SERVE_B, SERVE_PROMPT, args.seed,
+        "path 5 (serve)")
+    del params
     as_tier(uri).delete("chunks")
     as_tier(uri).delete("images")
+    return out
+
+
+# ------------------------------------------- a prefill against its record
+PREFILL_REPS = 5        # timed prefills after the counted one
+
+
+def dryrun_record(arch: str, kind: str, B: int, S: int, **kw) -> tuple:
+    """The dry run's record of arch's B x S ``kind`` step on a (1, 1) mesh,
+    traced on meta (CPU only) -> (record, seconds); ``kw`` as run_cell
+    takes them (num_layers, microbatches)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.time()
+    rec = dryrun.run_cell(arch, ShapeConfig(f"chip_{kind}", kind, S, B),
+                          mesh=make_test_mesh((1, 1), device="meta"),
+                          verbose=False, **kw)
+    return rec, time.time() - t0
+
+
+def prefill_against_record(torch, dev, lm, params, arch, B, S, seed, label,
+                           planned=None) -> dict:
+    """The step the dry run traces for a prefill cell,
+    ``lm.prefill(params, tokens=...)``, on the card: once under
+    FlopCounterMode and StepCost, then PREFILL_REPS times under CUDA
+    events. Its counted FLOPs and bytes accessed must equal the record's,
+    its device peak above what was allocated before it lie within
+    REMAT_PEAK_TOL of the record's temp (StepCost's temp holds every
+    storage the step allocates, its outputs, the cache and the logits,
+    among them), and the record's bytes and FLOPs bounds be at most the
+    median prefill. ``planned``: dryrun_record()'s result, traced where
+    this process was idle; traced here when None. Run after the path's
+    launch counts were read: these prefills launch K6 too. Resets the
+    card's peak statistics: ``path_peak_device_gb`` is the path's peak
+    before this check."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import TOKEN_DTYPE
+    from repro_torch.launch.stepcost import StepCost
+
+    cfg = lm.cfg
+    out = {"path_peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rec, out["record_s"] = planned or dryrun_record(
+        arch, "prefill", B, S, num_layers=cfg.num_layers)
+    mem, cost = rec["memory_analysis_per_device"], \
+        rec["cost_analysis_per_device"]
+    tot = rec["totals_per_device"]
+    out.update(memory_analysis=mem, cost_analysis=cost,
+               step_flops=tot["step_flops"], step_bytes=tot["step_bytes"])
+    log(f"dryrun: {label}: the record of {cfg.name} prefill {B} x {S} at "
+        f"{cfg.num_layers} layers, (1, 1) mesh: memory_analysis "
+        f"{dryrun.memory_line(mem)}; {cost['flops']:,} FLOPs and "
+        f"{cost['bytes accessed']:,} bytes accessed (one trace on meta; "
+        f"{out['record_s']:.1f} s in all)")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S))).to(TOKEN_DTYPE).to(dev)
+
+    def step():
+        return lm.prefill(params, tokens=tokens)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc, StepCost() as sc:
+        logits, cache = step()
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all())
+    shape_ok = tuple(logits.shape) == (B, cfg.padded_vocab)
+    del logits, cache
+    counted, nbytes = int(fc.get_total_flops()), sc.bytes_accessed
+    check(finite and shape_ok, f"{label}: the counted prefill's logits are "
+                               f"not finite or not [B, V]")
+    times = []
+    for _ in range(PREFILL_REPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / 1e3)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() - base
+    temp = mem["temp_size_in_bytes"]
+    miss = temp / peak - 1
+    bounds = {"bytes": cost["bytes accessed"] / HBM_BYTES_PER_S,
+              "flops": cost["flops"] / BF16_OPS_PER_S}
+    out.update(counted_flops=counted, counted_bytes=nbytes,
+               card_stepcost_temp=sc.peak, peak_above_base=peak,
+               base_device_bytes=base, planned_miss=miss, prefill_s=times,
+               prefill_s_median=med, bound_s=bounds,
+               bound_share=max(bounds.values()) / med)
+    card = smi_line()
+    log(f"dryrun: {card}: {label}: {cfg.name} {cfg.num_layers}-layer "
+        f"prefill {B} x {S} counted on the card {counted:,} FLOPs "
+        f"(FlopCounterMode) and {nbytes:,} bytes accessed (StepCost), the "
+        f"record {cost['flops']:,} and {cost['bytes accessed']:,} "
+        f"(extrapolated {tot['step_flops']:,} and {tot['step_bytes']:,})")
+    log(f"dryrun: {card}: {label}: peak device memory {peak:,} B above the "
+        f"{base / 1e9:.3f} GB allocated before the prefill, the record's "
+        f"temp {temp:,} B ({100 * miss:+.2f}%; StepCost on the card "
+        f"{sc.peak:,} B; output {mem['output_size_in_bytes']:,} B, inside "
+        f"the temp)")
+    log(f"dryrun: {card}: {label}: prefill median {med:.4f} s over "
+        f"{PREFILL_REPS} (CUDA events; {min(times):.4f}-{max(times):.4f}); "
+        f"the record's bounds: bytes {cost['bytes accessed']:,} / "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bounds['bytes']:.4f} s, "
+        f"FLOPs {cost['flops']:,} / {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s = "
+        f"{bounds['flops']:.4f} s; the larger is "
+        f"{100 * out['bound_share']:.1f}% of the median")
+    check(counted == cost["flops"] == tot["step_flops"],
+          f"{label}: the card's prefill counts {counted} FLOPs, the record "
+          f"{cost['flops']} (extrapolated {tot['step_flops']})")
+    check(nbytes == cost["bytes accessed"] == tot["step_bytes"],
+          f"{label}: the card's prefill counts {nbytes} bytes accessed, the "
+          f"record {cost['bytes accessed']} (extrapolated "
+          f"{tot['step_bytes']})")
+    check(abs(miss) <= REMAT_PEAK_TOL,
+          f"{label}: the record's temp {temp} B is {100 * miss:+.2f}% of the "
+          f"card's peak {peak} B above what was allocated before the "
+          f"prefill (limit {100 * REMAT_PEAK_TOL:g}%)")
+    check(all(b <= med for b in bounds.values()),
+          f"{label}: a bound of the prefill {bounds} exceeds its median "
+          f"{med:.4f} s")
     return out
 
 
@@ -2088,7 +2239,7 @@ def _plane_outputs(mgr, skip=()):
             if s.status != "rejected" and sid not in skip}
 
 
-def plane_path(torch, dev, args):
+def plane_path(torch, dev, args, planned=None):
     """The live serving plane (Table-1 row 16) on gemma2-2b at full width,
     PLANE_LAYERS of its 26 layers: reference R uninterrupted; the source
     plane to the cut, then drain and checkpoint into mem://; replica B
@@ -2096,7 +2247,8 @@ def plane_path(torch, dev, args):
     complete_restore), both
     continued to PLANE_TICKS. Every session's tokens in B and C must equal
     R's; every prefill attention through K6 (the wgmma route at head dim
-    256)."""
+    256). Then long0's 1 x 4608 prefill against the dry run's record
+    (``planned``: plane_record()'s result, or traced here when None)."""
     import numpy as np
 
     from repro_torch.api import CheckpointSession
@@ -2319,6 +2471,7 @@ def plane_path(torch, dev, args):
         f"gathers and scatters {copy_ms:.2f} ms; top: " + "; ".join(
             f"{k[:48]} {ms:.2f} ms x{n}" for ms, k, n in rows[:6]))
     clock.close()
+    params = c.params          # the image's weights: the source's, bitwise
     del c, res, nov, held
     log(f"kernels: plane-path launches flash_attention="
         f"{out['launches']['flash_attention']} (wgmma route "
@@ -2331,7 +2484,21 @@ def plane_path(torch, dev, args):
     as_tier(uri).delete("images")
     gc.collect()
     torch.cuda.empty_cache()
+    # the dry run's record of long0's prefill (window 4096, softcap 50,
+    # head dim 256) against the card
+    out["record"] = prefill_against_record(
+        torch, dev, lm, params, "gemma2-2b", 1, PLANE_LONG[0], args.seed,
+        "path 9 (plane)", planned)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
+
+
+def plane_record() -> tuple:
+    """Path 9's prefill record: gemma2-2b at PLANE_LAYERS, 1 x long0."""
+    return dryrun_record("gemma2-2b", "prefill", 1, PLANE_LONG[0],
+                         num_layers=PLANE_LAYERS)
 
 
 # ------------------------------------------------------------- archs phase
@@ -4770,17 +4937,9 @@ def remat_policies(torch, dev, args) -> dict:
 
 
 def remat_record() -> tuple:
-    """(b)'s dry-run record of the full-depth step on a (1, 1) mesh, traced
-    on meta (CPU only) -> (record, seconds)."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_test_mesh
-    t0 = time.time()
-    rec = dryrun.run_cell(
-        REMAT_ARCH, ShapeConfig("chip_remat", "train", REMAT_SEQ, REMAT_BATCH),
-        mesh=make_test_mesh((1, 1), device="meta"),
-        microbatches=REMAT_MICROBATCHES, verbose=False)
-    return rec, time.time() - t0
+    """(b)'s dry-run record of the full-depth step on a (1, 1) mesh."""
+    return dryrun_record(REMAT_ARCH, "train", REMAT_BATCH, REMAT_SEQ,
+                         microbatches=REMAT_MICROBATCHES)
 
 
 def remat_trainer(torch, dev, args, planned=None) -> dict:
@@ -5190,7 +5349,9 @@ def main(argv=None) -> int:
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     record["serve"] = serve_path(torch, dev, args)
-    record["serve"]["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["serve"]["peak_device_gb"] = max(
+        torch.cuda.max_memory_allocated(),
+        record["serve"]["record"]["path_peak_device_gb"] * 1e9) / 1e9
     rows["flash_attention"]["launches"] = \
         record["serve"]["launches"]["flash_attention"]
     mark("serve")
@@ -5198,7 +5359,9 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     def own_clock(path, **kw):
-        """A path with its own clock, host and device peaks."""
+        """A path with its own clock, host and device peaks (a path that
+        ends with a check of its prefill against the record reports its
+        peak before that check)."""
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with RssPeak() as rss:
@@ -5206,7 +5369,9 @@ def main(argv=None) -> int:
         out.update(host_peak_rss_gb=rss.peak_gb,
                    host_rss_at_start_gb=rss.start_gb,
                    wall_s=time.time() - t0,
-                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+                   peak_device_gb=max(
+                       torch.cuda.max_memory_allocated() / 1e9,
+                       out.get("record", {}).get("path_peak_device_gb", 0)))
         free_host_and_card(torch)
         return out
 
@@ -5218,12 +5383,13 @@ def main(argv=None) -> int:
 
     def beside_resume():
         """Path 12 (b) (subprocesses with little of the card), then path
-        17's record traced on meta, beside path 7's resume and
-        reference."""
+        17's and path 9's records traced on meta, beside path 7's resume
+        and reference."""
         t0 = time.time()
         restart = socket_restart(dev, args)
         restart["wall_s"] = time.time() - t0
-        return {"restart": restart, "remat_record": remat_record()}
+        return {"restart": restart, "remat_record": remat_record(),
+                "plane_record": plane_record()}
 
     t0 = time.time()
     record["lifecycle"] = lifecycle_path(torch, dev, args,
@@ -5250,8 +5416,10 @@ def main(argv=None) -> int:
         f" s, paths 13 and 6 beside it {fam['wall_s'] + pre['wall_s']:.1f} "
         f"s; the resume beside the reference "
         f"{record['lifecycle']['resume_phase_wall_s']:.1f} s, path 12 (b) "
-        f"({later['restart']['wall_s']:.1f} s) and path 17's record on meta "
-        f"({remat_planned[1]:.1f} s) beside those; paths 7, 13, 6 and 12 (b) "
+        f"({later['restart']['wall_s']:.1f} s), path 17's record on meta "
+        f"({remat_planned[1]:.1f} s) and path 9's "
+        f"({later['plane_record'][1]:.1f} s) beside those; paths 7, 13, 6 "
+        f"and 12 (b) "
         f"together {time.time() - t0:.1f} s")
     for k, n in fam["launches"].items():
         rows[k]["launches"] += n
@@ -5282,7 +5450,8 @@ def main(argv=None) -> int:
     # and path 12 (a) 10 GB after it
     side = Beside(lambda: crash_path(torch, dev, args))
     try:
-        record["plane"] = own_clock(plane_path)
+        record["plane"] = own_clock(plane_path,
+                                    planned=later["plane_record"])
         record["socket"] = sock = own_clock(socket_path, restart=False)
     finally:
         side.thread.join()              # its processes end with it
@@ -5391,9 +5560,11 @@ def main(argv=None) -> int:
         f"{record['vision']['peak_device_gb']:.1f} GB")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K6's row also carries its numbers at gemma2's head dim 256
+    # K6's row also carries its numbers at gemma2's head dim 256, K5's on
+    # a bf16 KV-cache leaf
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + (("hd256",) if "hd256" in r else ())}
+        {k: r[k] for k in keys + tuple(x for x in ("hd256", "bf16")
+                                       if x in r)}
         for r in record["kernels"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

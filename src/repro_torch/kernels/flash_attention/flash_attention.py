@@ -22,6 +22,12 @@ file for the designs.
 ``LAUNCHES["flash_attention"]`` counts kernel launches of either route and
 ``ROUTE_LAUNCHES`` each route's (plain-version calls are not counted), so a
 run can show that its path went through the kernel and which one.
+
+The model reaches K6 through ``ops.py``'s torch op
+``repro_torch::flash_attention_fwd``, whose CUDA kernel is this wrapper;
+``check_shapes`` (its fake implementation's rules) and ``flops`` (its FLOP
+formula, the live pairs of ``live_pairs``) are here, beside the kernel
+whose limits and work they describe.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import ctypes
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import Library, stream_of
@@ -66,28 +73,58 @@ def route(dtype, head_dim: int) -> str:
     return "simt"
 
 
-def _check(q, k, v):
+def check_shapes(q, k, v):
+    """The shape and dtype rules of a call, on any device: q [B,Sq,H,hd],
+    k and v [B,Skv,KV,hd] on q's device in q's dtype (float32 or
+    bfloat16), hd in HEAD_DIMS, KV divides H, 0 < Sq <= Skv and
+    B * H < 65536 (the grid's y extent). The op's fake implementation
+    applies these alone, so a trace on ``meta`` refuses what the card
+    refuses."""
+    if q.ndim != 4:
+        raise ValueError(f"flash_attention: q must be [B, Sq, H, hd], got "
+                         f"{tuple(q.shape)}")
     B, Sq, H, hd = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name}: on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: {t.dtype}, q is {q.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: float32 or bfloat16, got {q.dtype}")
-    if k.ndim != 4 or tuple(k.shape) != (B, Skv, KV, hd) \
+    if k.ndim != 4 or k.shape[0] != B or k.shape[3] != hd \
             or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: k, v must be [B, Skv, KV, hd] "
                          f"with q {tuple(q.shape)}, got {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
+    Skv, KV = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS or H % KV or Sq > Skv or Sq == 0 \
             or B * H >= 65536:
         raise ValueError(f"flash_attention: unsupported shape q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)} (head_dim in "
                          f"{HEAD_DIMS}, KV divides H, 0 < Sq <= Skv)")
+
+
+def _check(q, k, v):
+    check_shapes(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def live_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave live, query row i at position
+    Skv - Sq + i: the work this input needs."""
+    qp = (Skv - Sq) + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flops(B: int, Sq: int, Skv: int, H: int, hd: int, causal: bool,
+          window: int) -> int:
+    """One call's FLOPs: QK^T and PV, 2 * hd each, over the live pairs of
+    every (batch, head)."""
+    return 4 * B * H * hd * live_pairs(Sq, Skv, causal, window)
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -97,9 +134,6 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):
     if q.device.type == "cpu":
         return ref.reference_attention(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
-    if q.ndim != 4:
-        raise ValueError(f"flash_attention: q must be [B, Sq, H, hd], got "
-                         f"{tuple(q.shape)}")
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]

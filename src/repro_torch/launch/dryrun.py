@@ -21,9 +21,10 @@ bytes (the peak of live bytes above the arguments). The temp comes from
 a trace of the cell's whole step, its microbatches included, and is per
 device only on a one-device mesh (``make_test_mesh((1, 1),
 device="meta")``); that trace also gives the record's
-``cost_analysis_per_device``. A prefill on ``meta`` runs the plain
-attention (``xla_flash``), not K6, so a prefill cell's bytes and temp
-describe the plain path.
+``cost_analysis_per_device``. A prefill's attention is one op,
+``repro_torch::flash_attention_fwd`` (``kernels/flash_attention/ops.py``),
+on ``meta`` as on the card: K6's FLOPs (its live query-key pairs), its
+q, k, v read and its output written, and its output as all it holds.
 
 What has no counterpart here: torch has no SPMD partitioner, so there is
 no per-device program on a larger mesh — no HLO and no collective
@@ -341,9 +342,7 @@ def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
                    f"L2={2 * P + tail} G={G}, divided evenly over {n_dev} "
                    "devices; FLOPs of matmul-class ops only"
                    + ("; sLSTM loop traced one step, the other S-1 added "
-                      "analytically" if corr["flops_global"] else "")
-                   + ("; prefill through the plain attention (xla_flash), "
-                      "not K6" if shape.kind == "prefill" else "")),
+                      "analytically" if corr["flops_global"] else "")),
     }
 
 
@@ -367,8 +366,6 @@ def analyse_cell(cell: Cell, totals: dict | None) -> tuple:
            "output_size_in_bytes": None,
            "alias_size_in_bytes": sum(bpd[k] for k in DONATED[kind]),
            "temp_size_in_bytes": None}
-    prefill = ("; a prefill runs the plain attention (xla_flash) on meta, "
-               "not K6" if kind == "prefill" else "")
     why = ("not measured (--no-measure)" if totals is None else
            totals.get("skipped") or totals.get("error"))
     if why:
@@ -384,11 +381,11 @@ def analyse_cell(cell: Cell, totals: dict | None) -> tuple:
                    alias_size_in_bytes=ob["alias"],
                    temp_size_in_bytes=cost["temp"])
         mem["method"] = ("StepCost over one trace of the whole step on meta "
-                         "(launch/stepcost.py)" + prefill)
+                         "(launch/stepcost.py)")
         return mem, {"flops": cost["flops"], "bytes accessed": cost["bytes"],
                      "trace_s": round(time.time() - t0, 3),
                      "method": "FlopCounterMode and StepCost over the same "
-                               "trace" + prefill}
+                               "trace"}
     other = totals["other_output_bytes"]
     if kind != "train":                 # logits [B, V], split by batch
         B = cell.shape.global_batch
@@ -400,10 +397,10 @@ def analyse_cell(cell: Cell, totals: dict | None) -> tuple:
     mem["null_reason"] = NO_PROGRAM.format(n_dev)
     mem["method"] = ("argument, output and alias from the trees' shard "
                      "shapes and the L1 trace's other outputs; no temp "
-                     "without a per-device program" + prefill)
+                     "without a per-device program")
     return mem, {"flops": totals["flops"], "bytes accessed": totals["bytes"],
                  "method": "measure_totals' extrapolation (one microbatch), "
-                           "divided evenly over the mesh" + prefill}
+                           "divided evenly over the mesh"}
 
 
 def memory_line(mem: dict) -> str:

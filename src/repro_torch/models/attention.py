@@ -9,9 +9,11 @@ return fp32, as the JAX code asks with ``preferred_element_type``: the
 inputs are upcast and multiplied in fp32, which is exact for bf16 inputs.
 
 Where each runs: training uses ``xla_flash`` (K6 has no backward yet);
-prefill goes through ``kernels.flash_attention.ops.flash_attention``,
-which sends a CUDA tensor to the Hopper kernel K6 and a CPU tensor back
-to ``xla_flash``; decode uses ``decode_attention`` (plain torch ops).
+prefill calls the torch op ``repro_torch::flash_attention_fwd``
+(``kernels.flash_attention.ops.flash_attention``) on every device: the
+Hopper kernel K6 on a CUDA tensor, ``xla_flash`` on a CPU one, K6's
+shape rules and an empty output on ``meta``; decode uses
+``decode_attention`` (plain torch ops).
 
 Under autograd every chunk step of ``_dense_flash`` and ``_windowed`` is
 checkpointed, as the JAX package's are: the backward pass recomputes a

@@ -15,8 +15,9 @@ fp32 scalar), zero for every other block. An MoE block drops tokens over
 capacity in train and prefill (``moe_apply``) and runs the dense oracle
 in decode (``moe_dense_reference``), as the JAX package does.
 
-Prefill attention goes through ``kernels.flash_attention.ops`` (K6 on a
-CUDA tensor, ``xla_flash`` on a CPU one); training keeps ``xla_flash``
+Prefill attention is the op ``repro_torch::flash_attention_fwd``
+(``kernels.flash_attention.ops``: K6 on a CUDA tensor, ``xla_flash`` on a
+CPU one, an empty output on ``meta``); training keeps ``xla_flash``
 because K6 has no backward yet. The cache entry is updated in place with
 ``copy_`` (the JAX package builds a new array): a second copy of a serving
 cache would cost as much memory as the cache itself. An unknown block

@@ -328,3 +328,50 @@ def test_k6_wrapper_checks_inputs(dev):
     assert k6.LAUNCHES["flash_attention"] == 0
     out = flash_attention(q, kv, kv)                 # the dispatcher -> K6
     assert k6.LAUNCHES["flash_attention"] == 1 and out.device.type == "cuda"
+
+
+# the op prefill calls (ops.py): one case per route and head-dim class
+OP_CASES = [
+    (2, 320, 320, 4, 2, 128, True, 100, 20.0, "bfloat16"),   # wgmma
+    (1, 512, 512, 8, 4, 256, True, 128, 50.0, "bfloat16"),   # wgmma, hd 256
+    (1, 77, 300, 4, 1, 64, True, 0, 0.0, "float32"),          # simt
+    (2, 40, 40, 4, 2, 32, True, 0, 0.0, "bfloat16"),          # simt, bf16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", OP_CASES)
+def test_op_on_card_is_k6_bitwise(case, dev):
+    """torch.ops.repro_torch.flash_attention_fwd on CUDA tensors is K6's
+    wrapper, bit for bit, one launch on its route; FlopCounterMode counts
+    the formula for the call."""
+    from torch.utils.flop_counter import FlopCounterMode
+    B, Sq, Skv, H, KV, hd, causal, window, cap, dtype = case
+    q, k, v = [t.to(dev) for t in _torch_inputs(case[:9], dtype)]
+    want = k6.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+    way = k6.route(q.dtype, hd)
+    k6.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        got = torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+                                                        window, cap)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES["flash_attention"] == 1
+    assert k6.ROUTE_LAUNCHES[way] == 1
+    assert torch.equal(got, want)
+    assert fc.get_total_flops() == k6.flops(B, Sq, Skv, H, hd, causal,
+                                            window)
+    assert torch.equal(flash_attention(q, k, v, causal=causal, window=window,
+                                       softcap=cap), want)
+    assert k6.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.cuda
+def test_op_on_card_raises_with_no_fallback(dev):
+    """A shape K6 refuses raises through the op; nothing launches."""
+    k6.reset_launches()
+    with pytest.raises(ValueError, match="unsupported shape"):
+        flash_attention(torch.zeros((1, 64, 4, 48), device=dev),
+                        torch.zeros((1, 64, 2, 48), device=dev),
+                        torch.zeros((1, 64, 2, 48), device=dev))
+    assert k6.LAUNCHES["flash_attention"] == 0
