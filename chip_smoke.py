@@ -600,35 +600,117 @@ def kernel_phase(torch, dev, seed):
 
 
 def digest_phase(torch, dev, gen, slabbed):
-    """K5 against its plain version, bitwise, all four lanes, at the
-    pre-copy path's shapes; timed on the embedding beside its HBM bound."""
+    """K5 against its plain version, bitwise, all four lanes: one leaf at a
+    time at the pre-copy path's shapes and edge cases, then grouped lists
+    (mixed dtypes with empty, tiny, one-block, ragged and misaligned
+    leaves; 200 leaves, more than the kernel's parameters hold; path 6's
+    16 classified leaves), each list in one launch. The embedding, the
+    bf16 KV-cache leaf and path 6's list are timed one call at a time and
+    back to back beside the bytes bound and the integer-issue bound of
+    the built kernel's main loops (cuobjdump)."""
+    import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.core import flatten_with_paths
     from repro_torch.kernels.ckpt_codec import ckpt_codec, ops, ref
+    from repro_torch.models.model import LM
+    from repro_torch.training import abstract_train_state
     B = ops.BLOCK
     w = ops.digest_weights(B, dev)
+    clocks = card_clocks()
+    loops = k5_loops(str(ckpt_codec.LIB.build()), "digest_leaves")
+    check(set(loops) == {"fp32", "bf16"},
+          f"cuobjdump showed K5 main loops for {sorted(loops)}, not fp32 "
+          f"and bf16")
+    per_element = {}
+    for k, lp in sorted(loops.items()):
+        per_element[k] = {c: n / lp["elements"]
+                          for c, n in sorted(lp["counts"].items())}
+        log(f"kernels: digest_blocks {k} main loop: {lp['elements']} "
+            f"elements a thread a trip, {lp['instructions'] / lp['elements']:.3f}"
+            f" instructions an element (" + ", ".join(
+                f"{c} {v:.3f}" for c, v in per_element[k].items())
+            + f"); card {clocks['sms']} SMs, max SM clock "
+            f"{clocks['max_sm_mhz']:.0f} MHz")
 
     def plain(x):
         n = x.numel()
         nblk = max(1, -(-n // B))
-        xb = F.pad(x, (0, nblk * B - n)).reshape(nblk, B)
+        xb = F.pad(x.reshape(-1), (0, nblk * B - n)).reshape(nblk, B)
         return torch.cat([
             torch.stack(slabbed(ref.digest_blocks_ref, xb, w, per_block=1)),
             torch.stack(slabbed(ref.mixed_lanes_ref, xb, w, per_block=1))])
+
+    def plain_many(leaves):
+        return torch.cat([plain(x) for x in leaves], dim=1)
+
+    def timed(label, leaves, fn):
+        """One call at a time and back to back (20 calls a timing), with
+        the bytes bound (each input read once, the lanes written once) and
+        the integer-issue bound (every block position's work, padding
+        included, at the main loops' instructions an element)."""
+        nblk = [max(1, -(-x.numel() // B)) for x in leaves]
+        nbytes = sum(x.numel() * x.element_size() for x in leaves) \
+            + 2 * B * 4 + 16 * sum(nblk)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        int_ms = sum(int_issue_ms(
+            k * B, loops["bf16" if x.dtype == torch.bfloat16 else "fp32"],
+            clocks["sms"], clocks["max_sm_mhz"] * 1e6)
+            for k, x in zip(nblk, leaves))
+        one = cuda_ms(torch, fn, iters=10)
+        b2b = cuda_ms(torch, fn, iters=5, batch=20)
+        plain_ms = cuda_ms(torch, lambda: plain_many(leaves), iters=2)
+        bound = max(bytes_ms, int_ms)
+        d = {"leaves": len(leaves), "ms": one, "ms_back_to_back": b2b,
+             "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes" if bytes_ms >= int_ms else "operations",
+             "bytes_bound_ms": bytes_ms, "int_bound_ms": int_ms,
+             "shape": [sum(nblk), B], "bytes": nbytes}
+        log(f"kernels: digest_blocks on {label} ({len(leaves)} leaves, "
+            f"{sum(nblk)} blocks, one launch): one call {one:.4f} ms, back "
+            f"to back {b2b:.4f} ms; bound {bound:.4f} ms by {d['bound_by']}"
+            f" (bytes {bytes_ms:.4f} ms, integer issue {int_ms:.4f} ms): "
+            f"{bound / one:.1%} of it one call, {bound / b2b:.1%} back to "
+            f"back; plain {plain_ms:.1f} ms")
+        return d
+
+    def bitwise(label, leaves, grouped):
+        before = (ckpt_codec.LAUNCHES["digest_blocks"],
+                  ckpt_codec.LEAVES["digest_blocks"])
+        if grouped:
+            got = ckpt_codec.digest_blocks_many(leaves, w)
+        else:
+            got = ckpt_codec.digest_blocks(leaves[0], w)
+        launched = (ckpt_codec.LAUNCHES["digest_blocks"] - before[0],
+                    ckpt_codec.LEAVES["digest_blocks"] - before[1])
+        want = plain_many(leaves)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        log(f"kernels: digest_blocks on {label}: {got.shape[1]} blocks, "
+            f"{'bit-identical' if same else 'MISMATCH'} (4 lanes; "
+            f"{launched[0]} launch over {launched[1]} leaves)")
+        check(same, f"digest_blocks differs from its plain version on "
+                    f"{label}")
+        check(launched == (1, len(leaves)),
+              f"digest_blocks on {label}: {launched[0]} launches over "
+              f"{launched[1]} leaves, not one over {len(leaves)}")
+        return got
 
     edge = torch.randn(3 * B + 5, generator=gen, device=dev)
     edge[:4] = torch.tensor([-0.0, 1e-40, -1e-45, float("inf")])
     edge_changed = edge.clone()
     edge_changed[-1] += 1.0
     L = PRECOPY_LAYERS
+    kv_shape = (L, 4, 2081, 8, 128)
     cases = [
         ("params/embed/tok 152064x4096 fp32",
          torch.randn(152064 * 4096, generator=gen, device=dev)),
         (f"params/stack/b0/mlp/w_up {L}x4096x12288 fp32",
          torch.randn(L * 4096 * 12288, generator=gen, device=dev)),
         (f"session/cache/stack/b0/k {L}x4x2081x8x128 bf16",
-         torch.randn(L * 4 * 2081 * 8 * 128, generator=gen,
-                     device=dev).to(torch.bfloat16)),
+         torch.randn(kv_shape, generator=gen, device=dev).to(
+             torch.bfloat16).reshape(-1)),
         ("ragged 1000003 fp32",
          torch.randn(1_000_003, generator=gen, device=dev)),
         ("-0.0, denormals, inf; 3x16384+5 fp32", edge),
@@ -636,51 +718,55 @@ def digest_phase(torch, dev, gen, slabbed):
     ]
     row, bf16, edge_lanes = None, None, []
     for label, x in cases:
-        got = ckpt_codec.digest_blocks(x, w)
-        want = plain(x)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        log(f"kernels: digest_blocks on {label}: nblk={got.shape[1]} "
-            f"{'bit-identical' if same else 'MISMATCH'} (4 lanes)")
-        check(same, f"digest_blocks differs from its plain version on "
-                    f"{label}")
+        got = bitwise(label, [x], grouped=False)
         if label.startswith("-0.0") or label.startswith("the same"):
             edge_lanes.append(got)
-        if row is None:          # the embedding: time it
-            n = x.numel()
-            nblk = got.shape[1]
-            nbytes = n * x.element_size() + 2 * B * 4 + 16 * nblk
-            ms = cuda_ms(torch, lambda: ckpt_codec.digest_blocks(x, w),
-                         iters=10)
-            plain_ms = cuda_ms(torch, lambda: plain(x), iters=2)
-            row = {"name": "digest_blocks", "route": "cuda", "source": SOURCE,
-                   "replaces": REPLACES["digest_blocks"], "launches": 0,
-                   "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                   "bound_by": "bytes", "library_ms": None,
-                   "shape": [nblk, B], "bytes": nbytes}
-            log(f"kernels: digest_blocks on {label}: {ms:.3f} ms (bound "
-                f"{row['bound_ms']:.3f} ms, {row['bound_ms'] / ms:.0%} of "
-                f"HBM peak), plain {plain_ms:.1f} ms")
+        if row is None:          # the embedding: the row's own numbers
+            t = timed(label, [x], lambda: ckpt_codec.digest_blocks(x, w))
+            row = {"name": "digest_blocks", "route": "cuda",
+                   "source": SOURCE, "replaces": REPLACES["digest_blocks"],
+                   "launches": 0, "max_abs_err": 0.0, "library_ms": None,
+                   **t, "per_element": per_element, "card": clocks}
         elif "bf16" in label:    # the largest bf16 leaf path 6 classifies
-            ms = cuda_ms(torch, lambda: ckpt_codec.digest_blocks(x, w),
-                         iters=10)
-            plain_ms = cuda_ms(torch, lambda: plain(x), iters=2)
-            nbytes = x.numel() * 2 + 2 * B * 4 + 16 * got.shape[1]
-            bf16 = {"leaf": label, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                    "bound_by": "bytes", "shape": [got.shape[1], B],
-                    "bytes": nbytes}
-            log(f"kernels: digest_blocks on {label}: {ms:.3f} ms (bound "
-                f"{bf16['bound_ms']:.3f} ms by bytes, "
-                f"{bf16['bound_ms'] / ms:.0%} of HBM peak), plain "
-                f"{plain_ms:.1f} ms")
-        del got, want
+            bf16 = {"leaf": label, **timed(
+                label, [x], lambda: ckpt_codec.digest_blocks(x, w))}
+        del got
     check(not torch.equal(edge_lanes[0], edge_lanes[1]),
           "digest_blocks did not see a changed last element")
     del cases, x, edge, edge_changed
+
+    # grouped lists, each in one launch
+    rng = np.random.default_rng(7)
+    mixed = []
+    for i, n in enumerate([3 * B + 5, 5, 0, 2 * B + 9, 4096, B, 1_000_003,
+                           B - 1]):
+        t = torch.randn(n + 1, generator=gen, device=dev)
+        t = t.to(torch.bfloat16) if i in (3, 7) else t
+        mixed.append(t[1:] if i == 4 else t[:n])          # 4: misaligned
+    check(mixed[4].data_ptr() % 16 != 0, "the misaligned view is aligned")
+    bitwise("a mixed list (ragged, n 5, n 0, bf16, a misaligned view, one "
+            "block, 1000003)", mixed, grouped=True)
+    many = [torch.randn(int(n), generator=gen, device=dev).to(
+        torch.bfloat16 if i % 3 == 2 else torch.float32)
+        for i, n in enumerate(rng.integers(0, 70000, 200))]
+    bitwise(f"200 leaves (more than the {ckpt_codec.PARAM_LEAVES} the "
+            f"kernel's parameters hold)", many, grouped=True)
+    del mixed, many
+    lm = LM(CONFIG.replace(num_layers=L))
+    shapes = [tuple(t.shape) for p, t in flatten_with_paths(
+        abstract_train_state(lm)) if p.startswith("params/")]
+    tree = [torch.randn(s, generator=gen, device=dev) for s in shapes] + [
+        torch.randn(kv_shape, generator=gen, device=dev).to(torch.bfloat16)
+        for _ in range(2)]
+    label = f"path 6's {len(tree)} classified leaves (params at {L} layers, " \
+            f"the KV cache's k and v)"
+    bitwise(label, tree, grouped=True)
+    grouped = {"list": label, **timed(
+        label, tree, lambda: ckpt_codec.digest_blocks_many(tree, w))}
+    del tree
     torch.cuda.empty_cache()
     row["bf16"] = bf16
+    row["grouped"] = grouped
     return row
 
 
@@ -1371,9 +1457,11 @@ def precopy_path(torch, dev, args):
     from repro_torch.core import (flatten_with_paths, get_default_executor,
                                   host_tree_by_path, read_manifest)
     from repro_torch.core.migration import MIGRATION_META_KEY
-    from repro_torch.core.predump import digest_pairs, leaf_digest, uses_lanes
+    from repro_torch.core.predump import (digest_pairs, lane_strings,
+                                          leaf_digest, uses_lanes)
     from repro_torch.core.storage import as_tier
     from repro_torch.kernels.ckpt_codec import ckpt_codec
+    from repro_torch.kernels.ckpt_codec.ops import classifier_lanes_many
     from repro_torch.kernels.flash_attention import flash_attention as k6
     from repro_torch.models.model import LM
     from repro_torch.serving import ServeEngine
@@ -1421,16 +1509,18 @@ def precopy_path(torch, dev, args):
     sess = CheckpointSession(uri, device=dev)
 
     def k5_pass(what, fn):
-        """fn() once, checking that K5 classified every fp32/bf16 leaf on
-        the card exactly once in it."""
-        before = ckpt_codec.LAUNCHES["digest_blocks"]
+        """fn() once, checking that one K5 launch classified every
+        fp32/bf16 leaf on the card exactly once in it."""
+        before = (ckpt_codec.LAUNCHES["digest_blocks"],
+                  ckpt_codec.LEAVES["digest_blocks"])
         t0 = time.time()
         rec = fn()
         dt = time.time() - t0
-        n = ckpt_codec.LAUNCHES["digest_blocks"] - before
-        check(n == n_lanes, f"{what}: digest_blocks launched {n} times, not "
-                            f"once for each of the {n_lanes} fp32/bf16 leaves "
-                            f"on the card")
+        n = ckpt_codec.LAUNCHES["digest_blocks"] - before[0]
+        k = ckpt_codec.LEAVES["digest_blocks"] - before[1]
+        check(n == 1 and k == n_lanes,
+              f"{what}: digest_blocks launched {n} times over {k} leaves, "
+              f"not once over the {n_lanes} fp32/bf16 leaves on the card")
         return rec, dt
 
     rounds = []
@@ -1600,16 +1690,18 @@ def precopy_path(torch, dev, args):
                 "codec K1-K4": sum(v for k, v in ckpt_codec.LAUNCHES.items()
                                    if k != "digest_blocks")}
     out["launches"] = launches
+    out["k5_leaves"] = k5_leaves = ckpt_codec.LEAVES["digest_blocks"]
     log(f"kernels: pre-copy-path launches digest_blocks="
-        f"{launches['digest_blocks']} ({n_lanes} fp32/bf16 leaves on the card"
-        f" x 3 classification passes), flash_attention="
+        f"{launches['digest_blocks']} (one a classification pass, 3 passes)"
+        f" over {k5_leaves} leaves ({n_lanes} fp32/bf16 leaves on the card "
+        f"x 3), flash_attention="
         f"{launches['flash_attention']} (2 prefills, A and P, x "
         f"{cfg.num_layers} layers: D resumes a session and only decodes; "
         f"wgmma route {routes['wgmma']}, SIMT route {routes['simt']}), "
         f"codec K1-K4 {launches['codec K1-K4']} (lossless image)")
-    check(launches["digest_blocks"] == 3 * n_lanes,
-          f"digest_blocks launched {launches['digest_blocks']} times, not "
-          f"{3 * n_lanes}")
+    check(launches["digest_blocks"] == 3 and k5_leaves == 3 * n_lanes,
+          f"digest_blocks launched {launches['digest_blocks']} times over "
+          f"{k5_leaves} leaves, not 3 times over {3 * n_lanes}")
     check(launches["codec K1-K4"] == 0, "a codec kernel ran on the lossless "
                                         "pre-copy path")
     check(launches["flash_attention"] == 2 * cfg.num_layers,
@@ -1630,12 +1722,42 @@ def precopy_path(torch, dev, args):
         digest_pairs(pairs)
         times.append(time.time() - t0)
     out["k5_classify_s"] = statistics.median(times)
-    tree_gb = sum(t.numel() * t.element_size() for _, t in pairs) / 1e9
+    # the pass's parts: the grouped launch (CUDA events around the call),
+    # the lanes to the host, blake2b of each leaf's lanes on the host
+    items = [(p, t) for p, t in pairs if uses_lanes(t)]
+    parts = {"kernel_ms": [], "d2h_ms": [], "hash_ms": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        lanes, cols = classifier_lanes_many([t for _, t in items])
+        b.record()
+        b.synchronize()
+        parts["kernel_ms"].append(a.elapsed_time(b))
+        t0 = time.time()
+        host_lanes = lanes.cpu().numpy()
+        parts["d2h_ms"].append((time.time() - t0) * 1e3)
+        t0 = time.time()
+        lane_strings(items, host_lanes, cols)
+        parts["hash_ms"].append((time.time() - t0) * 1e3)
+    out["k5_classify_parts_ms"] = {k: statistics.median(v)
+                                   for k, v in parts.items()}
+    out["k5_lane_bytes"] = host_lanes.nbytes
+    tree_bytes = sum(t.numel() * t.element_size() for _, t in pairs)
+    out["k5_bytes_bound_ms"] = tree_bytes / HBM_BYTES_PER_S * 1e3
+    tree_gb = tree_bytes / 1e9
+    pm = out["k5_classify_parts_ms"]
     log(f"precopy: classifying the {tree_gb:.2f} GB tree: K5 on the card "
         f"{out['k5_classify_s'] * 1e3:.1f} ms (host clock, lanes to host "
-        f"included); the JAX package's route (blake2b of the host capture "
-        f"on the cpu pool) {out['host_classify_s']:.2f} s, after a "
-        f"{out['capture_s']:.2f} s device-to-host capture")
+        f"and hashing included): the grouped launch {pm['kernel_ms']:.3f} ms"
+        f" (CUDA events, one call), the {host_lanes.nbytes / 1e6:.2f} MB of "
+        f"lanes to the host {pm['d2h_ms']:.3f} ms, blake2b of the lanes "
+        f"{pm['hash_ms']:.3f} ms, beside the bytes bound "
+        f"{out['k5_bytes_bound_ms']:.3f} ms; the JAX package's route "
+        f"(blake2b of the host capture on the cpu pool) "
+        f"{out['host_classify_s']:.2f} s, after a {out['capture_s']:.2f} s "
+        f"device-to-host capture")
     del lazy_flat, pairs, params
     as_tier(uri).delete("chunks")
     as_tier(uri).delete("images")
@@ -1697,6 +1819,7 @@ for name in ("pre_dump_round", "save", "restore", "migrate"):
 @atexit.register
 def report():
     rec["launches"] = {**ckpt_codec.LAUNCHES, **k6.LAUNCHES}
+    rec["k5_leaves"] = ckpt_codec.LEAVES["digest_blocks"]
     rec["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
                                 if torch.cuda.is_available() else 0)
     rec["host_peak_rss_bytes"] = peak[0]
@@ -1874,10 +1997,16 @@ def lifecycle_path(torch, dev, args, beside=None, beside_resume=None):
             f"{out['digest_s']:.2f} s")
         log("kernels: lifecycle-path launches (preempted child) " + " ".join(
             f"{k}={v}" for k, v in launches.items()))
-        check(launches["digest_blocks"] == 2 * n_fp32,
-              f"digest_blocks launched {launches['digest_blocks']} times in "
-              f"the preempted child, not {2 * n_fp32} (each of the {n_fp32} "
-              f"fp32 leaves in the round and in the residual dump)")
+        out["k5_leaves"] = pre.rec["k5_leaves"]
+        log(f"kernels: lifecycle-path K5 launches {launches['digest_blocks']}"
+            f" over {out['k5_leaves']} leaves (the round and the residual "
+            f"dump, one launch each over the {n_fp32} fp32 leaves)")
+        check(launches["digest_blocks"] == 2
+              and out["k5_leaves"] == 2 * n_fp32,
+              f"digest_blocks launched {launches['digest_blocks']} times "
+              f"over {out['k5_leaves']} leaves in the preempted child, not "
+              f"twice (the round and the residual dump) over "
+              f"{2 * n_fp32} (the {n_fp32} fp32 leaves each time)")
         check(all(v == 0 for k, v in launches.items()
                   if k != "digest_blocks"),
               f"a kernel other than K5 ran on the lossless lifecycle path: "
@@ -5271,6 +5400,184 @@ def wgmma_spills(build_log: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ K5's integer bound
+# fmix32's two multipliers as cuobjdump prints an immediate: every element
+# K5 digests passes through each once, so their count in a loop body is
+# twice the elements it digests per trip
+FMIX_CONSTS = ("0x85ebca6b", "-0x7a143595", "0xc2b2ae35", "-0x3d4d51cb")
+# Hopper SASS by the pipe that executes it: IMAD (and IMUL) on the FMA
+# pipe, the other integer operations on the ALU pipe, 16 lanes a clock
+# each per SM sub-partition (64 an SM); one warp instruction issued a clock
+# per sub-partition (128 lanes an SM)
+ALU_OPS = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT",
+           "ISETP", "SEL", "MOV", "LEA", "IABS", "IMNMX", "FLO", "POPC",
+           "BMSK", "SGXT", "PLOP3", "P2R", "R2P", "ICMP", "VIADD", "VIMNMX",
+           "BREV", "CS2R"}
+CTRL_OPS = {"BRA", "EXIT", "BAR", "BSSY", "BSYNC", "NOP", "WARPSYNC",
+            "CALL", "RET", "YIELD", "DEPBAR", "BPT", "JMP", "BREAK"}
+LOAD_BYTES = {"128": 16, "64": 8, "U16": 2, "S16": 2, "U8": 1, "S8": 1}
+
+
+def sass_class(op: str) -> str:
+    base = op.split(".")[0]
+    if base.startswith("IMAD") or base == "IMUL":
+        return "imad"
+    if base in ALU_OPS:
+        return "alu"
+    if base.startswith("U"):
+        return "uniform"
+    if base in CTRL_OPS:
+        return "control"
+    if base.startswith(("LD", "ST", "ATOM")) or base in ("RED", "SHFL"):
+        return "memory"
+    return "other"
+
+
+def sass_functions(text: str) -> dict:
+    """{function: [(address, instruction)]} from ``cuobjdump -sass``; a
+    label line (``.L_x_3:``) is kept as (address of the next instruction,
+    ".L_x_3:")."""
+    import re
+    funcs, cur, labels = {}, None, []
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m and cur is not None:
+            labels.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.+?)\s*;", ln)
+        if m and cur is not None:
+            addr = int(m.group(1), 16)
+            cur.extend((addr, f"{lab}:") for lab in labels)
+            labels = []
+            cur.append((addr, m.group(2)))
+    return funcs
+
+
+def _op(ins: str) -> tuple:
+    toks = ins.split()
+    if toks[0].startswith("@"):
+        toks = toks[1:]
+    return toks[0], " ".join(toks[1:])
+
+
+def sass_loops(text: str, match: str) -> list:
+    """The innermost loops of the functions whose name holds ``match`` that
+    digest elements: for each backward branch, its body's fast path (basic blocks
+    with a load narrower than 8 bytes, the ragged end's, dropped), the
+    elements a thread digests per trip (fmix32 multipliers / 2), the bytes
+    of data it loads per element, and its instructions by pipe."""
+    import re
+    out = []
+    for fn, ins in sass_functions(text).items():
+        if match not in fn:
+            continue
+        label_at = {i[:-1]: a for a, i in ins if i.endswith(":")}
+        code = [(a, i) for a, i in ins if not i.endswith(":")]
+
+        def target(rest):
+            m = re.search(r"(\.L_x_\d+)", rest)
+            if m and m.group(1) in label_at:
+                return label_at[m.group(1)]
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            return int(m.group(1), 16) if m else None
+        jumps = [(a, target(_op(i)[1])) for a, i in code
+                 if _op(i)[0].startswith("BRA")]
+        loops = [(t, a) for a, t in jumps if t is not None and t <= a]
+        for t, a in loops:
+            if any((t2, a2) != (t, a) and t <= t2 and a2 <= a
+                   for t2, a2 in loops):
+                continue                # not innermost
+            body = [(b, j) for b, j in code if t <= b <= a]
+            targets = {t} | {tt for b, tt in jumps
+                             if t <= b <= a and tt is not None
+                             and t <= tt <= a}
+            blocks, cur = [], []
+            for b, j in body:
+                if b in targets and cur:
+                    blocks.append(cur)
+                    cur = []
+                cur.append(j)
+                if _op(j)[0].split(".")[0] in ("BRA", "EXIT"):
+                    blocks.append(cur)
+                    cur = []
+            if cur:
+                blocks.append(cur)
+
+            def load_bytes(j):
+                o = _op(j)[0]
+                if not o.startswith("LDG"):
+                    return 0
+                parts = o.split(".")
+                return next((LOAD_BYTES[p] for p in parts if p in LOAD_BYTES),
+                            4)
+            fast = [j for blk in blocks
+                    if all(load_bytes(j) in (0, 8, 16) for j in blk)
+                    for j in blk]
+            el = sum(1 for j in fast
+                     if any(c in j.lower() for c in FMIX_CONSTS)) // 2
+            if not el:
+                continue
+            counts = {}
+            for j in fast:
+                k = sass_class(_op(j)[0])
+                counts[k] = counts.get(k, 0) + 1
+            # the data's bytes: the streaming (evict-first) loads, where
+            # the loop marks them so; else every load, weights included
+            stream = [j for j in fast if ".EF" in _op(j)[0]] or fast
+            data = sum(map(load_bytes, stream))
+            if not data:                # no whole-vector loads: not a main loop
+                continue
+            out.append({"function": fn, "start": t, "end": a,
+                        "elements": el, "bytes_per_element": data / el,
+                        "counts": counts,
+                        "instructions": len(fast)})
+    return out
+
+
+def int_issue_ms(elements: int, loop: dict, sms: int, clock_hz: float):
+    """The integer-issue bound (ms) of digesting ``elements`` with ``loop``'s
+    instructions per element: the busier of the ALU and FMA pipes (64
+    lanes a clock an SM each) and the issue limit (128 lanes a clock an SM,
+    every instruction of the loop)."""
+    c, el = loop["counts"], loop["elements"]
+    per_sm_clock = max(c.get("alu", 0) / 64, c.get("imad", 0) / 64,
+                       loop["instructions"] / 128) / el
+    return elements * per_sm_clock / sms / clock_hz * 1e3
+
+
+def k5_loops(so_path: str, match: str) -> dict:
+    """{"fp32": loop, "bf16": loop}: the K5 main loop of each dtype in the
+    built library (the one digesting the most elements a trip)."""
+    from repro_torch.kernels._build import nvcc
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(nvcc())),
+                             "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    loops = sass_loops(res.stdout, match)
+    out = {}
+    for lp in loops:
+        k = "bf16" if lp["bytes_per_element"] <= 2 else "fp32"
+        if k not in out or lp["elements"] > out[k]["elements"]:
+            out[k] = lp
+    return out
+
+
+def card_clocks() -> dict:
+    """The card's SM count and its maximum SM clock (nvidia-smi)."""
+    import torch
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "max_sm_mhz": float(res.stdout.strip().splitlines()[0])}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5561,10 +5868,10 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6's row also carries its numbers at gemma2's head dim 256, K5's on
-    # a bf16 KV-cache leaf
+    # a bf16 KV-cache leaf and on path 6's grouped list
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + tuple(x for x in ("hd256", "bf16")
-                                       if x in r)}
+        {k: r[k] for k in keys + tuple(x for x in ("hd256", "bf16",
+                                                   "grouped") if x in r)}
         for r in record["kernels"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

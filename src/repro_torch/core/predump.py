@@ -8,10 +8,11 @@ nested dicts of tensors, copied from the JAX package's core/predump.py:
 
   * a content digest per leaf, the userspace stand-in for the kernel's
     soft-dirty page bitmap. Two classifiers (``digest_pairs`` routes each
-    leaf): ``tensor_digest`` for fp32 and bf16 tensors, which runs the
-    digest-only codec sweep (K5, ``kernels/ckpt_codec``
-    ``classifier_lanes``) where the tensor lies — on the card only 16
-    bytes per 64 KiB block come back to the host — and ``leaf_digest``
+    leaf): the lane digest (``tensor_digest``) for fp32 and bf16 tensors,
+    from the digest-only codec sweep (K5, ``kernels/ckpt_codec``
+    ``classifier_lanes_many``: one launch for all of a device's leaves)
+    where the tensors lie — on the card only 16 bytes per 64 KiB block
+    come back to the host — and ``leaf_digest``
     (blake2b over the raw bytes, the JAX package's classifier) for host
     arrays and every other dtype;
   * ``DirtyLeafTracker`` — remembers, per leaf path, the digest *and the
@@ -129,27 +130,34 @@ def tensor_digest(t: torch.Tensor) -> str:
     return _lane_string(dtype_name(t), tuple(t.shape), lanes)
 
 
+def lane_strings(items, lanes: np.ndarray, cols) -> dict:
+    """{path: digest} of [(path, tensor)] from their lanes on the host:
+    ``lanes`` int32 [4, total], tensor i's in columns ``cols[i]`` (first
+    column, blocks), as ``ops.classifier_lanes_many`` returns them."""
+    return {p: _lane_string(dtype_name(a), tuple(a.shape),
+                            lanes[:, c:c + k])
+            for (p, a), (c, k) in zip(items, cols)}
+
+
 def digest_pairs(pairs, executor=None) -> dict:
     """{path: digest} over [(path, leaf)]. fp32/bf16 tensors take the lane
-    classifier: every sweep is launched first (asynchronous on the card)
-    and their lanes come to the host in one copy. Every other leaf takes
+    classifier: one K5 launch per device digests all of that device's
+    leaves (``ops.classifier_lanes_many``, asynchronous on the card) and
+    their lanes come to the host in one copy. Every other leaf takes
     ``leaf_digest``, fanned out on the executor's cpu pool when one is
     given (classification parallelizes exactly like encode does)."""
+    from repro_torch.kernels.ckpt_codec import ops
     pairs = list(pairs)
     lane_pairs = [(p, a) for p, a in pairs if uses_lanes(a)]
     host_pairs = [(p, a) for p, a in pairs if not uses_lanes(a)]
-    out = {}
     by_device: dict = {}
     for p, a in lane_pairs:
-        by_device.setdefault(a.device, []).append((p, a, _lanes(a)))
-    for items in by_device.values():
-        flat = torch.cat([ln.reshape(-1) for _, _, ln in items]).cpu().numpy()
-        off = 0
-        for p, a, ln in items:
-            k = ln.numel()
-            out[p] = _lane_string(dtype_name(a), tuple(a.shape),
-                                  flat[off:off + k])
-            off += k
+        by_device.setdefault(a.device, []).append((p, a))
+    launched = [(items, ops.classifier_lanes_many([a for _, a in items]))
+                for items in by_device.values()]
+    out = {}
+    for items, (lanes, cols) in launched:
+        out.update(lane_strings(items, lanes.cpu().numpy(), cols))
     if executor is not None:
         digs = executor.map_cpu(lambda pa: leaf_digest(pa[1]), host_pairs)
     else:

@@ -124,6 +124,11 @@ def build_all(libs) -> list:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
+    """The current CUDA stream of ``t``'s device, as a pointer-sized int
+    (torch's raw accessor where it has one: it builds no Stream object,
+    which costs a few microseconds a launch)."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -11,22 +11,31 @@ plain version: the wrapper launches its kernel or raises.
   K2 bf16_encode_digest       ckpt_codec.py  bf16_encode_digest_pallas
   K3 delta_decode             ckpt_codec.py  delta_decode_pallas
   K4 delta_encode             ckpt_codec.py  delta_encode_pallas
+  K5 digest_blocks_many       ckpt_codec.py  digest_blocks_pallas
+     (digest_blocks: its one-leaf case)
 
-All four stream HBM once (~9 B/element for K1, K3, K4 and 6 B/element for
+K1-K4 stream HBM once (~9 B/element for K1, K3, K4 and 6 B/element for
 K2) with a few operations per element: they are bound by memory
-bandwidth. One CTA per codec block; see the .cu file for the design and
-the rounding rules that keep them bit-identical to ``ref.py``.
+bandwidth, one CTA per codec block. K5 digests a whole list of leaves in
+one launch on a grid sized to the card; ``plan_digest`` lays the list out
+(the same plan on both routes). See the .cu file for the designs and the
+rounding rules that keep the kernels bit-identical to ``ref.py``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls are
-not counted), so a run can show that its path went through the kernels.
+not counted), so a run can show that its path went through the kernels;
+``LEAVES`` counts the leaves K5's launches digested.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels._build import Library, stream_of
 from repro_torch.kernels.ckpt_codec import ref
@@ -38,20 +47,28 @@ LIB = Library(
      "ckpt_delta_encode": [_P, _P, _P, _P, _P, _LL, _I, _P],
      "ckpt_bf16_encode_digest": [_P, _P, _P, _P, _P, _LL, _I, _P],
      "ckpt_delta_decode": [_P, _P, _P, _P, _LL, _I, _P],
-     "ckpt_digest_blocks": [_P, _P, _P, _LL, _LL, _I, _I, _P]},
+     "ckpt_digest_leaves": [_P, _I, _P, _P, _P, _LL, _I, _P]},
     error_fn="ckpt_error_string")
 
 KERNELS = ("delta_encode_digest", "bf16_encode_digest", "delta_decode",
            "delta_encode", "digest_blocks")
 LAUNCHES = {k: 0 for k in KERNELS}
+LEAVES = {"digest_blocks": 0}     # leaves digested by K5's launches
+# K5 (csrc/ckpt_codec.cu): a CTA owns 1024 positions of every block, and
+# up to 128 leaves travel in the kernel's parameters (a longer list as a
+# device copy of the same rows)
+DIGEST_SLICE = 1024
+PARAM_LEAVES = 128
+DIGEST_DTYPES = (torch.float32, torch.bfloat16)
 
-_lock = threading.Lock()          # LAUNCHES
+_lock = threading.Lock()          # LAUNCHES, LEAVES
 
 
 def reset_launches():
     with _lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        LEAVES["digest_blocks"] = 0
 
 
 def _count(name: str):
@@ -161,33 +178,114 @@ def delta_decode(q, scale, prev):
     return out
 
 
-def digest_blocks(x, weights):
-    """K5. x: flat fp32 or bf16 (any length n); weights: [2, blk] int32.
-    -> lanes int32 [4, max(1, ceil(n / blk))] holding uint32 bits: rows
-    0-1 the digest of each block of x's fp32 bit patterns (bf16 widened
-    exactly) as the Pallas kernel computes it, rows 2-3 the classifier's
-    mixed lanes (ref.mixed_lanes_ref), elements past n counting as zero.
-    The kernel reads the ragged last block in place; the plain version
-    pads a copy."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"digest_blocks takes fp32 or bf16, got {x.dtype}")
+class DigestPlan(NamedTuple):
+    """A list of leaves laid out for K5: ``leaves`` contiguous and 16-byte
+    aligned (a view that is not was copied), so a leaf's memory is its
+    flat elements; ``cols`` each leaf's (first column, blocks) in the [4,
+    total] lanes, ``max(1, ceil(n / blk))`` blocks, so an empty leaf is
+    one zero block."""
+    leaves: tuple
+    cols: tuple
+    total: int
+    blk: int
+
+
+def plan_digest(leaves, blk: int) -> DigestPlan:
+    """Lay out fp32/bf16 tensors (any shape) for ``digest_blocks_many``;
+    both routes take the same plan. It runs on the host before the launch,
+    once a leaf, so it touches no tensor it need not copy."""
+    kept, cols, total = [], [], 0
+    for x in leaves:
+        if x.dtype not in DIGEST_DTYPES:
+            raise TypeError(f"digest_blocks takes fp32 or bf16, got {x.dtype}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            x = x.detach().clone(memory_format=torch.contiguous_format)
+        k = max(1, -(-x.numel() // blk))
+        kept.append(x)
+        cols.append((total, k))
+        total += k
+    return DigestPlan(tuple(kept), tuple(cols), total, blk)
+
+
+def leaf_rows(plan: DigestPlan) -> np.ndarray:
+    """K5's leaf table, int64 [L, 3]: data pointer (| 1 for bf16),
+    elements, first output column."""
+    return np.array([(x.data_ptr() | int(x.dtype == torch.bfloat16),
+                      x.numel(), c) for x, (c, _) in zip(plan.leaves,
+                                                         plan.cols)],
+                    dtype=np.int64).reshape(-1, 3)
+
+
+def digest_blocks_many(leaves, weights):
+    """K5. leaves: fp32 or bf16 tensors on one device (or their
+    ``plan_digest``); weights: [2, blk] int32. -> lanes int32 [4, total]
+    holding uint32 bits, leaf i in columns ``cols[i]`` of its plan: rows
+    0-1 the digest of each block of the leaf's fp32 bit patterns (bf16
+    widened exactly) as the Pallas kernel computes it, rows 2-3 the
+    classifier's mixed lanes (ref.mixed_lanes_ref), elements past a leaf's
+    end counting as zero. On the card one launch digests the whole list,
+    reading ragged last blocks in place; on the CPU the plain version pads
+    a copy of each leaf."""
     blk = weights.shape[-1]
-    n = x.numel()
-    nblk = max(1, -(-n // blk))
-    if x.device.type == "cpu":
-        xb = torch.nn.functional.pad(x.reshape(-1), (0, nblk * blk - n))
-        xb = xb.reshape(nblk, blk)
-        return torch.stack([*ref.digest_blocks_ref(xb, weights),
-                            *ref.mixed_lanes_ref(xb, weights)])
-    _blk_ok(nblk, blk)
-    if blk % 8:
-        raise ValueError(f"unsupported digest geometry [{nblk}, {blk}]: "
-                         f"blk must be a multiple of 8")
-    _check(x, "x", x.dtype, (n,))
-    _check(weights, "weights", torch.int32, (2, blk))
-    with torch.cuda.device(x.device):
-        out = torch.empty((4, nblk), dtype=torch.int32, device=x.device)
-        _launch("digest_blocks", "ckpt_digest_blocks",
-                x.data_ptr(), weights.data_ptr(), out.data_ptr(), n, nblk,
-                blk, int(x.dtype == torch.bfloat16), stream_of(x))
+    plan = leaves if isinstance(leaves, DigestPlan) else \
+        plan_digest(leaves, blk)
+    if not plan.leaves:
+        raise ValueError("digest_blocks_many: no leaves")
+    devices = {x.device for x in plan.leaves}
+    if len(devices) != 1:
+        raise ValueError(f"digest_blocks_many: leaves on {len(devices)} "
+                         f"devices ({sorted(map(str, devices))}); one call "
+                         f"takes one device")
+    if plan.leaves[0].device.type != "cpu":
+        return _digest_many_cuda(plan, weights)
+    out = torch.empty((4, plan.total), dtype=torch.int32)
+    for x, (c, k) in zip(plan.leaves, plan.cols):
+        xb = F.pad(x.detach().reshape(-1), (0, k * blk - x.numel()))
+        xb = xb.reshape(k, blk)
+        out[:, c:c + k] = torch.stack([*ref.digest_blocks_ref(xb, weights),
+                                       *ref.mixed_lanes_ref(xb, weights)])
     return out
+
+
+def _digest_many_cuda(plan: DigestPlan, weights, lib=LIB):
+    """One K5 launch over the plan (``lib``: a build of the same entry
+    point; only ``LIB``'s launches are counted). Its host work comes
+    before the launch and is not hidden behind the card's, so it is kept
+    to the checks and one allocation."""
+    x0, blk = plan.leaves[0], plan.blk
+    dev = x0.device
+    if dev.type != "cuda":
+        raise ValueError(f"x: expected a CUDA tensor, got {dev}")
+    if blk <= 0 or blk % DIGEST_SLICE or blk * 4 > 200 * 1024:
+        raise ValueError(f"unsupported digest geometry [{plan.total}, {blk}]"
+                         f": blk must be a positive multiple of "
+                         f"{DIGEST_SLICE} up to 51200")
+    _check(weights, "weights", torch.int32, (2, blk))
+    if weights.device != dev:
+        raise ValueError(f"weights on {weights.device}, leaves on {dev}")
+    rows = leaf_rows(plan)
+    ctx = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+           else contextlib.nullcontext())
+    with ctx:
+        # zeroed by the entry point, on the stream, before the launch
+        out = torch.empty((4, plan.total), dtype=torch.int32, device=dev)
+        dev_rows = None
+        if len(rows) > PARAM_LEAVES:
+            dev_rows = torch.from_numpy(rows).pin_memory().to(
+                dev, non_blocking=True)
+        lib.call("ckpt_digest_leaves", rows.__array_interface__["data"][0],
+                 len(rows), None if dev_rows is None else dev_rows.data_ptr(),
+                 weights.data_ptr(), out.data_ptr(), plan.total, blk,
+                 stream_of(x0))
+    if lib is LIB:
+        with _lock:
+            LAUNCHES["digest_blocks"] += 1
+            LEAVES["digest_blocks"] += len(rows)
+    return out
+
+
+def digest_blocks(x, weights):
+    """K5's one-leaf case. x: fp32 or bf16 (any shape, n elements);
+    weights: [2, blk] int32. -> lanes int32 [4, max(1, ceil(n / blk))]
+    (``digest_blocks_many``)."""
+    return digest_blocks_many([x], weights)

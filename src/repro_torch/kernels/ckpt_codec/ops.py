@@ -6,6 +6,7 @@ encodes as clean and digests as zero (padded units add 0 to the lanes).
   delta_encode / delta_decode              plain codec
   delta_encode_digest / bf16_encode_digest fused encode + per-block digest
   digest_blocks / classifier_lanes         digest-only sweep (classification)
+  classifier_lanes_many                    the same over a list, one launch
   fold_digest                              per-block lanes -> leaf hex digest
   payload_digest                           numpy re-verification on decode
 
@@ -115,10 +116,17 @@ def classifier_lanes(x, *, block=BLOCK):
     launch where it lies (a misaligned view is copied first), a CPU tensor
     through the plain version."""
     _check_flat(x)
-    if x.device.type == "cuda" and (not x.is_contiguous()
-                                    or x.data_ptr() % 16):
-        x = x.clone(memory_format=torch.contiguous_format)
     return ckpt_codec.digest_blocks(x, digest_weights(block, x.device))
+
+
+def classifier_lanes_many(xs, *, block=BLOCK):
+    """``classifier_lanes`` of a list of fp32/bf16 tensors on one device,
+    in one K5 launch on the card. -> (lanes int32 [4, total], cols): leaf
+    i's lanes are ``lanes[:, c:c + k]`` for ``(c, k) = cols[i]``."""
+    plan = ckpt_codec.plan_digest(xs, block)
+    dev = plan.leaves[0].device if plan.leaves else "cpu"
+    return (ckpt_codec.digest_blocks_many(plan, digest_weights(block, dev)),
+            plan.cols)
 
 
 def digest_blocks(x, *, block=BLOCK):

@@ -221,7 +221,7 @@ def test_serve_engine_on_the_card_goes_through_k6(dev):
                                      (0, "float32")])
 def test_digest_blocks_bit_identical_to_plain(dev, n, dtype):
     """K5 against its plain version (the CPU wrapper path), all four lanes,
-    ragged ends read in place; one launch per call."""
+    ragged ends read in place; one launch and one leaf per call."""
     g = torch.Generator(device=dev).manual_seed(n)
     x = torch.randn(n, generator=g, device=dev).to(getattr(torch, dtype))
     if n > 4:
@@ -229,10 +229,56 @@ def test_digest_blocks_bit_identical_to_plain(dev, n, dtype):
     ckpt_codec.reset_launches()
     got = ops.classifier_lanes(x)
     assert ckpt_codec.LAUNCHES["digest_blocks"] == 1
+    assert ckpt_codec.LEAVES["digest_blocks"] == 1
     want = ops.classifier_lanes(x.cpu())
     assert torch.equal(got.cpu(), want)
     h1, h2 = ops.digest_blocks(x)
     assert torch.equal(h1.cpu(), want[0]) and torch.equal(h2.cpu(), want[1])
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 2
+    assert ckpt_codec.LEAVES["digest_blocks"] == 2
+    torch.cuda.synchronize()
+
+
+def _leaf_list(dev, count, seed):
+    """Mixed fp32/bf16 leaves of ragged, tiny, empty, one-block and
+    multi-block lengths, with a misaligned view among them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    sizes = [0, 5, 4096, 16384, 3 * 16384 + 7, 1_000_003, 2 * 16384 + 9]
+    out = []
+    for i in range(count):
+        n = sizes[i] if i < len(sizes) else int(rng.integers(1, 70000))
+        dt = torch.bfloat16 if i % 3 == 2 else torch.float32
+        x = torch.randn(n + 1, generator=g, device=dev).to(dt)
+        out.append(x[1:] if i == 3 else x[:n])   # i == 3: misaligned
+    return out
+
+
+@pytest.mark.parametrize("count", [9, 200])
+def test_digest_blocks_many_bit_identical_to_plain(dev, count):
+    """The grouped K5 over a list (in the kernel's parameters, or read
+    from a device copy of the rows past 128 leaves): bitwise the plain
+    version's lanes, all four, in one launch that counts every leaf."""
+    from repro_torch.kernels.ckpt_codec import ckpt_codec as cc
+    leaves = _leaf_list(dev, count, count)
+    assert leaves[3].data_ptr() % 16
+    w = ops.digest_weights(16384, dev)
+    ckpt_codec.reset_launches()
+    got = cc.digest_blocks_many(leaves, w)
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 1
+    assert ckpt_codec.LEAVES["digest_blocks"] == count
+    want = cc.digest_blocks_many([x.cpu() for x in leaves],
+                                 ops.digest_weights(16384))
+    assert torch.equal(got.cpu(), want)
+    lanes, cols = ops.classifier_lanes_many(leaves)
+    for x, (c, k) in zip(leaves, cols):
+        assert torch.equal(lanes[:, c:c + k].cpu(),
+                           ops.classifier_lanes(x.cpu()))
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 2
+    with pytest.raises(ValueError, match="geometry"):
+        cc.digest_blocks_many(leaves, ops.digest_weights(1000, dev))
+    with pytest.raises(ValueError, match="devices"):
+        cc.digest_blocks_many([leaves[0], leaves[1].cpu()], w)
     assert ckpt_codec.LAUNCHES["digest_blocks"] == 2
     torch.cuda.synchronize()
 
@@ -253,8 +299,14 @@ def test_classifier_on_the_card_equals_the_cpu(dev):
     d = digest_pairs([("t", t), ("kv", kv),
                       ("pos", torch.tensor(3, dtype=torch.int32,
                                            device=dev))])
-    assert ckpt_codec.LAUNCHES["digest_blocks"] == 2
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 1
+    assert ckpt_codec.LEAVES["digest_blocks"] == 2
     assert d["kv"] == tensor_digest(kv.cpu())
+    assert d["t"] == tensor_digest(t.cpu())
+    leaves = _leaf_list(dev, 150, 4)
+    pairs = [(f"l{i}", x) for i, x in enumerate(leaves)]
+    assert digest_pairs(pairs) == digest_pairs([(p, x.cpu())
+                                                for p, x in pairs])
     with pytest.raises(TypeError):
         ckpt_codec.digest_blocks(t.double().reshape(-1),
                                  ops.digest_weights(16384, dev))
@@ -279,7 +331,8 @@ def test_lazy_restore_places_leaves_on_the_card(dev):
     out = sess.dump(DumpRequest(state=state, step=2,
                                 meta={"migration": rec.to_meta()}))
     assert out.stats["leaves_reused"] == 1
-    assert ckpt_codec.LAUNCHES["digest_blocks"] == 4
+    assert ckpt_codec.LAUNCHES["digest_blocks"] == 2      # one a pass
+    assert ckpt_codec.LEAVES["digest_blocks"] == 4
     res = sess.restore(RestoreRequest(lazy=True,
                                       prefetch_order=("params",)))
     full = res.state.materialize()
