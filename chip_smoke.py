@@ -310,7 +310,29 @@ Phases, one line each (plus details):
                SHA-256 and K2's payload digests verified) and the same step
                taken from it: its loss equal to the live step's bitwise;
                the host peak under 90 GB;
- 18. capabilities: `criu check` of the port on the card
+ 18. mesh path (`spmd:` lines; in a child process, `--spmd-child`,
+               beside path 11, so its device peak and its interpreter are
+               its own): rank 0's per-device program of two
+               production cells on the card, under a fake process group of
+               256 (launch/mesh.fake_group: collectives move no data) on
+               the (16, 16) mesh, qwen3-8b at full width: (a) train_4k
+               (dots, 8 microbatches, 16 of 256 rows a rank) at 2 of 36
+               layers, with and without --cast-once; (b) prefill_32k (2 of
+               32 rows, the cache split over the sequence) at 4 of 36
+               layers. Each step's arguments are DTensors whose local
+               shards alone live on the card; the dry run's record of the
+               same program (traced on meta beside path 7's resume)
+               against it: the FLOPs StepCost counts on the card equal to
+               the record's, the device peak above what was allocated
+               before the state (train) or the step (prefill) within 5% of
+               the record's argument + temp (train) or temp (prefill);
+               the train step's median over 2 timed steps printed as the
+               compute-only time of one of 256 cards; K6 launched once a
+               layer on wgmma through its DTensor sharding rule. The depth
+               is cut for the path's time, not its memory (2 layers of
+               train_4k take 12 GB). No loss is read: the fake
+               collectives' outputs hold no values;
+ 19. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): every
                capability must be supported.
 Then a JSON line of the kernels' numbers, the nvidia-smi line, and last
@@ -5295,6 +5317,253 @@ def remat_path(torch, dev, args, planned=None) -> dict:
     return out
 
 
+# ------------------------------------------------------- the mesh path
+SPMD_ARCH = "qwen3-8b"
+SPMD_MESH = (16, 16)               # the single-pod production mesh
+SPMD_TRAIN_LAYERS = 2              # of 36: the path's 60 s (not memory)
+SPMD_PREFILL_LAYERS = 4            # of 36: likewise
+SPMD_STEPS = 2                     # timed after the counted step
+SPMD_PEAK_TOL = 0.05               # the record's peak vs the card's
+
+
+def spmd_records() -> tuple:
+    """Path 18's dry-run records (CPU only, on meta): rank 0's program
+    of qwen3-8b on the (16, 16) mesh under a fake group of 256, train_4k
+    (dots, the default microbatches) with and without --cast-once at
+    SPMD_TRAIN_LAYERS, and prefill_32k at SPMD_PREFILL_LAYERS ->
+    ({name: record}, seconds)."""
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    recs = {}
+    for name, shape, layers, kw in (
+            ("train", "train_4k", SPMD_TRAIN_LAYERS, {}),
+            ("train_cast_once", "train_4k", SPMD_TRAIN_LAYERS,
+             {"cast_once": True}),
+            ("prefill", "prefill_32k", SPMD_PREFILL_LAYERS, {})):
+        recs[name] = dryrun.run_cell(
+            SPMD_ARCH, shape, num_layers=layers, verbose=False,
+            microbatches=dryrun.default_microbatches(SPMD_ARCH, shape), **kw)
+    return recs, time.time() - t0
+
+
+def _card_trees(torch, cell, dev, gen) -> dict:
+    """The cell's argument trees on the card as rank 0 of the mesh holds
+    them: DTensors whose local shards alone are allocated (weights drawn
+    at 0.02, optimizer moments and the step zero, token ids uniform)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import tree_map
+    mesh = cell.mesh
+    dm = shd.device_mesh(mesh)
+    vocab = cell.cfg.vocab_size
+
+    def group(name):
+        tree, specs = cell.trees[name]
+
+        def leaf(path, t):
+            spec = specs
+            for k in path.split("/"):
+                spec = spec[k]
+            shape = shd.NamedSharding(mesh, spec).shard_shape(tuple(t.shape))
+            if not t.is_floating_point():
+                local = torch.randint(0, vocab, shape, generator=gen,
+                                      device=dev, dtype=t.dtype) \
+                    if name == "inputs" else \
+                    torch.zeros(shape, dtype=t.dtype, device=dev)
+            elif name == "params":
+                local = (torch.randn(shape, generator=gen, device=dev)
+                         * 0.02).to(t.dtype)
+            else:
+                local = torch.zeros(shape, dtype=t.dtype, device=dev)
+            return DTensor.from_local(local, dm, shd.placements(spec, mesh),
+                                      shape=t.shape, stride=t.stride())
+        return tree_map(leaf, tree)
+    return {name: group(name) for name in cell.trees
+            if not (name == "cache" and cell.shape.kind == "prefill")}
+
+
+def _spmd_cell(torch, dev, args, mesh, rec, name) -> dict:
+    """One record against rank 0's step on the card: the step once under
+    StepCost (its FLOPs equal to the record's), then SPMD_STEPS timed
+    under CUDA events (train); the device peak above what was allocated
+    before the state (train) or the step (prefill) within SPMD_PEAK_TOL
+    of the record's argument + temp (train) or temp (prefill)."""
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.stepcost import StepCost
+    opts = rec["options"]
+    cell = dryrun.lower_cell(SPMD_ARCH, rec["shape"], mesh,
+                             num_layers=opts["num_layers"],
+                             microbatches=opts["microbatches"],
+                             cast_once=opts["cast_once"])
+    kind = cell.shape.kind
+    mem, cost = rec["memory_analysis_per_device"], \
+        rec["cost_analysis_per_device"]
+    check(mem["temp_size_in_bytes"] is not None,
+          f"path 18 {name}: the record has no per-device program: "
+          f"{mem.get('null_reason')}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    trees = _card_trees(torch, cell, dev, gen)
+    if kind != "train":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wgmma = k6.ROUTE_LAUNCHES["wgmma"]
+    with StepCost() as sc:
+        out = cell.run(trees)
+    torch.cuda.synchronize()
+    k6_launches = k6.ROUTE_LAUNCHES["wgmma"] - wgmma
+    times = []
+    if kind == "train":
+        trees["params"], trees["opt_state"] = out[0]["params"], {
+            "opt": out[0]["opt"], "step": out[0]["step"]}
+        for _ in range(SPMD_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = cell.run(trees)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1) / 1e3)
+            trees["params"], trees["opt_state"] = out[0]["params"], {
+                "opt": out[0]["opt"], "step": out[0]["step"]}
+    peak = torch.cuda.max_memory_allocated() - base
+    planned = mem["temp_size_in_bytes"] + \
+        (mem["argument_size_in_bytes"] if kind == "train" else 0)
+    miss = planned / peak - 1
+    res = {"options": opts, "flops": sc.flops, "plan_flops": cost["flops"],
+           "peak_bytes": peak, "planned_bytes": planned, "miss": miss,
+           "step_s": times, "k6_wgmma": k6_launches,
+           "collectives": rec["collectives_per_device"]["total"],
+           "memory_analysis": mem}
+    what = "argument + temp" if kind == "train" else "temp"
+    log(f"spmd: {name}: {SPMD_ARCH} {cell.shape.name} at {cell.cfg.num_layers}"
+        f" of 36 layers, rank 0 of {SPMD_MESH[0]}x{SPMD_MESH[1]} (a fake "
+        f"group of {SPMD_MESH[0] * SPMD_MESH[1]}), microbatches "
+        f"{cell.microbatches}, cast_once {opts['cast_once']}: the record's "
+        f"{what} {planned:,} B, the card's peak {peak:,} B "
+        f"({100 * miss:+.2f}%); {sc.flops:,} FLOPs counted on the card, "
+        f"the record {cost['flops']:,}; the record's collectives "
+        f"{res['collectives']['count']} ({res['collectives']['operand_bytes']:,}"
+        f" B operand)")
+    check(sc.flops == cost["flops"], f"path 18 {name}: the card counts "
+          f"{sc.flops} FLOPs, the record {cost['flops']}")
+    check(abs(miss) <= SPMD_PEAK_TOL,
+          f"path 18 {name}: the record's {what} {planned} B is "
+          f"{100 * miss:+.2f}% of the card's peak {peak} B (limit "
+          f"{100 * SPMD_PEAK_TOL:g}%)")
+    if kind == "train":
+        med = statistics.median(times)
+        res["step_s_median"] = med
+        log(f"spmd: {name}: {smi_line()}: the compute-only time of one of "
+            f"{SPMD_MESH[0] * SPMD_MESH[1]} cards (no communication: the "
+            f"fake group's collectives move nothing) median {med:.4f} s over "
+            f"{SPMD_STEPS} steps ({', '.join(f'{t:.4f}' for t in times)}); "
+            f"{sc.flops / med / 1e12:.1f} TFLOP/s counted")
+    else:
+        log(f"spmd: {name}: K6 launched {k6_launches} times on wgmma through "
+            f"its sharding rule ({cell.cfg.num_layers} layers)")
+        check(k6_launches == cell.cfg.num_layers,
+              f"path 18 {name}: K6 launched {k6_launches} times on wgmma, "
+              f"{cell.cfg.num_layers} layers")
+    del trees, out
+    return res
+
+
+def spmd_path(torch, dev, args, planned=None) -> dict:
+    """Path 18: rank 0's per-device program of two production cells on
+    the card, under a fake group of 256 on the (16, 16) mesh at full
+    width, against the dry run's records of the same program on meta.
+    The fake group's collectives move no data and leave their outputs as
+    allocated, so the path reads shapes, memory, FLOPs and time, never a
+    loss. ``planned``: spmd_records()'s result, traced earlier where this
+    process was idle; traced here when None."""
+    from repro_torch.launch.mesh import fake_group, make_test_mesh
+    recs, record_s = planned or spmd_records()
+    t0 = time.time()
+    out = {"record_s": record_s}
+    with fake_group(SPMD_MESH[0] * SPMD_MESH[1]):
+        mesh = make_test_mesh(SPMD_MESH, device=dev)
+        for name, rec in recs.items():
+            out[name] = _spmd_cell(torch, dev, args, mesh, rec, name)
+            free_host_and_card(torch)
+    plain, cast = (out[k]["collectives"]["operand_bytes"]
+                   for k in ("train", "train_cast_once"))
+    log(f"spmd: cast-once moves {cast:,} B of collective operands a step, "
+        f"without {plain:,} B; records traced in {record_s:.1f} s on meta, "
+        f"the card's part {time.time() - t0:.1f} s")
+    check(cast < plain, "cast-once did not cut the collectives' bytes")
+    out["launches"] = {"flash_attention": out["prefill"]["k6_wgmma"]}
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+SPMD_CHILD_TIMEOUT_S = 600
+
+
+def start_spmd_child(planned, args) -> dict:
+    """Path 18 in a child process (``--spmd-child``), started beside path
+    11: its own CUDA context, so the device peak it checks is its own,
+    and a process of its own, so its host-bound DTensor dispatch takes
+    none of this process's interpreter. ``planned``: spmd_records()'s
+    result, handed over as JSON."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-spmd-", dir=args.lifecycle_dir)
+    recs = os.path.join(tmp, "records.json")
+    with open(recs, "w") as f:
+        json.dump({"records": planned[0], "record_s": planned[1]}, f)
+    logf = open(os.path.join(tmp, "child.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spmd-child", recs,
+         "--out", os.path.join(tmp, "out.json"), "--seed", str(args.seed)],
+        stdout=logf, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": logf, "tmp": tmp, "t0": time.time()}
+
+
+def finish_spmd_child(child) -> dict:
+    """Wait for path 18's child (at most SPMD_CHILD_TIMEOUT_S), replay its
+    ``spmd:`` lines, fail unless it exited 0 -> its result."""
+    import shutil
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=SPMD_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    child["log"].seek(0)
+    lines = child["log"].read().splitlines()
+    child["log"].close()
+    for ln in lines:
+        if ln.startswith("spmd:"):
+            log(ln)
+    try:
+        check(proc.returncode == 0, f"path 18's child exited "
+              f"{proc.returncode}:\n" + "\n".join(lines[-40:]))
+        with open(os.path.join(child["tmp"], "out.json")) as f:
+            out = json.load(f)
+    finally:
+        shutil.rmtree(child["tmp"], ignore_errors=True)
+    out["child_wall_s"] = time.time() - child["t0"]
+    return out
+
+
+def spmd_child_main(torch, dev, args) -> int:
+    """The child's side of path 18: load K6 (built by the parent), run
+    spmd_path on the parent's records, write its result to ``--out``."""
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    build_all([k6.LIB])
+    k6.LIB.load()
+    with open(args.spmd_child) as f:
+        given = json.load(f)
+    out = spmd_path(torch, dev, args, (given["records"], given["record_s"]))
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def capability_phase(torch, dev):
     """`criu check` on the card: every capability, one line each, and
     every one must be supported (every module is ported)."""
@@ -5595,6 +5864,7 @@ def main(argv=None) -> int:
                     help="where the lifecycle path's images and the remote "
                          "path's hot fronts go (default: the system's "
                          "temporary directory)")
+    ap.add_argument("--spmd-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     # cuBLAS picks deterministic algorithms only with a fixed workspace;
@@ -5614,6 +5884,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.spmd_child:
+        return spmd_child_main(torch, dev, args)
     card = smi_line()
     log(card)
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
@@ -5696,7 +5968,8 @@ def main(argv=None) -> int:
         restart = socket_restart(dev, args)
         restart["wall_s"] = time.time() - t0
         return {"restart": restart, "remat_record": remat_record(),
-                "plane_record": plane_record()}
+                "plane_record": plane_record(),
+                "spmd_record": spmd_records()}
 
     t0 = time.time()
     record["lifecycle"] = lifecycle_path(torch, dev, args,
@@ -5724,8 +5997,9 @@ def main(argv=None) -> int:
         f"s; the resume beside the reference "
         f"{record['lifecycle']['resume_phase_wall_s']:.1f} s, path 12 (b) "
         f"({later['restart']['wall_s']:.1f} s), path 17's record on meta "
-        f"({remat_planned[1]:.1f} s) and path 9's "
-        f"({later['plane_record'][1]:.1f} s) beside those; paths 7, 13, 6 "
+        f"({remat_planned[1]:.1f} s), path 9's "
+        f"({later['plane_record'][1]:.1f} s) and path 18's "
+        f"({later['spmd_record'][1]:.1f} s) beside those; paths 7, 13, 6 "
         f"and 12 (b) "
         f"together {time.time() - t0:.1f} s")
     for k, n in fam["launches"].items():
@@ -5790,6 +6064,9 @@ def main(argv=None) -> int:
             sum(a["k6_routes"].values()) for a in record["archs"].values())
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
+    # path 18 in a child process beside path 11 (12 GB of the card beside
+    # its 56; path 11 is host-bound on its own threads)
+    spmd_child = start_spmd_child(later["spmd_record"], args)
     t0 = time.time()
     with RssPeak() as rss_fleet:
         record["fleet"] = fleet_path(torch, dev, args)
@@ -5804,7 +6081,14 @@ def main(argv=None) -> int:
           f"machine's 96 GiB")
     for k in ckpt_codec.KERNELS:
         rows[k]["launches"] += record["fleet"]["launches"][k]
-    mark("archs+fleet")
+    record["spmd"] = spmd = finish_spmd_child(spmd_child)
+    log(f"spmd: path 18 in a child process beside path 11: the child "
+        f"{spmd['child_wall_s']:.1f} s from its start (its card part "
+        f"{spmd['wall_s']:.1f} s; its records {spmd['record_s']:.1f} s on "
+        f"meta beside path 7's resume); path 11 {record['fleet']['wall_s']:.1f} s")
+    rows["flash_attention"]["launches"] += \
+        spmd["launches"]["flash_attention"]
+    mark("archs+fleet+spmd")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()

@@ -190,6 +190,12 @@ class CheckpointSession:
                             f"{type(request).__name__} — build one, or use "
                             f"the legacy save() shim")
         t0 = time.monotonic()
+        from repro_torch.distributed import sharding as shd
+        if request.mode != "sync" and shd.has_dtensor(request.state):
+            raise ValueError(
+                f"a {request.mode} dump of DTensor leaves: only a sync dump "
+                f"gathers a sharded state (every rank calls it); gather it "
+                f"yourself (distributed.sharding.gather_tree) for this mode")
         if request.mode == "pre_dump":
             out = self.pre_dump(request.state, step=request.step,
                                 meta=request.meta,
@@ -352,6 +358,10 @@ class CheckpointSession:
             out = sess.save(state, step=7)
             print(out["image_id"], out["stats"]["bytes_stored"])
         """
+        from repro_torch.distributed import sharding as shd
+        if shd.has_dtensor(tree):
+            return self._save_sharded(tree, step=step, meta=meta,
+                                      topology=topology)
         self._drain_async()
         # residual-dump path: after pre-dump rounds, digest-unchanged
         # leaves re-emit their cached records — the freeze window pays
@@ -366,6 +376,24 @@ class CheckpointSession:
                                  pre_dump=False)
         self._committed(tree, step, out)
         return out
+
+    def _save_sharded(self, tree, *, step, meta, topology) -> dict:
+        """save() of a tree with DTensor leaves (a multi-device mesh):
+        every rank of the group calls it. Each leaf is gathered to a full
+        tensor once (``full_tensor``, collective), rank 0 dumps the
+        gathered tree, so the image holds the same chunk bytes and
+        manifest as an unsharded dump of the same values, and every rank
+        gets rank 0's image id and stats."""
+        import torch.distributed as dist
+        from repro_torch.distributed import sharding as shd
+        full = shd.gather_tree(tree)
+        out = [None]
+        if dist.get_rank() == 0:
+            res = self.save(full, step=step, meta=meta, topology=topology)
+            out = [{"image_id": res["image_id"], "stats": res["stats"]}]
+        del full
+        dist.broadcast_object_list(out, src=0)
+        return dict(out[0], records=None)
 
     def _drain_async(self):
         """Drain in-flight async dumps before a sync dump or a pre-copy
@@ -529,27 +557,32 @@ class CheckpointSession:
 
     # --------------------------------------------------------- engine: load
     def _load(self, image_id, target_struct, shardings):
-        """Raw restore onto the shardings' one device (else the
-        session's); a shardings tree must have the image's leaf paths."""
-        from repro_torch.distributed.sharding import (check_tree,
+        """Raw restore onto the shardings' device (else the session's); a
+        shardings tree must have the image's leaf paths. On a mesh over
+        the ranks of a process group every rank restores the image and
+        keeps its slices (DTensors)."""
+        from repro_torch.distributed.sharding import (check_tree, place,
                                                       placement_device)
         dev = self.device if shardings is None \
             else placement_device(shardings)
-        out = _restore(self.tier, image_id, device=dev,
-                       expected=target_struct, replicas=self.replicas,
-                       executor=self.executor)
+        tree, man = _restore(self.tier, image_id, device=dev,
+                             expected=target_struct, replicas=self.replicas,
+                             executor=self.executor)
         if shardings is not None:
-            check_tree(shardings, out[0])
-        return out
+            check_tree(shardings, tree)
+            tree = place(tree, shardings)
+        return tree, man
 
     def load_latest(self, target_struct=None, shardings=None):
         """Raw restore of the newest image -> (tree, manifest) on the
         session's device. The typed path (RestoreRequest) adds the
         migration record and digest check on top. ``shardings`` (a tree
         of distributed/sharding.NamedSharding, e.g. ``named(mesh,
-        train_state_pspecs(lm, rules))``) places every leaf on the mesh's
-        one device instead; a mesh over several devices raises
-        NotImplementedError.
+        train_state_pspecs(lm, rules))``) places every leaf on the mesh
+        instead: on its one device, or, on a mesh over the ranks of the
+        initialised process group, as DTensors whose local shards are
+        bitwise the slices of the image's leaves; a mesh over several
+        devices without such a group raises RuntimeError.
 
         Example::
 

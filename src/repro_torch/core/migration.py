@@ -412,10 +412,13 @@ def resume(root, *, expected=None, shardings=None, mesh=None,
     The new topology comes from ``mesh`` (host/DP counts derived, as the
     JAX package derives them) or explicit ``host_count``/``dp_degree``.
     ``shardings`` (a tree of NamedShardings) places the leaves on its
-    mesh's one device in place of ``device``; a mesh over several devices
-    raises NotImplementedError."""
+    mesh in place of ``device``: its one device, or, over the ranks of
+    the initialised process group, DTensors whose local shards are the
+    slices of the leaves; a mesh over several devices without such a
+    group raises RuntimeError."""
     from repro_torch.core.restore import place, restore_pairs
     from repro_torch.distributed.sharding import check_tree, placement_device
+    from repro_torch.distributed.sharding import place as place_on_mesh
 
     if mesh is not None:
         placement_device(mesh)          # one device, or raise
@@ -471,6 +474,7 @@ def resume(root, *, expected=None, shardings=None, mesh=None,
         tree = place(pairs, device, expected)
         if shardings is not None:
             check_tree(shardings, tree)
+            tree = place_on_mesh(tree, shardings)
     return ResumeReport(state=tree, manifest=man, migration=rec,
                         topology_changed=plan["changed"],
                         changes=plan["changes"],

@@ -13,10 +13,25 @@ param shardings. Divisibility is checked per axis with graceful fallback to
 replication (e.g. GQA kv_heads=8 < model=16 -> KV projections replicate over
 `model`).
 
-The port runs one process on one device: a mesh is a record of axis names
-over an ndarray of ``torch.device``, and placing a tree under
-``named(mesh, specs)`` puts every leaf on the mesh's one device
-(``placement_device``); a mesh over several distinct devices raises there.
+A mesh is a record of axis names over an ndarray of ``torch.device``. A
+mesh whose positions all name one device (``ranks`` None) is a one-device
+mesh: placing a tree under ``named(mesh, specs)`` puts every leaf on that
+device, as plain tensors. A mesh with ``ranks`` spans the ranks of a
+``torch.distributed`` process group, one device per rank
+(``launch/mesh.make_test_mesh`` builds one when a group is initialised):
+``device_mesh`` maps it to a ``DeviceMesh``, ``placements`` maps a
+PartitionSpec to ``Shard``/``Replicate``, and ``place`` turns a tree of
+full tensors into ``DTensor``s whose local shards are the slices of the
+leaves. The group is real (gloo, NCCL) or fake (``launch/mesh.fake_group``:
+one process plays rank 0 and collectives move no data); both run the same
+program. A mesh over several devices without a group that spans it
+raises (``placement_device``).
+
+Inside model code the DTensor program follows the JAX one: weights are
+gathered over the data axes right before use (``gather_fsdp``, FSDP's
+all-gather; their ``model`` shards stay), activations follow DTensor's
+sharding propagation, and ``LM(act_sharding=)`` pins the residual stream
+at group boundaries (``constrain``).
 """
 from __future__ import annotations
 
@@ -60,9 +75,10 @@ class PartitionSpec(tuple):
 
 class Mesh:
     """Axis names over an ndarray of ``torch.device`` (the record
-    ``jax.sharding.Mesh`` is to JAX)."""
+    ``jax.sharding.Mesh`` is to JAX). ``ranks`` (same shape, or None) are
+    the process-group ranks of the positions of a multi-device mesh."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, ranks=None):
         given = np.asarray(devices, dtype=object)
         self.devices = np.empty(given.shape, dtype=object)
         for idx in np.ndindex(given.shape):
@@ -72,6 +88,8 @@ class Mesh:
             raise ValueError(f"mesh of shape {self.devices.shape} needs "
                              f"{self.devices.ndim} axis names, got "
                              f"{self.axis_names}")
+        self.ranks = None if ranks is None else \
+            np.asarray(ranks, dtype=np.int64).reshape(self.devices.shape)
 
 
 class NamedSharding:
@@ -203,33 +221,271 @@ def named(mesh: Mesh, tree_pspecs):
     return NamedSharding(mesh, tree_pspecs)
 
 
-def placement_device(shardings) -> torch.device:
-    """The one device a tree of NamedShardings (or a single one) places
-    its leaves on. Raises NotImplementedError for a mesh over several
-    distinct devices, or leaves on different devices: the port places a
-    tree on one device and never pretends otherwise."""
-    devs = set()
+def _meshes(shardings) -> list:
+    out = []
 
     def walk(node):
         if isinstance(node, dict):
             for v in node.values():
                 walk(v)
         elif isinstance(node, NamedSharding):
-            devs.update(node.mesh.devices.flat)
+            out.append(node.mesh)
         elif isinstance(node, Mesh):
-            devs.update(node.devices.flat)
+            out.append(node)
         else:
             raise TypeError(f"expected NamedShardings, got "
                             f"{type(node).__name__}")
     walk(shardings)
-    if not devs:
+    return out
+
+
+def group_size() -> int:
+    """Ranks in the initialised default process group, 0 without one."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def _no_group(n: int, what: str) -> RuntimeError:
+    have = group_size()
+    return RuntimeError(
+        f"{what} spans {n} devices and needs a process group of {n} ranks "
+        f"(torch.distributed.init_process_group, or launch.mesh.fake_group); "
+        + (f"the initialised group has {have}" if have
+           else "none is initialised"))
+
+
+def placement_device(shardings) -> torch.device:
+    """The device this process places a tree of NamedShardings (or a
+    single one, or a Mesh) on: a one-device mesh's device, or this rank's
+    device of a multi-device mesh whose ranks the initialised process
+    group spans. Raises RuntimeError for a mesh over several devices
+    without such a group, or meshes that disagree."""
+    meshes = _meshes(shardings)
+    if not meshes:
         raise ValueError("the shardings name no device")
-    if len(devs) != 1:
-        raise NotImplementedError(
-            f"multi-device placement (a mesh over {sorted(map(str, devs))}) "
-            f"is not supported by repro_torch: it places a tree on one "
-            f"device")
+    devs = set()
+    for m in meshes:
+        if m.ranks is not None:
+            n = int(m.ranks.size)
+            if group_size() != n:
+                raise _no_group(n, f"a mesh of shape {m.devices.shape}")
+            import torch.distributed as dist
+            at = np.argwhere(m.ranks == dist.get_rank())[0]
+            devs.add(m.devices[tuple(at)])
+        else:
+            devs.update(m.devices.flat)
+    if len(devs) != 1 or len({m.ranks is None for m in meshes}) != 1:
+        raise _no_group(len(devs), f"placement over "
+                                   f"{sorted(map(str, devs))}")
     return devs.pop()
+
+
+def is_multi(mesh: Mesh) -> bool:
+    """True for a mesh over the ranks of a process group."""
+    return mesh.ranks is not None
+
+
+_DEVICE_MESHES = {}
+
+
+# the DeviceMesh dim that a (pod, data, model) mesh's pod and data axes
+# become together (see device_mesh)
+POD_DATA = "pod_data"
+
+
+def _dm_groups(mesh: Mesh) -> list:
+    """The mesh record's axes grouped as its DeviceMesh's dims: ``pod``
+    and ``data`` side by side are one dim (pod outermost)."""
+    names, groups = mesh.axis_names, []
+    i = 0
+    while i < len(names):
+        if names[i:i + 2] == ("pod", "data"):
+            groups.append(("pod", "data"))
+            i += 2
+        else:
+            groups.append((names[i],))
+            i += 1
+    return groups
+
+
+def device_mesh(mesh: Mesh):
+    """The ``torch.distributed.device_mesh.DeviceMesh`` of a multi-device
+    mesh record over the ranks of the current process group (built once
+    per group; new_group is collective on a real group). A (pod, data,
+    model) mesh becomes a 2-D DeviceMesh (``POD_DATA``, model): the JAX
+    rules only ever split a dim over pod and data together
+    (``data_axes``), so the two are one dim of pod x data ranks, pod
+    outermost, as the tuple entry orders them; DTensor's sharding
+    propagation then weighs strategies over two mesh dims, not three,
+    which on the 512-device mesh is the difference between seconds and
+    tens of minutes a cell."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not is_multi(mesh):
+        raise ValueError("a one-device mesh has no DeviceMesh")
+    n = int(mesh.ranks.size)
+    if group_size() != n:
+        raise _no_group(n, f"a mesh of shape {mesh.devices.shape}")
+    kind = "cuda" if mesh.devices.flat[0].type == "cuda" else "cpu"
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    groups = _dm_groups(mesh)
+    shape = tuple(int(np.prod([sizes[a] for a in g])) for g in groups)
+    names = tuple(POD_DATA if len(g) > 1 else g[0] for g in groups)
+    key = (id(dist.group.WORLD), kind, shape, names)
+    if key not in _DEVICE_MESHES:
+        _DEVICE_MESHES[key] = init_device_mesh(kind, shape,
+                                               mesh_dim_names=names)
+    return _DEVICE_MESHES[key]
+
+
+def forget_device_meshes() -> None:
+    """Drop the DeviceMeshes built over a group about to be destroyed."""
+    _DEVICE_MESHES.clear()
+
+
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else \
+        entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec, mesh) -> list:
+    """A PartitionSpec -> one ``Shard``/``Replicate`` per dim of the
+    mesh's DeviceMesh: a mesh axis (or ``POD_DATA``, pod and data
+    together) shards the array dim whose entry names it; a tuple entry
+    such as ``("pod", "data")`` shards its dim over both, the first name
+    outermost, as in JAX. ``mesh`` is a Mesh record or a DeviceMesh."""
+    from torch.distributed.tensor import Replicate, Shard
+    if isinstance(mesh, Mesh):
+        groups = _dm_groups(mesh)
+    else:
+        groups = [("pod", "data") if n == POD_DATA else (n,)
+                  for n in mesh.mesh_dim_names]
+    spec = spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
+    out = []
+    for g in groups:
+        dims = []
+        for d, e in enumerate(spec):
+            ax = _entry_axes(e)
+            hit = [a for a in ax if a in g]
+            if hit and tuple(a for a in ax if a in g) != g:
+                raise ValueError(f"{spec} splits a dim over {hit} without "
+                                 f"the rest of {g}, which share one mesh "
+                                 f"dim")
+            if hit:
+                dims.append(d)
+        if len(dims) > 1:
+            raise ValueError(f"{spec} names mesh axes {g} twice")
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def distribute(t: torch.Tensor, sharding: NamedSharding):
+    """A full tensor (the same on every rank) -> the DTensor of
+    ``sharding`` whose local shard is this rank's slice of it, bitwise,
+    with no communication. A one-device sharding leaves it as it is."""
+    if not is_multi(sharding.mesh):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    sharding.shard_shape(tuple(t.shape))          # raises if uneven
+    return distribute_tensor(t, device_mesh(sharding.mesh),
+                             placements(sharding.spec, sharding.mesh),
+                             src_data_rank=None)
+
+
+def place(tree, shardings):
+    """A nested dict of full tensors -> the same tree placed under a tree
+    of NamedShardings (or one for every leaf): DTensors on a
+    multi-device mesh (``distribute``), the tensors as given on a
+    one-device mesh."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k] if isinstance(shardings, dict)
+                         else shardings) for k, v in tree.items()}
+    return distribute(tree, shardings)
+
+
+def full(shape, fill, dtype, sharding: NamedSharding, device):
+    """A tensor of ``shape`` filled with ``fill`` under ``sharding``: on a
+    multi-device mesh a DTensor whose local shard alone is allocated
+    (``shape`` is global), else a plain tensor on ``device``."""
+    if not is_multi(sharding.mesh):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    shard = torch.full(sharding.shard_shape(tuple(shape)), fill,
+                       dtype=dtype, device=device)
+    shape = torch.Size(shape)
+    return DTensor.from_local(shard, device_mesh(sharding.mesh),
+                              placements(sharding.spec, sharding.mesh),
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def write_at(dst, index: int, src, dim: int = 1):
+    """``dst.narrow(dim, index, src.shape[dim]).copy_(src)`` in place.
+    Where ``dst`` is a DTensor sharded on ``dim`` (a KV cache over
+    ``model`` on the sequence, flash-decoding's split), the rank that
+    holds those positions writes them into its own shard."""
+    n = src.shape[dim]
+    if not is_dtensor(dst):
+        dst.narrow(dim, index, n).copy_(src)
+        return dst
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = dst.device_mesh, list(dst.placements)
+    other = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+             for p in pl]
+    if not is_dtensor(src):
+        from torch.distributed.tensor import DTensor
+        src = DTensor.from_local(src, mesh, [Replicate()] * len(pl))
+    src = src.redistribute(mesh, other).to_local()
+    shard = dst.to_local()
+    _, offset = compute_local_shape_and_global_offset(dst.shape, mesh, pl)
+    lo = int(offset[dim])
+    a, b = max(index, lo), min(index + n, lo + shard.shape[dim])
+    if a < b:
+        shard.narrow(dim, a - lo, b - a).copy_(
+            src.narrow(dim, a - index, b - a))
+    return dst
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def local(t, grad_placements=None):
+    """A DTensor's local shard, differentiably (``to_local``), its
+    gradient made contiguous on the way back: ``to_local``'s backward
+    wraps the local gradient in the DTensor's own (contiguous) stride, so
+    a gradient that local ops leave strided would mislabel its layout."""
+    out = t.to_local(grad_placements=grad_placements)
+    return _ContiguousGrad.apply(out) if out.requires_grad else out
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def gather_tree(tree):
+    """A tree whose DTensor leaves are gathered to full tensors
+    (``full_tensor``: collective, every rank of the group calls it);
+    other leaves as they are."""
+    from repro_torch.models.params import tree_map
+    return tree_map(lambda _, t: t.full_tensor() if is_dtensor(t) else t,
+                    tree)
+
+
+def has_dtensor(tree) -> bool:
+    from repro_torch.models.params import tree_leaves
+    return any(is_dtensor(t) for t in tree_leaves(tree))
 
 
 def check_tree(shardings, tree) -> None:
@@ -246,10 +502,42 @@ def check_tree(shardings, tree) -> None:
 
 
 # ------------------------------------------------------- trace-time context
-# Mesh context for sharding constraints INSIDE model code (MoE shard-local
-# dispatch). The port runs on one device: the context records the mesh
-# and ``constrain`` leaves its tensor as it is.
-_CTX = {"mesh": None}
+# Mesh context for sharding constraints INSIDE model code, kept from the
+# JAX package (its MoE's shard-local dispatch): the context records the
+# mesh and ``constrain`` leaves its tensor as it is. The port's MoE reads
+# its groups off its DTensors (models/moe.py). ``activation_sharding``
+# is the port's own: the residual stream's pin inside the blocks.
+_CTX = {"mesh": None, "act": None}
+
+
+class activation_sharding:
+    """The residual stream's NamedSharding (``LM(act_sharding=)``) for
+    the blocks run inside: ``constrain_act`` pins each residual add to
+    it. DTensor propagates a sharding greedily, op by op, where XLA
+    plans a whole program: without the pin a partial sum coming out of
+    an attention or MLP block may be reduce-scattered over ``d`` and the
+    next block's weights then gathered whole, replicating its work."""
+
+    def __init__(self, sharding):
+        self.sharding = sharding
+
+    def __enter__(self):
+        self._old = _CTX["act"]
+        _CTX["act"] = self.sharding
+        return self
+
+    def __exit__(self, *a):
+        _CTX["act"] = self._old
+
+
+def constrain_act(x):
+    """``x`` [B, S, d] redistributed to the activation sharding in force
+    (``activation_sharding``); the identity without one or on one
+    device."""
+    act = _CTX["act"]
+    if act is None or not is_dtensor(x) or x.ndim != 3:
+        return x
+    return redistribute(x, act)
 
 
 class mesh_context:
@@ -270,7 +558,260 @@ def ctx_data_shards() -> int:
     return data_size(mesh) if mesh is not None else 1
 
 
+class _Pin(torch.autograd.Function):
+    """Redistribute to fixed placements, and the gradient to the same
+    ones: a sharding constraint binds the cotangent too, as JAX's does.
+    (DTensor's own redistribute leaves a gradient as the next op made
+    it: a partial sum over ``model`` coming back into the residual
+    stream would stay partial, and the block before would gather its
+    weights whole to multiply it.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if list(grad.placements) != list(ctx.want):
+            grad = grad.redistribute(ctx.mesh, ctx.want)
+        return grad, None, None
+
+
+def pin(x, want):
+    """A DTensor redistributed to the placements ``want`` (one per mesh
+    dim of its own mesh), its gradient too (``_Pin``)."""
+    want = tuple(want)
+    if tuple(x.placements) == want and not x.requires_grad:
+        return x
+    return _Pin.apply(x, x.device_mesh, want)
+
+
+def redistribute(x, sharding: NamedSharding):
+    """A DTensor redistributed to ``sharding``'s placements, its gradient
+    too (the JAX package's with_sharding_constraint); a plain tensor as
+    it is."""
+    if not is_dtensor(x) or not is_multi(sharding.mesh):
+        return x
+    want = placements(sharding.spec, sharding.mesh)
+    return _Pin.apply(x, device_mesh(sharding.mesh), tuple(want))
+
+
 def constrain(x, *axes):
     """The JAX package's with_sharding_constraint against the context mesh:
-    the identity on one device."""
+    the identity (the port pins with ``redistribute``)."""
     return x
+
+
+def _vocab_split(x, dim: int):
+    """The mesh dims that shard ``x``'s ``dim`` (the vocab), and this
+    rank's slice of it as (start, length); ([], None) when unsplit."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return [], None
+    cut = [i for i, p in enumerate(x.placements)
+           if isinstance(p, Shard) and p.dim == dim % x.ndim]
+    if not cut:
+        return [], None
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return cut, (int(offset[dim % x.ndim]), int(shape[dim % x.ndim]))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The stride of a contiguous tensor of ``shape``."""
+    return torch.empty(shape, device="meta").stride()
+
+
+def _partial_sum(part, mesh, cut, rest, shape):
+    """``part`` (a local tensor) as a DTensor partial over the ``cut``
+    mesh dims (else ``rest``), all-reduced to ``rest``."""
+    from torch.distributed.tensor import DTensor, Partial
+    shape = torch.Size(shape)
+    out = DTensor.from_local(
+        part, mesh, [Partial() if i in cut else p
+                     for i, p in enumerate(rest)],
+        shape=shape, stride=contiguous_stride(shape))
+    return out.redistribute(mesh, rest)
+
+
+def _ids_like(ids, mesh, rest):
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(ids):
+        return ids.redistribute(mesh, rest)
+    return DTensor.from_local(ids, mesh, [Replicate()] * len(rest))
+
+
+def take_last(x, idx):
+    """``torch.gather(x, -1, idx)`` where ``x``'s last dim may be sharded
+    (the chunked CE's gold logit from vocab-sharded logits): each rank
+    gathers from its own vocab slice, indices outside it give 0, and the
+    partial sums are all-reduced, as XLA lowers the JAX package's
+    ``take_along_axis``. (DTensor's own gather strategy leaves a masked
+    partial that its mask buffer cannot reduce.) Plain tensors, and a
+    last dim that is not sharded, take ``torch.gather``."""
+    from torch.distributed.tensor import Replicate
+    cut, span = _vocab_split(x, -1)
+    if not cut:
+        return torch.gather(x, -1, idx)
+    lo, n = span
+    mesh = x.device_mesh
+    rest = [Replicate() if i in cut else p
+            for i, p in enumerate(x.placements)]
+    idx = _ids_like(idx, mesh, rest)
+    li = idx.to_local()
+    mine = (li >= lo) & (li < lo + n)
+    got = torch.gather(local(x), -1, (li - lo).clamp(0, n - 1))
+    got = torch.where(mine, got, torch.zeros_like(got))
+    return _partial_sum(got, mesh, cut, rest, idx.shape)
+
+
+def embedding(ids, table):
+    """``F.embedding(ids, table)`` where ``table``'s rows (the vocab) may
+    be sharded: each rank looks up the ids in its own rows, others give
+    zero rows, and the partial sums are all-reduced, the rows' gradient
+    landing on the rank that holds them. Plain tensors, and an unsplit
+    vocab, take ``F.embedding``."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    cut, span = _vocab_split(table, 0)
+    if not cut:
+        return F.embedding(ids, table)
+    lo, n = span
+    mesh = table.device_mesh
+    # the ids' sharding on the mesh dims that do not split the vocab
+    rest = [p if (is_dtensor(ids) and i not in cut) else Replicate()
+            for i, p in enumerate(ids.placements if is_dtensor(ids)
+                                  else table.placements)]
+    ids = _ids_like(ids, mesh, rest)
+    li = ids.to_local()
+    mine = (li >= lo) & (li < lo + n)
+    # a data shard's rows take only its own tokens' share of the gradient
+    grad = [Shard(0) if i in cut else Partial()
+            if isinstance(rest[i], Shard) else Replicate()
+            for i in range(len(rest))]
+    rows = F.embedding((li - lo).clamp(0, n - 1),
+                       local(table, grad))
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return _partial_sum(rows, mesh, cut, rest,
+                        tuple(ids.shape) + (table.shape[1],))
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp(x, -1)`` where the last dim may be sharded (the
+    CE over vocab-sharded logits): the max and the sum of exponentials
+    are all-reduced, not the logits gathered. Plain tensors, and an
+    unsplit last dim, take ``torch.logsumexp``."""
+    if not _vocab_split(x, -1)[0]:
+        return torch.logsumexp(x, dim=-1)
+    m = reduce_partial(x.detach().amax(dim=-1, keepdim=True))
+    total = reduce_partial(torch.exp(x - m).sum(dim=-1))
+    return torch.log(total) + m[..., 0]
+
+
+def repeat_kv(k, rep: int, q):
+    """GQA's K or V [B, S, KV, hd] repeated to the query heads
+    (``torch.repeat_interleave(k, rep, dim=2)``) and placed as ``q``
+    [B, S, KV * rep, hd] is. Where ``q``'s heads are sharded and ``k``'s
+    are not (qwen3-8b: 32 query heads, 8 KV heads, a ``model`` axis of
+    16), a rank's query heads must meet their own KV heads: each rank
+    takes, by its head offset, the KV head of each of its query heads
+    (query head h reads KV head h // rep), so nothing is gathered, and
+    the gradient comes back as a partial sum over those mesh dims."""
+    if not is_dtensor(q):
+        return torch.repeat_interleave(k, rep, dim=2)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, qp = q.device_mesh, list(q.placements)
+    heads = [i for i, p in enumerate(qp) if isinstance(p, Shard)
+             and p.dim == 2]
+    if not is_dtensor(k):
+        k = DTensor.from_local(k, mesh, [Replicate()] * len(qp))
+    kp = list(k.placements)
+    split = [i for i in heads if kp[i] == Shard(2)]
+    want = [kp[i] if i in split else Replicate() if i in heads else qp[i]
+            for i in range(len(qp))]
+    k = k.redistribute(mesh, want)
+    if len(split) == len(heads):
+        # K/V split as the query heads: the local repeat lines up
+        shard = torch.repeat_interleave(local(k), rep, dim=2)
+    else:
+        if split:
+            raise ValueError(f"K/V heads split over some of the query "
+                             f"heads' mesh dims only: {kp} vs {qp}")
+        _, off = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+        n = q.to_local().shape[2]
+        grad = [Partial() if i in heads else p for i, p in enumerate(want)]
+        idx = (int(off[2]) + torch.arange(n, device=k.to_local().device)) \
+            // rep
+        shard = local(k, grad).index_select(2, idx)
+    shape = torch.Size(tuple(k.shape[:2]) + (q.shape[2],)
+                       + tuple(k.shape[3:]))
+    return DTensor.from_local(shard, mesh, qp, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` of [B, S, H, hd] attention inputs, run on each
+    rank's own batch rows and heads when ``q`` is a DTensor: the three are
+    pinned to ``q``'s splits of dims 0 and 2 (the sequences whole), and
+    ``fn`` runs on their local shards as plain tensors, so a chunked
+    attention's many small ops cost no DTensor dispatch and no batched
+    product flattens a split dim. Plain tensors: ``fn(q, k, v)``."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    want = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                 else Replicate() for p in q.placements)
+    # contiguous: the local gradients come back contiguous, and a
+    # DTensor's stride must describe its local shard's
+    q, k, v = (pin(t, want).contiguous() for t in (q, k, v))
+    out = fn(local(q), local(k), local(v))
+    shape = torch.Size(tuple(q.shape[:3]) + tuple(out.shape[3:]))
+    return DTensor.from_local(out, q.device_mesh, want, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def heads_whole(q):
+    """``q`` [B, S, H, hd] with its head dim gathered (``Replicate`` where
+    it was sharded): decode's one-token query meets a cache sharded over
+    the sequence, not the heads."""
+    if not is_dtensor(q):
+        return q
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+            for p in q.placements]
+    return q if want == list(q.placements) else \
+        q.redistribute(q.device_mesh, want)
+
+
+def reduce_partial(t):
+    """A DTensor whose partial placements (a sum or max over a sharded
+    dim) are all-reduced to ``Replicate``; other tensors as they are."""
+    if not is_dtensor(t) or not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
+
+
+_DATA_AXES = ("pod", "data", POD_DATA)
+
+
+def gather_fsdp(t):
+    """A weight DTensor with its data-axis shards gathered (FSDP's
+    all-gather right before use; its ``model`` shards stay, Megatron's
+    tensor parallelism). Its backward is the gradient's reduce-scatter
+    over the data axes. A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    names = t.device_mesh.mesh_dim_names
+    want = [Replicate() if n in _DATA_AXES else p
+            for n, p in zip(names, t.placements)]
+    if want == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, want)

@@ -44,6 +44,26 @@ contribution to the first out of place and every later one into that sum
 in place. So an ``add`` in a backward pass whose first operand is the sum
 of such an earlier ``add`` and is freed before the next op counts as
 that in-place add: its output raises no peak.
+
+FLOPs (``flops``): each op's count from torch's FLOP formulas
+(``torch.utils.flop_counter``'s registry, which ``FlopCounterMode``
+reads; the flash op registers K6's), so matmul-class ops only.
+
+The local program: a step over DTensors (a multi-device mesh,
+distributed/sharding.py) is counted as this rank runs it. An op on
+DTensors is handed back to DTensor (the mode returns NotImplemented),
+which runs it as ops on the local shards, and those are what the mode
+counts, with the collectives its redistributions issue. (``FlopCounterMode``
+entered above DTensor counts the global op: a (16, 16) mesh's sharded
+matmul as 256 times its local work.) The ops that DTensor's sharding
+propagation runs on FakeTensors to learn output shapes run uncounted.
+
+Collectives (``collectives``): every ``_c10d_functional`` collective,
+per kind (all-gather, all-reduce, reduce-scatter, all-to-all), its count,
+its operand bytes (the input a rank contributes) and the JAX package's
+ring-traffic model of the bytes a rank moves (``TRAFFIC``), with the
+group size from its process group; ``"total"`` sums the kinds, as the
+JAX package's ``collective_stats`` reports them.
 """
 from __future__ import annotations
 
@@ -51,12 +71,27 @@ import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import flop_registry
 
 aten = torch.ops.aten
+_funcol = torch.ops._c10d_functional
 
 _NO_DATA = {aten.empty, aten.empty_like, aten.empty_strided,
-            aten._unsafe_view}
+            aten._unsafe_view, _funcol.wait_tensor}
+# collective -> (kind, position of its group-size argument or None)
+_COLLECTIVES = {
+    _funcol.all_gather_into_tensor: ("all-gather", 1),
+    _funcol.reduce_scatter_tensor: ("reduce-scatter", 2),
+    _funcol.all_reduce: ("all-reduce", None),
+    _funcol.all_to_all_single: ("all-to-all", None),
+}
+# ring-traffic model, bytes moved per participating device per byte of
+# operand (the JAX package's launch/dryrun.py _TRAFFIC)
+TRAFFIC = {"all-gather": lambda p: p - 1,
+           "all-reduce": lambda p: 2 * (p - 1) / p,
+           "reduce-scatter": lambda p: (p - 1) / p,
+           "all-to-all": lambda p: (p - 1) / p,
+           "collective-permute": lambda p: 1.0}
 _GATHER = {aten.embedding, aten.index_select, aten.gather, aten.index}
 
 
@@ -65,7 +100,39 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree) -> list:
-    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+    """The tensors in an op's arguments or outputs: tensors, and tuples,
+    lists and dicts of them (what aten schemas hold)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    if isinstance(tree, dict):
+        return [t for x in tree.values() for t in _tensors(x)]
+    return []
+
+
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return issubclass(t, DTensor)
+
+
+def _is_fake(tree) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in _tensors(tree))
+
+
+def _group_size(group_name) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(group_name).size()
+
+
+def collective_totals(stats: dict) -> dict:
+    """``stats`` (kind -> {count, operand_bytes, modeled_traffic_bytes})
+    with its ``"total"`` entry."""
+    kinds = {k: v for k, v in stats.items() if k != "total"}
+    return {**kinds, "total": {
+        f: sum(v[f] for v in kinds.values())
+        for f in ("count", "operand_bytes", "modeled_traffic_bytes")}}
 
 
 class StepCost(TorchDispatchMode):
@@ -74,6 +141,8 @@ class StepCost(TorchDispatchMode):
 
     def __init__(self):
         super().__init__()
+        self.flops = 0
+        self.collectives = {}        # kind -> count, operand and traffic
         self.bytes_accessed = 0
         self.live = 0
         self.peak = 0
@@ -83,10 +152,21 @@ class StepCost(TorchDispatchMode):
         self._sums = set()           # storages that gradient adds made
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self._settle()
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented    # DTensor runs it as local ops
         kwargs = kwargs or {}
+        if _is_fake((args, kwargs)):
+            return func(*args, **kwargs)
+        self._settle()
         out = func(*args, **kwargs)
         packet = func.overloadpacket
+        if _is_fake(out):            # a factory under DTensor's propagation
+            return out
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs,
+                                                out_val=out)
+        if packet in _COLLECTIVES:
+            self._collective(packet, args)
         if func.is_view or packet in _NO_DATA:
             return out
         outs = _tensors(out)
@@ -120,6 +200,16 @@ class StepCost(TorchDispatchMode):
                 self._held = (key, self.peak)
                 self.peak = peak
         return out
+
+    def _collective(self, packet, args):
+        kind, at = _COLLECTIVES[packet]
+        p = int(args[at]) if at is not None else _group_size(args[-1])
+        n = tensor_bytes(args[0])
+        s = self.collectives.setdefault(kind, {
+            "count": 0, "operand_bytes": 0, "modeled_traffic_bytes": 0.0})
+        s["count"] += 1
+        s["operand_bytes"] += n
+        s["modeled_traffic_bytes"] += n * TRAFFIC[kind](p)
 
     def _settle(self):
         """An add held back: in place if its first operand is gone."""

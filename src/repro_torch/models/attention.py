@@ -19,12 +19,19 @@ Under autograd every chunk step of ``_dense_flash`` and ``_windowed`` is
 checkpointed, as the JAX package's are: the backward pass recomputes a
 chunk's scores instead of keeping them (O(S^2) in all), and keeps only
 each step's inputs and the O(S) online-softmax carries.
+
+On DTensors (a multi-device mesh) ``xla_flash`` runs on each rank's own
+batch rows and heads (``sharding.local_heads``), GQA's K/V taken by the
+rank's head offset (``sharding.repeat_kv``); ``decode_attention`` over a
+cache split on the sequence reduces its softmax across the shards
+(split-K).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import params as pm
 from repro_torch.models.layers import apply_rope, checkpointed, rms_norm
 
@@ -87,14 +94,17 @@ def xla_flash(q, k, v, *, causal: bool = True, window: int = 0,
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     if KV != H:
-        k = torch.repeat_interleave(k, H // KV, dim=2)
-        v = torch.repeat_interleave(v, H // KV, dim=2)
-    scale = hd ** -0.5
-    q = q * torch.tensor(scale, dtype=q.dtype)
-    if window and causal and window < k.shape[1]:
-        return _windowed(q, k, v, window, softcap, chunk_q, q_offset)
-    return _dense_flash(q, k, v, causal, window, softcap, chunk_q, chunk_kv,
-                        q_offset)
+        k = shd.repeat_kv(k, H // KV, q)
+        v = shd.repeat_kv(v, H // KV, q)
+
+    def attend(q, k, v):
+        q = q * torch.tensor(hd ** -0.5, dtype=q.dtype)
+        if window and causal and window < k.shape[1]:
+            return _windowed(q, k, v, window, softcap, chunk_q, q_offset)
+        return _dense_flash(q, k, v, causal, window, softcap, chunk_q,
+                            chunk_kv, q_offset)
+    # on DTensors each rank attends its own batch rows and heads
+    return shd.local_heads(attend, q, k, v)
 
 
 def _scores(qc, kc, softcap):
@@ -206,6 +216,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
+    if shd.is_dtensor(q):
+        # the cache keeps its heads whole and splits the sequence over
+        # ``model``: the one token's query joins it with every head
+        q = shd.heads_whole(q)
     q5 = q.reshape(B, KV, G, hd) * torch.tensor(hd ** -0.5, dtype=q.dtype)
     s = torch.einsum("bkgd,bskd->bkgs", q5.to(torch.float32),
                      k_cache.to(torch.float32))               # [B,KV,G,S]
@@ -216,6 +230,19 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap: float = 0.0,
     if window:
         valid = valid & (pos > kv_len - 1 - window)
     s = torch.where(valid, s, torch.full_like(s, _NEG))
+    if shd.is_dtensor(s):
+        # the cache is sharded over ``model`` on the sequence: split-K
+        # (flash-decoding). Each rank takes its slice's exponentials
+        # against the all-reduced max; the sum and the value product are
+        # partial sums, all-reduced. No rank gathers the cache.
+        m = shd.reduce_partial(s.amax(dim=-1, keepdim=True))
+        e = torch.exp(s - m)
+        den = shd.reduce_partial(e.sum(dim=-1, keepdim=True))
+        out = torch.einsum("bkgs,bskd->bkgd",
+                           e.to(v_cache.dtype).to(torch.float32),
+                           v_cache.to(torch.float32))
+        out = shd.reduce_partial(out) / den
+        return out.reshape(B, 1, H, hd).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(torch.float32),
                        v_cache.to(torch.float32))

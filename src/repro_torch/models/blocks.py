@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import params as pm
 from repro_torch.models import ssm
@@ -87,12 +88,15 @@ def _attn_mix(p, x, cfg: ModelConfig, positions, window, mode, cache, pos):
         S = k.shape[1]
         for name, t in (("k", k), ("v", v)):
             c = cache[name]
+            if shd.is_dtensor(c):       # sharded over the sequence
+                shd.write_at(c, 0, t)
+                continue
             c[:, S:].zero_()
             c[:, :S].copy_(t)
         new_cache = cache
     elif mode == "decode":
-        cache["k"][:, pos:pos + 1].copy_(k)
-        cache["v"][:, pos:pos + 1].copy_(v)
+        shd.write_at(cache["k"], pos, k)
+        shd.write_at(cache["v"], pos, v)
         att = decode_attention(q, cache["k"], cache["v"], pos + 1,
                                softcap=cfg.attn_softcap, window=window)
         new_cache = cache
@@ -108,6 +112,7 @@ def apply_attn_block(p, x, cfg: ModelConfig, *, positions, window,
                      mode: str = "train", cache=None, pos=None):
     """x [B,S,d] -> (x, new_cache, aux); see the module docstring."""
     x, new_cache = _attn_mix(p, x, cfg, positions, window, mode, cache, pos)
+    x = shd.constrain_act(x)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
@@ -119,7 +124,7 @@ def apply_attn_block(p, x, cfg: ModelConfig, *, positions, window,
         o = mlp_apply(p["mlp"], h, cfg)
     if cfg.post_norm:
         o = rms_norm(o, p["ln2_post"], cfg.norm_eps)
-    return x + o, new_cache, aux
+    return shd.constrain_act(x + o), new_cache, aux
 
 
 # ----------------------------------------------------------------- ssm block
@@ -137,13 +142,14 @@ def apply_ssm_block(kind: str, p, x, cfg: ModelConfig, *, mode, cache):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
-        return x + apply_fn(p["m"], h, cfg), None, aux
+        return shd.constrain_act(x + apply_fn(p["m"], h, cfg)), None, aux
     if mode == "prefill":
         y, state = apply_with_state(p["m"], h, cfg)
-        return x + y, _write_state(cache, state), aux
+        return shd.constrain_act(x + y), _write_state(cache, state), aux
     if mode == "decode":
         y1, state = step_fn(p["m"], h[:, 0], cache, cfg)
-        return x + y1[:, None], _write_state(cache, state), aux
+        return shd.constrain_act(x + y1[:, None]), \
+            _write_state(cache, state), aux
     raise ValueError(f"unknown mode {mode!r}")
 
 

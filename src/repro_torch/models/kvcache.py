@@ -81,10 +81,33 @@ def _build(cfg: ModelConfig, B: int, S_max: int, dtype, dev):
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
-               device="cuda"):
+               device="cuda", shardings=None):
     """Zeroed cache for B sequences of up to S_max tokens on ``device``
-    (the recurrent stabilisers ``m`` at -1e30, as in the JAX package)."""
-    return _build(cfg, B, S_max, dtype, resolve_device(device))
+    (the recurrent stabilisers ``m`` at -1e30, as in the JAX package).
+    ``shardings`` (a tree of NamedShardings over a multi-device mesh,
+    ``named(mesh, cache_pspecs(...))``) makes each leaf a DTensor of which
+    only this rank's shard is allocated."""
+    dev = resolve_device(device)
+    if shardings is None:
+        return _build(cfg, B, S_max, dtype, dev)
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import tree_map
+    # every leaf of a fresh cache holds one value: read it off a one-row,
+    # one-position cache, then make each shard at its local shape (the
+    # global shape: "batch" B, "seq_kv" S_max, the rest as they are)
+    one = _build(cfg, 1, 1, dtype, torch.device("cpu"))
+    axes = cache_axes(cfg)
+
+    def leaf(path, t):
+        if path == "pos":
+            return torch.zeros((), dtype=torch.int32, device=dev)
+        ax, sh = axes, shardings
+        for k in path.split("/"):
+            ax, sh = ax[k], sh[k]
+        shape = tuple(B if a == "batch" else S_max if a == "seq_kv" else n
+                      for a, n in zip(ax, t.shape))
+        return shd.full(shape, t.reshape(-1)[0].item(), t.dtype, sh, dev)
+    return tree_map(leaf, one)
 
 
 def cache_struct(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16):

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import params as pm
 
 
@@ -114,7 +115,7 @@ def embed_specs(cfg: ModelConfig):
 def embed_lookup(p, tokens, cfg: ModelConfig, dtype=torch.bfloat16):
     # gather, then cast: the same values as casting the table first, without
     # a bf16 copy of the whole [V, d] table
-    emb = F.embedding(tokens, p["tok"]).to(dtype)
+    emb = shd.embedding(tokens, p["tok"]).to(dtype)
     if cfg.tie_embeddings:  # gemma-style scaling for tied tables
         emb = emb * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return emb

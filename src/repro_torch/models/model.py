@@ -26,6 +26,15 @@ cross-entropy chunk are checkpointed on their own, and so is every chunk
 step of the training attention (models/attention.py): the backward pass
 keeps no score tensor and no chunk's logits. ``saved_for_backward``
 measures what a forward keeps for the backward pass.
+
+On a multi-device mesh (params placed as DTensors,
+distributed/sharding.py) the same code runs rank-local: each group's
+weights are gathered over the data axes as the group starts
+(``sharding.gather_fsdp``, inside the remat'd body, so a recompute
+gathers again, as XLA's does), the embedding table and head once per
+call, and plain tensors made inside (positions, masks, scalars) join the
+DTensor program as replicated (``spmd``). ``act_sharding`` and
+``cast_params_once`` are the JAX package's arguments.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import kvcache
 from repro_torch.models import params as pm
 from repro_torch.models.blocks import apply_block, block_specs
@@ -142,10 +152,63 @@ def saved_for_backward(exclude=()):
         _RECORD.reset(token)
 
 
+_SPMD_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def spmd(*trees):
+    """The context a step over DTensors runs in: plain tensors that meet a
+    DTensor count as replicated (``implicit_replication``, entered once
+    for the outermost block: torch's resets its flag on exit). A no-op
+    without DTensors."""
+    if _SPMD_DEPTH[0] or not any(
+            shd.has_dtensor(t) if isinstance(t, dict) else shd.is_dtensor(t)
+            for t in trees):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    _SPMD_DEPTH[0] += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _SPMD_DEPTH[0] -= 1
+
+
+def _gathered(tree):
+    return pm.tree_map(lambda _, t: shd.gather_fsdp(t), tree)
+
+
+def _head(embed: dict, cfg: ModelConfig) -> dict:
+    """The embedding leaf the unembedding reads, gathered: ``head``, or
+    the table itself when tied."""
+    name = "tok" if cfg.tie_embeddings else "head"
+    return {name: shd.gather_fsdp(embed[name])}
+
+
 class LM:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, act_sharding=None,
+                 cast_params_once: bool = False):
+        """act_sharding: optional NamedSharding for the [B, S, d] residual
+        stream, applied at group boundaries (``_cs``) as in JAX, and after
+        every block's residual adds (``sharding.constrain_act``): batch
+        over the data axes, and the sequence over ``model`` for sequence
+        parallelism. It pins what DTensor's propagation would otherwise
+        leave as it comes out of a block (an MLP's output is a partial
+        sum over ``model``), and the gradient with it.
+
+        cast_params_once: cast the fp32 ``stack``/``tail``/``shared``
+        masters to the compute dtype once, before the group loop, so the
+        all-gathers of the FSDP weights move bf16."""
         cfg.validate()
         self.cfg = cfg
+        self.act_sharding = act_sharding
+        self.cast_params_once = cast_params_once
+
+    def _cs(self, x):
+        if self.act_sharding is not None and x.ndim == 3:
+            return shd.redistribute(x, self.act_sharding)
+        return x
 
     # ------------------------------------------------------------------ specs
     def specs(self):
@@ -191,14 +254,22 @@ class LM:
         advances by S (prefill) or 1 (decode). train takes none and returns
         None for it. aux is the sum of the blocks' MoE load-balance losses
         (fp32 scalar, 0 without experts)."""
-        cfg = self.cfg
         if (tokens is None) == (embeds is None):
             raise ValueError("LM.forward takes exactly one of tokens= and "
                              "embeds=")
+        with spmd(params):
+            return self._forward(params, tokens, embeds, positions, mode,
+                                 cache, compute_dtype)
+
+    def _forward(self, params, tokens, embeds, positions, mode, cache,
+                 compute_dtype):
+        cfg = self.cfg
         if embeds is not None:
             x = embeds.to(compute_dtype)
         else:
-            x = embed_lookup(params["embed"], tokens, cfg, compute_dtype)
+            x = embed_lookup({"tok": shd.gather_fsdp(params["embed"]["tok"])},
+                             tokens, cfg, compute_dtype)
+        x = self._cs(x)
         B, S = x.shape[:2]
         # one host read of the cursor per decode: its cache write and mask
         # slice by it. Prefill fills a fresh cache from slot 0 and reads
@@ -207,13 +278,22 @@ class LM:
         # CPU scalar (launch/specs.decode_specs)
         pos = int(cache["pos"]) if mode == "decode" else 0
         if positions is None:
-            positions = (torch.arange(S, dtype=torch.int32, device=x.device)
-                         + pos)[None].expand(B, S)
+            ar = torch.arange(S, dtype=torch.int32, device=x.device) + pos
+            if shd.is_dtensor(x):
+                # the batch's sharding: a rank makes its own rows only
+                positions = torch.zeros_like(x[..., 0],
+                                             dtype=torch.int32) + ar
+            else:
+                positions = ar[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def run(kind, p, x, window, c):
-            x, _, a = apply_block(kind, p, x, cfg, positions=positions,
-                                  window=window, mode=mode, cache=c, pos=pos)
+            # the context is entered here, inside the remat'd body, so a
+            # recompute in the backward pass pins as the forward did
+            with shd.activation_sharding(self.act_sharding):
+                x, _, a = apply_block(kind, p, x, cfg, positions=positions,
+                                      window=window, mode=mode, cache=c,
+                                      pos=pos)
             return x, a
 
         def entry(name, g):
@@ -225,6 +305,14 @@ class LM:
                 else cache["stack"][name]
             return {n: t[g] for n, t in tree.items()}
 
+        if self.cast_params_once:
+            # fp32 masters cast before the loop: the gathers move bf16
+            params = dict(params)
+            for k in ("stack", "tail", "shared"):
+                if k in params:
+                    params[k] = pm.tree_map(
+                        lambda _, t: t.to(x.dtype)
+                        if t.dtype == torch.float32 else t, params[k])
         shared = params.get("shared")
         # each stacked leaf unbound once: a group's slice is a view, and
         # the backward pass stacks the groups' gradients once (``t[g]`` in
@@ -233,10 +321,12 @@ class LM:
         layers = pm.tree_map(lambda _, t: t.unbind(0), params["stack"])
 
         def group(x, aux, g):
+            x = self._cs(x)
             if shared is not None:
-                x, a = run("attn", shared, x, 0, entry("shared", g))
+                x, a = run("attn", _gathered(shared), x, 0,
+                           entry("shared", g))
                 aux = aux + a
-            gp = pm.tree_map(lambda _, ts: ts[g], layers)
+            gp = pm.tree_map(lambda _, ts: shd.gather_fsdp(ts[g]), layers)
             for j, (kind, win) in enumerate(zip(cfg.pattern, cfg.windows)):
                 x, a = run(kind, gp[f"b{j}"], x, win, entry(f"b{j}", g))
                 aux = aux + a
@@ -249,17 +339,19 @@ class LM:
         # application, with the last shared cache
         if cfg.tail_layers:
             if shared is not None:
-                x, a = run("attn", shared, x, 0, entry("shared", -1))
+                x, a = run("attn", _gathered(shared), x, 0,
+                           entry("shared", -1))
                 aux = aux + a
             for j in range(cfg.tail_layers):
-                x, a = run(cfg.pattern[j], params["tail"][f"t{j}"], x,
+                x, a = run(cfg.pattern[j],
+                           _gathered(params["tail"][f"t{j}"]), x,
                            cfg.windows[j],
                            None if cache is None else cache["tail"][f"t{j}"])
                 aux = aux + a
         # checkpointed: the final norm sits outside the remat'd stack and
         # would keep fp32 [B,S,d] intermediates for the backward pass
-        x = checkpointed(lambda h, s: rms_norm(h, s, cfg.norm_eps), x,
-                         params["final_norm"])
+        x = checkpointed(lambda h, s: rms_norm(h, s, cfg.norm_eps),
+                         self._cs(x), shd.gather_fsdp(params["final_norm"]))
         new_cache = None
         if cache is not None and mode != "train":
             new_cache = dict(cache, pos=cache["pos"]
@@ -267,7 +359,8 @@ class LM:
         return x, new_cache, aux
 
     # ------------------------------------------------------------------- loss
-    def loss(self, params, batch, ce_chunk: int = 512):
+    def loss(self, params, batch, ce_chunk: int = 512,
+             compute_dtype=torch.bfloat16):
         """batch: {"tokens": [B,S]} or {"embeds": [B,S,d], "labels": [B,S]}
         (+ optional "positions"). Returns (loss, {"ce", "aux", "loss"}):
         with experts the loss adds ``router_aux_coef`` times the mean of
@@ -278,10 +371,12 @@ class LM:
         labels = batch.get("labels", tokens)
         x, _, aux = self.forward(
             params, tokens=tokens if embeds is None else None, embeds=embeds,
-            positions=batch.get("positions"))
-        ce = self._chunked_ce(params, x[:, :-1], labels[:, 1:], ce_chunk)
-        aux_mean = aux / (cfg.num_layers if cfg.num_experts else 1)
-        loss = ce + cfg.router_aux_coef * aux_mean if cfg.num_experts else ce
+            positions=batch.get("positions"), compute_dtype=compute_dtype)
+        with spmd(params):
+            ce = self._chunked_ce(params, x[:, :-1], labels[:, 1:], ce_chunk)
+            aux_mean = aux / (cfg.num_layers if cfg.num_experts else 1)
+            loss = ce + cfg.router_aux_coef * aux_mean if cfg.num_experts \
+                else ce
         return loss, {"ce": ce, "aux": aux_mean, "loss": loss}
 
     def _chunked_ce(self, params, x, labels, chunk: int):
@@ -294,11 +389,12 @@ class LM:
         c = min(chunk, T)
         while T % c:
             c -= 1
+        head = _head(params["embed"], cfg)
 
         def step(xc, lc):
-            logits = unembed(params["embed"], xc, cfg)       # fp32 [B,c,V]
-            lz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+            logits = unembed(head, xc, cfg)                  # fp32 [B,c,V]
+            lz = shd.logsumexp_last(logits)
+            gold = shd.take_last(logits, lc[..., None].long())[..., 0]
             return (lz - gold).sum()
 
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -309,18 +405,25 @@ class LM:
 
     # -------------------------------------------------------------- serving
     def prefill(self, params, *, tokens=None, embeds=None, positions=None,
-                S_max=None, compute_dtype=torch.bfloat16):
+                S_max=None, compute_dtype=torch.bfloat16,
+                cache_shardings=None):
         """tokens [B,S] or embeds [B,S,d] -> (last-position logits [B,V]
         fp32, cache). The cache holds S_max (default S) positions, on the
-        input's device."""
+        input's device; ``cache_shardings`` (NamedShardings over a
+        multi-device mesh) makes it DTensors, each rank holding its
+        shard."""
         src = tokens if embeds is None else embeds
         B, S = src.shape[:2]
+        dev = src.to_local().device if shd.is_dtensor(src) else src.device
         cache = kvcache.init_cache(self.cfg, B, S_max or S,
-                                   dtype=compute_dtype, device=src.device)
+                                   dtype=compute_dtype, device=dev,
+                                   shardings=cache_shardings)
         x, cache, _ = self.forward(params, tokens=tokens, embeds=embeds,
                                    positions=positions, mode="prefill",
                                    cache=cache, compute_dtype=compute_dtype)
-        logits = unembed(params["embed"], x[:, -1:], self.cfg)[:, 0]
+        with spmd(params):
+            logits = unembed(_head(params["embed"], self.cfg), x[:, -1:],
+                             self.cfg)[:, 0]
         return logits, cache
 
     def decode_step(self, params, cache, tokens,
@@ -328,5 +431,7 @@ class LM:
         """tokens [B,1] -> (logits [B,V] fp32, cache advanced by one)."""
         x, cache, _ = self.forward(params, tokens=tokens, mode="decode",
                                    cache=cache, compute_dtype=compute_dtype)
-        logits = unembed(params["embed"], x[:, -1:], self.cfg)[:, 0]
+        with spmd(params):
+            logits = unembed(_head(params["embed"], self.cfg), x[:, -1:],
+                             self.cfg)[:, 0]
         return logits, cache

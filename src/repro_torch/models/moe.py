@@ -7,8 +7,15 @@ scatter into [E, C, d] slots (capacity C = max(8, k*T*cf // E), overflow
 dropped) -> per-expert GEMMs (einsum) -> gather-combine with renormalized
 router weights. Load-balance aux loss per Switch/GShard.
 
-The port runs on one device, so the JAX code's token groups (one per data
-shard, ``ctx_data_shards()``) are one group and nothing is sharded.
+On one device the JAX code's token groups (one per data shard,
+``ctx_data_shards()``) are one group and nothing is sharded. On DTensors (a
+multi-device mesh) ``moe_apply`` dispatches shard-locally, as the JAX
+package does: each data shard's tokens are one group, routed, sorted and
+scattered on their own rank with no traffic; the expert GEMMs run on
+DTensors pinned as the JAX code constrains them (group over the data axes,
+d_ff over ``model``), so DTensor gathers the FSDP weight shards and
+all-reduces only the [G, E, C, d] output; the aux loss sums the counts
+and averages the router probabilities over the groups.
 Port differences that keep the JAX results:
 
   * ``jax.lax.top_k`` returns the lower expert index first among equal
@@ -104,9 +111,69 @@ def _combine_group(out, slot, w, T: int, K: int):
     return (gathered * w[:, None]).reshape(T, K, -1).sum(dim=1)
 
 
+def _moe_apply_sharded(p, x, cfg: ModelConfig):
+    """moe_apply on DTensors: JAX's shard-local dispatch (module
+    docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.distributed import sharding as shd
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    data = [i for i, n in enumerate(mesh.mesh_dim_names)
+            if n in ("pod", "data", shd.POD_DATA)]
+    G = 1
+    for i in data:
+        G *= mesh.size(i)
+    if B % G:
+        G, data = 1, []
+    rows = [Shard(0) if i in data else Replicate() for i in range(mesh.ndim)]
+    part = [Partial() if i in data else Replicate()
+            for i in range(mesh.ndim)]
+    Tg = B // G * S
+    C = capacity(cfg, Tg)
+    x = shd.pin(x, rows)
+    # every model rank routes the same tokens alike; a data shard's
+    # router gradient is its own tokens' share of the sum
+    router = shd.pin(p["router"], [Replicate()] * mesh.ndim)
+    disp, slot, w, counts, mean_prob = _dispatch_group(
+        {"router": shd.local(router, part)},
+        shd.local(x, rows).reshape(Tg, d), cfg, C)
+
+    def wrap(t, shape, placements):
+        return DTensor.from_local(t, mesh, placements,
+                                  shape=torch.Size(shape),
+                                  stride=shd.contiguous_stride(shape))
+    h = wrap(disp.reshape(1, E, C, d), (G, E, C, d), rows)
+    dt = x.dtype
+    ff = [Shard(0) if i in data else Shard(3) if n == "model" else
+          Replicate() for i, n in enumerate(mesh.mesh_dim_names)]
+    up = shd.pin(torch.einsum("gecd,edf->gecf", h, p["w_up"].to(dt)), ff)
+    if cfg.glu:
+        gt = shd.pin(torch.einsum("gecd,edf->gecf", h, p["w_gate"].to(dt)),
+                     ff)
+        up = _act(gt, cfg.activation) * up
+    else:
+        up = _act(up, cfg.activation)
+    out = shd.pin(torch.einsum("gecf,efd->gecd", up, p["w_down"].to(dt)),
+                  rows)
+    y = _combine_group(shd.local(out, rows).reshape(E * C, d),
+                       slot, w, Tg, K)
+    y = wrap(y.reshape(B // G, S, d), (B, S, d), rows)
+    # Switch/GShard load-balance loss over the GLOBAL batch
+    counts = shd.reduce_partial(wrap(counts.to(torch.float32), (E,), part))
+    mean_prob = shd.reduce_partial(wrap(mean_prob, (E,), part)) / G
+    frac = counts / torch.clamp_min(counts.sum(), 1.0)
+    aux = E * torch.sum(frac * mean_prob)
+    return y, aux
+
+
 def moe_apply(p, x, cfg: ModelConfig):
     """x [B,S,d] -> (y [B,S,d], aux_loss fp32 scalar). Tokens over an
-    expert's capacity are dropped (they contribute zero)."""
+    expert's capacity are dropped (they contribute zero). On DTensors the
+    dispatch is shard-local (``_moe_apply_sharded``)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if is_dtensor(x):
+        return _moe_apply_sharded(p, x, cfg)
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     T = B * S

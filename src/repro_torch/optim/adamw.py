@@ -5,7 +5,10 @@ checkpointed by repro_torch.core as ordinary job state. Same formulas, in
 the same fp32 order, as the JAX package's optim/adamw.py. Unlike the JAX
 version, which is pure, ``adamw_update`` and ``clip_by_global_norm``
 update their tensors in place: at qwen3-8b width a second copy of params,
-m and v would cost another ~20 GB of device memory per step.
+m and v would cost another ~20 GB of device memory per step. On DTensor
+leaves (a multi-device mesh) the same code updates each rank's shards in
+place, and the global norm's per-leaf sums are partial sums over the
+shards, all-reduced where the norm is taken.
 """
 from __future__ import annotations
 

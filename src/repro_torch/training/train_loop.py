@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model import LM
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.model import LM, spmd
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import (OptConfig, adamw_update, clip_by_global_norm,
                                init_opt_state, warmup_cosine)
@@ -104,12 +105,27 @@ def make_per_example_step_fns(lm: LM, opt_cfg: OptConfig):
     return per_example, apply
 
 
-def _batch_slice(x, lo: int, hi: int):
-    """Rows lo:hi of a batch entry: the batch dim is axis 0 for tokens,
-    embeds and labels, axis 1 for M-RoPE positions [3, B, S]."""
-    if x.ndim == 3 and x.shape[0] == 3 and x.dtype == torch.int32:
-        return x[:, lo:hi]
-    return x[lo:hi]
+def _batch_slice(x, i: int, n: int):
+    """Microbatch i of n of a batch entry: its rows i*B/n:(i+1)*B/n; the
+    batch dim is axis 0 for tokens, embeds and labels, axis 1 for M-RoPE
+    positions [3, B, S]. A DTensor batch sharded over the data axes is
+    split on every rank alike: microbatch i is each rank's own i-th slice
+    of its rows (no communication; the summed gradient is the same, the
+    last microbatch's metrics are over other rows than on one device)."""
+    ax = 1 if x.ndim == 3 and x.shape[0] == 3 and x.dtype == torch.int32 \
+        else 0
+    if shd.is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        local = x.to_local()
+        k = local.shape[ax] // n
+        shape = list(x.shape)
+        shape[ax] //= n
+        return DTensor.from_local(
+            local.narrow(ax, i * k, k).contiguous(), x.device_mesh,
+            x.placements, shape=torch.Size(shape),
+            stride=shd.contiguous_stride(shape))
+    k = x.shape[ax] // n
+    return x.narrow(ax, i * k, k)
 
 
 def make_train_step(lm: LM, opt_cfg: OptConfig, microbatches: int = 1):
@@ -117,18 +133,31 @@ def make_train_step(lm: LM, opt_cfg: OptConfig, microbatches: int = 1):
     accumulates grads over batch slices (axis 0), cutting activation memory
     by the microbatch factor; the summed grads are divided by the count, as
     the JAX package's scan does. As there, the metrics are the last
-    microbatch's (``metrics["loss"]`` too), beside grad_norm and lr."""
+    microbatch's (``metrics["loss"]`` too), beside grad_norm and lr.
+
+    On DTensor state (a multi-device mesh, distributed/sharding.place) the
+    same step runs rank-local: DTensor gathers each group's weights and
+    reduce-scatters their gradients (models/model.py), AdamW updates the
+    local shards in place, the global norm sums every shard, and the
+    metrics come back replicated. No op is forced to ``Replicate`` beyond
+    what the JAX program replicates: the gold logit of the vocab-sharded
+    CE and the metrics (sharding.take_last, sharding.reduce_partial)."""
 
     def train_step(state, batch):
+        with spmd(state["params"]):
+            return step(state, batch)
+
+    def step(state, batch):
         if microbatches == 1:
             _, metrics, grads = _grads(lm, state["params"], batch)
         else:
-            b = batch["tokens" if "tokens" in batch else "embeds"].shape[0]
-            assert b % microbatches == 0, (b, microbatches)
-            k = b // microbatches
+            b = batch["tokens" if "tokens" in batch else "embeds"]
+            if shd.is_dtensor(b):
+                b = b.to_local()
+            assert b.shape[0] % microbatches == 0, (b.shape, microbatches)
             grads = None
             for i in range(microbatches):
-                mb = {n: _batch_slice(v, i * k, (i + 1) * k)
+                mb = {n: _batch_slice(v, i, microbatches)
                       for n, v in batch.items()}
                 _, metrics, grads = _grads(lm, state["params"], mb,
                                            accumulate_into=grads)
@@ -136,5 +165,7 @@ def make_train_step(lm: LM, opt_cfg: OptConfig, microbatches: int = 1):
                 for g in tree_leaves(grads):
                     g.div_(microbatches)
         with torch.no_grad():
-            return _apply(state, grads, opt_cfg, metrics)
+            state, metrics = _apply(state, grads, opt_cfg, metrics)
+        # a loss over batch-sharded rows is a partial sum: all-reduced
+        return state, {k: shd.reduce_partial(v) for k, v in metrics.items()}
     return train_step

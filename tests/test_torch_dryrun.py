@@ -360,14 +360,23 @@ def test_cli_all_both_meshes_writes_every_record(jax_records, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--act-seq-shard", "--cast-once"])
-def test_cli_refuses_flags_without_counterpart(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", flag])
-    assert e.value.code != 0
-    assert "no SPMD partitioner" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="no SPMD partitioner"):
-        dryrun.run_cell("qwen3-8b", "train_4k", measure=False,
-                        verbose=False, **{flag[2:].replace("-", "_"): True})
+def test_cli_runs_flags(flag, tiny_configs, tmp_path, monkeypatch, capsys):
+    """Each flag runs rank 0's per-device program on the production mesh
+    (a fake group of 256) and is recorded in ``options``, as the JAX
+    package records it; run_cell takes it as a keyword."""
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k",
+                        ShapeConfig("train_4k", "train", 64, 32))
+    assert dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", flag,
+                        "--out", str(tmp_path)]) is None
+    assert "all requested cells built OK" in capsys.readouterr().out
+    rec = json.load(open(tmp_path / os.listdir(tmp_path)[0]))
+    key = flag[2:].replace("-", "_")
+    assert rec["options"][key] is True
+    assert rec["memory_analysis_per_device"]["temp_size_in_bytes"] > 0
+    assert rec["collectives_per_device"]["total"]["count"] > 0
+    again = dryrun.run_cell("qwen3-8b", "train_4k", measure=False,
+                            verbose=False, **{key: True})
+    assert again["options"][key] is True
 
 
 def test_run_cell_record_and_guard(tiny_configs, tmp_path):

@@ -297,18 +297,20 @@ def test_microbatches_hold_one_microbatch_of_activations(tiny_configs):
 
 
 # ------------------------------------------------------------- meshes
-def test_larger_mesh_has_no_temp_or_collectives(tiny_configs):
-    """On (16, 16) the port runs no per-device program: temp and
-    collectives are null with the reason; argument, alias and output are
-    the trees' shard bytes (decode's logits split over the batch)."""
+def test_larger_mesh_has_temp_and_collectives(tiny_configs):
+    """On (16, 16) the record is rank 0's per-device program under a fake
+    group of 256: temp and collectives are present; argument, alias and
+    output are this rank's shard bytes (decode's logits split over the
+    batch, as the JAX package's out_shardings put them)."""
     shape = ShapeConfig("tiny_decode_b32", "decode", 16, 32)
     rec = dryrun.run_cell("qwen3-8b", shape, verbose=False,
                           mesh=dryrun.production_mesh_record())
     mem, bpd = rec["memory_analysis_per_device"], rec["bytes_per_device"]
-    assert mem["temp_size_in_bytes"] is None
-    assert "no SPMD partitioner" in mem["null_reason"]
-    assert rec["collectives_per_device"] is None
-    assert "no SPMD partitioner" in rec["collectives_null_reason"]
+    assert mem["temp_size_in_bytes"] > 0
+    assert "null_reason" not in mem
+    coll = rec["collectives_per_device"]
+    assert coll["total"]["count"] > 0 and coll["total"]["operand_bytes"] > 0
+    assert "collectives_null_reason" not in rec
     assert mem["argument_size_in_bytes"] == bpd["total"]
     assert mem["alias_size_in_bytes"] == bpd["cache"]
     logits = 32 * configs.get_tiny("qwen3-8b").vocab_size * 4

@@ -146,13 +146,14 @@ def test_sync_dump_receipt_and_restore_result(tmp_path):
 
 @pytest.mark.parametrize("what", ["lazy", "mesh", "load", "load_latest"])
 def test_unported_parts_raise(tmp_path, what):
-    """What stays unported: placement onto a mesh over several devices, by
-    the typed request (``mesh=``) or by ``load``/``load_latest(
-    shardings=...)``; a lazy restore takes no shardings (they apply after
-    materialize(), as in the JAX package). One-device meshes restore
-    (tests/test_torch_distributed.py). (Async dumps, the orchestrator's
-    rounds, migrate and signal handlers are ported and tested in
-    tests/test_torch_migration.py.)"""
+    """What raises: placement onto a mesh over several devices without a
+    process group that spans it, by the typed request (``mesh=``) or by
+    ``load``/``load_latest(shardings=...)``; a lazy restore takes no
+    shardings (they apply after materialize(), as in the JAX package).
+    One-device meshes restore (tests/test_torch_distributed.py), meshes
+    over a group's ranks too (tests/test_torch_spmd.py). (Async dumps,
+    the orchestrator's rounds, migrate and signal handlers are ported and
+    tested in tests/test_torch_migration.py.)"""
     from repro_torch.distributed.sharding import (Mesh, PartitionSpec,
                                                   named)
     from repro_torch.launch.mesh import make_test_mesh
@@ -180,8 +181,8 @@ def test_unported_parts_raise(tmp_path, what):
         with pytest.raises(ValueError, match="materialize"):
             calls[what]()
     else:
-        with pytest.raises(NotImplementedError,
-                           match="multi-device placement"):
+        with pytest.raises(RuntimeError, match="needs a process group of 2 "
+                                               "ranks.*none is initialised"):
             calls[what]()
 
 
