@@ -312,25 +312,47 @@ Phases, one line each (plus details):
                the host peak under 90 GB;
  18. mesh path (`spmd:` lines; in a child process, `--spmd-child`,
                beside path 11, so its device peak and its interpreter are
-               its own): rank 0's per-device program of two
-               production cells on the card, under a fake process group of
+               its own): rank 0's per-device program of production
+               cells on the card, under a fake process group of
                256 (launch/mesh.fake_group: collectives move no data) on
-               the (16, 16) mesh, qwen3-8b at full width: (a) train_4k
+               the (16, 16) mesh at full width, qwen3-8b: (a) train_4k
                (dots, 8 microbatches, 16 of 256 rows a rank) at 2 of 36
                layers, with and without --cast-once; (b) prefill_32k (2 of
                32 rows, the cache split over the sequence) at 4 of 36
                layers. Each step's arguments are DTensors whose local
                shards alone live on the card; the dry run's record of the
-               same program (traced on meta beside path 7's resume)
-               against it: the FLOPs StepCost counts on the card equal to
+               same program against it: the FLOPs StepCost counts on the
+               card equal to
                the record's, the device peak above what was allocated
                before the state (train) or the step (prefill) within 5% of
                the record's argument + temp (train) or temp (prefill);
                the train step's median over 2 timed steps printed as the
                compute-only time of one of 256 cards; K6 launched once a
-               layer on wgmma through its DTensor sharding rule. The depth
-               is cut for the path's time, not its memory (2 layers of
-               train_4k take 12 GB). No loss is read: the fake
+               layer on wgmma through its DTensor sharding rule. Each train
+               record's totals_per_device FLOPs (its L1/L2 traces at the
+               cell's microbatches) equal its whole-step trace and the
+               card's count. (c) xlstm-350m at full width, whose 4 heads
+               run whole on each rank's rows (sharding.local_rows):
+               decode_32k (8 of 128 rows) and long_500k (1 row) at the full
+               24 layers, and train at 4 of 24 layers (one m-m-m-s group),
+               4 microbatches, train_4k's 256 rows with the sequence cut to
+               512 for the script's time (at 4096 the step takes 114 s and
+               350 s under StepCost: scripts/torch_xlstm_train_card.py), each
+               against its record as (a) and (b) are. (d) After (a)'s steps,
+               its state (rank 0's shards of the 19.58 GB unsharded qwen3-8b
+               state at 2 layers) dumped through CheckpointSession under
+               CodecPolicy(optimizer="bf16", device="auto") to file:// in a
+               temporary directory, removed afterwards: every leaf gathered
+               to rank 0 alone, one at a time, K2 encoding each moment leaf
+               (its launches counted into the kernels line); rank 0's
+               device peak above the state at most 2 x the largest leaf's
+               unsharded bytes (the 2.49 GB embedding) + 1 GiB, where
+               gathering the tree needs all 19.58 GB; the dump's seconds,
+               leaves, unsharded bytes and the child's host RSS peak
+               during it printed. The records are traced on meta in a process of
+               their own (``--spmd-records``) started with the script. The
+               depth is cut for the path's time, not its memory (2 layers
+               of train_4k take 12 GB). No loss is read: the fake
                collectives' outputs hold no values;
  19. capabilities: `criu check` of the port on the card
                (repro_torch.api.capabilities, one line each): every
@@ -5324,26 +5346,52 @@ SPMD_TRAIN_LAYERS = 2              # of 36: the path's 60 s (not memory)
 SPMD_PREFILL_LAYERS = 4            # of 36: likewise
 SPMD_STEPS = 2                     # timed after the counted step
 SPMD_PEAK_TOL = 0.05               # the record's peak vs the card's
+SPMD_XLSTM = "xlstm-350m"          # (c): its heads (4) fewer than model's
+SPMD_XLSTM_TRAIN_LAYERS = 4        # of 24: one (m, m, m, s) group
+# (c)'s train cell: train_4k's 256 rows, its sequence cut to 512 for the
+# script's time (the sLSTM scan is 4096 steps of small launches a
+# microbatch: at 4096 the step takes 114 s, 350 s under StepCost, on the
+# H100; scripts/torch_xlstm_train_card.py runs it whole)
+SPMD_XLSTM_TRAIN_SEQ = 512
+SPMD_DUMP_SLACK = 1 << 30          # (d): peak <= 2 x largest leaf + this
 
 
 def spmd_records() -> tuple:
-    """Path 18's dry-run records (CPU only, on meta): rank 0's program
-    of qwen3-8b on the (16, 16) mesh under a fake group of 256, train_4k
-    (dots, the default microbatches) with and without --cast-once at
-    SPMD_TRAIN_LAYERS, and prefill_32k at SPMD_PREFILL_LAYERS ->
-    ({name: record}, seconds)."""
+    """Path 18's dry-run records (CPU only, on meta): rank 0's program on
+    the (16, 16) mesh under a fake group of 256: qwen3-8b train_4k (dots,
+    the default microbatches) with and without --cast-once at
+    SPMD_TRAIN_LAYERS and prefill_32k at SPMD_PREFILL_LAYERS; xlstm-350m
+    train (train_4k's rows and 4 microbatches, the sequence cut to
+    SPMD_XLSTM_TRAIN_SEQ) at SPMD_XLSTM_TRAIN_LAYERS, decode_32k and
+    long_500k at full depth -> ({name: record}, seconds)."""
     from repro_torch.launch import dryrun
     t0 = time.time()
     recs = {}
-    for name, shape, layers, kw in (
-            ("train", "train_4k", SPMD_TRAIN_LAYERS, {}),
-            ("train_cast_once", "train_4k", SPMD_TRAIN_LAYERS,
+    for name, arch, shape, layers, kw in (
+            ("train", SPMD_ARCH, "train_4k", SPMD_TRAIN_LAYERS, {}),
+            ("train_cast_once", SPMD_ARCH, "train_4k", SPMD_TRAIN_LAYERS,
              {"cast_once": True}),
-            ("prefill", "prefill_32k", SPMD_PREFILL_LAYERS, {})):
+            ("prefill", SPMD_ARCH, "prefill_32k", SPMD_PREFILL_LAYERS, {}),
+            ("xlstm_train", SPMD_XLSTM,
+             _spmd_shape(f"train_{SPMD_XLSTM_TRAIN_SEQ}"),
+             SPMD_XLSTM_TRAIN_LAYERS, {}),
+            ("xlstm_decode", SPMD_XLSTM, "decode_32k", None, {}),
+            ("xlstm_long", SPMD_XLSTM, "long_500k", None, {})):
         recs[name] = dryrun.run_cell(
-            SPMD_ARCH, shape, num_layers=layers, verbose=False,
-            microbatches=dryrun.default_microbatches(SPMD_ARCH, shape), **kw)
+            arch, shape, num_layers=layers, verbose=False,
+            microbatches=dryrun.default_microbatches(
+                arch, "train_4k" if name == "xlstm_train" else shape), **kw)
     return recs, time.time() - t0
+
+
+def _spmd_shape(name):
+    """A record's shape: a SHAPES name, or (c)'s cut train cell."""
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    if name in SHAPES:
+        return SHAPES[name]
+    full = SHAPES["train_4k"]
+    return ShapeConfig(name, "train", SPMD_XLSTM_TRAIN_SEQ,
+                       full.global_batch)
 
 
 def _card_trees(torch, cell, dev, gen) -> dict:
@@ -5361,6 +5409,8 @@ def _card_trees(torch, cell, dev, gen) -> dict:
         tree, specs = cell.trees[name]
 
         def leaf(path, t):
+            if path == "pos":
+                return t             # decode's cursor: a host scalar
             spec = specs
             for k in path.split("/"):
                 spec = spec[k]
@@ -5382,17 +5432,21 @@ def _card_trees(torch, cell, dev, gen) -> dict:
             if not (name == "cache" and cell.shape.kind == "prefill")}
 
 
-def _spmd_cell(torch, dev, args, mesh, rec, name) -> dict:
+def _spmd_cell(torch, dev, args, mesh, rec, name, after=None) -> dict:
     """One record against rank 0's step on the card: the step once under
-    StepCost (its FLOPs equal to the record's), then SPMD_STEPS timed
-    under CUDA events (train); the device peak above what was allocated
-    before the state (train) or the step (prefill) within SPMD_PEAK_TOL
-    of the record's argument + temp (train) or temp (prefill)."""
+    StepCost (its FLOPs equal to the record's, and a train record's
+    totals equal to both), then SPMD_STEPS timed under CUDA events
+    (qwen3-8b's train); the device peak above what was allocated before
+    the state (train) or the step (prefill, decode) within SPMD_PEAK_TOL
+    of the record's argument + temp (train) or temp. ``after(cell,
+    trees)`` runs on the state the steps leave, before it is freed."""
+    from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention as k6
     from repro_torch.launch import dryrun
     from repro_torch.launch.stepcost import StepCost
-    opts = rec["options"]
-    cell = dryrun.lower_cell(SPMD_ARCH, rec["shape"], mesh,
+    opts, arch = rec["options"], rec["arch"]
+    depth = configs.get_config(arch).num_layers
+    cell = dryrun.lower_cell(arch, _spmd_shape(rec["shape"]), mesh,
                              num_layers=opts["num_layers"],
                              microbatches=opts["microbatches"],
                              cast_once=opts["cast_once"])
@@ -5411,12 +5465,14 @@ def _spmd_cell(torch, dev, args, mesh, rec, name) -> dict:
         base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     wgmma = k6.ROUTE_LAUNCHES["wgmma"]
+    t0 = time.time()
     with StepCost() as sc:
         out = cell.run(trees)
     torch.cuda.synchronize()
+    counted_s = time.time() - t0
     k6_launches = k6.ROUTE_LAUNCHES["wgmma"] - wgmma
     times = []
-    if kind == "train":
+    if kind == "train" and arch == SPMD_ARCH:
         trees["params"], trees["opt_state"] = out[0]["params"], {
             "opt": out[0]["opt"], "step": out[0]["step"]}
         for _ in range(SPMD_STEPS):
@@ -5433,21 +5489,23 @@ def _spmd_cell(torch, dev, args, mesh, rec, name) -> dict:
     planned = mem["temp_size_in_bytes"] + \
         (mem["argument_size_in_bytes"] if kind == "train" else 0)
     miss = planned / peak - 1
-    res = {"options": opts, "flops": sc.flops, "plan_flops": cost["flops"],
-           "peak_bytes": peak, "planned_bytes": planned, "miss": miss,
-           "step_s": times, "k6_wgmma": k6_launches,
+    res = {"arch": arch, "options": opts, "flops": sc.flops,
+           "plan_flops": cost["flops"], "peak_bytes": peak,
+           "planned_bytes": planned, "miss": miss, "step_s": times,
+           "counted_step_s": counted_s, "k6_wgmma": k6_launches,
            "collectives": rec["collectives_per_device"]["total"],
            "memory_analysis": mem}
     what = "argument + temp" if kind == "train" else "temp"
-    log(f"spmd: {name}: {SPMD_ARCH} {cell.shape.name} at {cell.cfg.num_layers}"
-        f" of 36 layers, rank 0 of {SPMD_MESH[0]}x{SPMD_MESH[1]} (a fake "
-        f"group of {SPMD_MESH[0] * SPMD_MESH[1]}), microbatches "
+    log(f"spmd: {name}: {arch} {cell.shape.name} at {cell.cfg.num_layers}"
+        f" of {depth} layers, rank 0 of {SPMD_MESH[0]}x{SPMD_MESH[1]} (a "
+        f"fake group of {SPMD_MESH[0] * SPMD_MESH[1]}), microbatches "
         f"{cell.microbatches}, cast_once {opts['cast_once']}: the record's "
         f"{what} {planned:,} B, the card's peak {peak:,} B "
         f"({100 * miss:+.2f}%); {sc.flops:,} FLOPs counted on the card, "
         f"the record {cost['flops']:,}; the record's collectives "
         f"{res['collectives']['count']} ({res['collectives']['operand_bytes']:,}"
-        f" B operand)")
+        f" B operand); the counted step {counted_s:.2f} s under StepCost "
+        f"({smi_line()})")
     check(sc.flops == cost["flops"], f"path 18 {name}: the card counts "
           f"{sc.flops} FLOPs, the record {cost['flops']}")
     check(abs(miss) <= SPMD_PEAK_TOL,
@@ -5455,6 +5513,17 @@ def _spmd_cell(torch, dev, args, mesh, rec, name) -> dict:
           f"{100 * miss:+.2f}% of the card's peak {peak} B (limit "
           f"{100 * SPMD_PEAK_TOL:g}%)")
     if kind == "train":
+        # the L1/L2 traces run the cell's microbatches, so the record's
+        # totals describe the step it traced whole
+        tot = rec["totals_per_device"]["flops"]
+        res["totals_flops"] = tot
+        log(f"spmd: {name}: totals_per_device flops {tot:,.0f} = "
+            f"cost_analysis_per_device {cost['flops']:,} = the card's "
+            f"{sc.flops:,}")
+        check(tot == cost["flops"] == sc.flops,
+              f"path 18 {name}: the record's totals {tot} FLOPs, its "
+              f"whole-step trace {cost['flops']}, the card {sc.flops}")
+    if times:
         med = statistics.median(times)
         res["step_s_median"] = med
         log(f"spmd: {name}: {smi_line()}: the compute-only time of one of "
@@ -5462,24 +5531,108 @@ def _spmd_cell(torch, dev, args, mesh, rec, name) -> dict:
             f"fake group's collectives move nothing) median {med:.4f} s over "
             f"{SPMD_STEPS} steps ({', '.join(f'{t:.4f}' for t in times)}); "
             f"{sc.flops / med / 1e12:.1f} TFLOP/s counted")
-    else:
+    elif kind == "prefill":
         log(f"spmd: {name}: K6 launched {k6_launches} times on wgmma through "
             f"its sharding rule ({cell.cfg.num_layers} layers)")
         check(k6_launches == cell.cfg.num_layers,
               f"path 18 {name}: K6 launched {k6_launches} times on wgmma, "
               f"{cell.cfg.num_layers} layers")
-    del trees, out
+    del out
+    if after is not None:
+        res.update(after(cell, trees))
+    del trees
     return res
 
 
+def _spmd_dump(torch, dev, args, cell, trees) -> dict:
+    """(d): F9 on the card. (a)'s state (rank 0's shards of the train
+    state) dumped through CheckpointSession under
+    CodecPolicy(optimizer="bf16", device="auto") to file:// in a
+    temporary directory, removed afterwards: every leaf gathered to rank 0
+    alone, one at a time (the fake group moves no data, so the values are
+    not compared: the CPU tests hold the image bitwise), K2 encoding each
+    moment leaf on the card. Checks rank 0's device peak above the state
+    against 2 x the largest leaf's unsharded bytes + SPMD_DUMP_SLACK and
+    K2's launches against the moment leaves; prints the dump's seconds,
+    its leaves, the unsharded bytes and the child's host RSS peak during
+    the dump (RssPeak: the child's own, which ru_maxrss is not, inherited
+    from the parent across fork and exec)."""
+    import shutil
+    import tempfile
+    from repro_torch.api import (CheckpointSession, CodecPolicy, DumpRequest,
+                                 SessionConfig)
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.core.device_codec import DEVICE_MIN_BYTES
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    state = {"params": trees["params"], **trees["opt_state"]}
+    leaves = [(p, t.numel() * t.element_size())
+              for p, t in flatten_with_paths(state)]
+    unsharded = sum(n for _, n in leaves)
+    largest = max(n for _, n in leaves)
+    limit = 2 * largest + SPMD_DUMP_SLACK
+    moments = [p for p, n in leaves
+               if p.startswith("opt/") and n >= DEVICE_MIN_BYTES]
+    root = tempfile.mkdtemp(prefix="chip-smoke-f9-", dir=args.lifecycle_dir)
+    try:
+        free = shutil.disk_usage(root).free
+        check(free > 1.2 * unsharded, f"path 18 (d): {free / 1e9:.1f} GB "
+              f"free under {root}, the image may take {unsharded / 1e9:.1f}")
+        sess = CheckpointSession(SessionConfig(
+            root=f"file://{root}", codec=CodecPolicy(optimizer="bf16",
+                                                     device="auto")),
+            device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ckpt_codec.reset_launches()    # (d)'s counts start here
+        t0 = time.time()
+        with RssPeak() as rss:
+            receipt = sess.dump(DumpRequest(state=state, step=1))
+            torch.cuda.synchronize()
+        dump_s = time.time() - t0
+        launches = dict(ckpt_codec.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    st = receipt.stats
+    out = {"dump_s": dump_s, "dump_leaves": len(leaves),
+           "dump_unsharded_bytes": unsharded, "dump_largest_leaf": largest,
+           "dump_peak_bytes": peak, "dump_limit_bytes": limit,
+           "dump_stored_bytes": st["bytes_stored"],
+           "dump_launches": launches, "host_peak_rss_gb": rss.peak_gb,
+           "host_rss_at_dump_gb": rss.start_gb}
+    log(f"spmd: (d) {smi_line()}: the sharded dump of (a)'s state "
+        f"({len(leaves)} leaves, {unsharded / 1e9:.2f} GB unsharded, the "
+        f"largest {largest / 1e9:.2f} GB), rank 0 of the fake "
+        f"{SPMD_MESH[0] * SPMD_MESH[1]}, in {dump_s:.1f} s: "
+        f"{st['bytes_stored'] / 1e9:.2f} GB stored, {st['leaves_device']} "
+        f"leaves through the device stage (K2 {launches['bf16_encode_digest']}"
+        f"); rank 0's device peak above the state {peak / 1e9:.3f} GB "
+        f"(limit {limit / 1e9:.3f} GB: 2 x the largest leaf + 1 GiB); the "
+        f"child's host RSS {rss.start_gb:.1f} GB at the dump's start, its "
+        f"peak {rss.peak_gb:.1f} GB during it (sampled every 20 ms)")
+    check(peak <= limit, f"path 18 (d): rank 0's device peak {peak} B "
+          f"passed {limit} B: the dump held more than one gathered leaf")
+    check(launches["bf16_encode_digest"] == len(moments)
+          == st["leaves_device"],
+          f"path 18 (d): K2 launched {launches['bf16_encode_digest']} times, "
+          f"{st['leaves_device']} leaves went through the device stage, "
+          f"{len(moments)} moment leaves are eligible")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "bf16_encode_digest"),
+          f"path 18 (d): a kernel other than K2 ran in the dump: {launches}")
+    return out
+
+
 def spmd_path(torch, dev, args, planned=None) -> dict:
-    """Path 18: rank 0's per-device program of two production cells on
-    the card, under a fake group of 256 on the (16, 16) mesh at full
-    width, against the dry run's records of the same program on meta.
+    """Path 18: rank 0's per-device program of production cells
+    (qwen3-8b's and xlstm-350m's) on the card, under a fake group of 256
+    on the (16, 16) mesh at full width, against the dry run's records of
+    the same program on meta, and the sharded dump of (a)'s state (d).
     The fake group's collectives move no data and leave their outputs as
     allocated, so the path reads shapes, memory, FLOPs and time, never a
-    loss. ``planned``: spmd_records()'s result, traced earlier where this
-    process was idle; traced here when None."""
+    loss. ``planned``: spmd_records()'s result, traced in a process of
+    their own; traced here when None."""
     from repro_torch.launch.mesh import fake_group, make_test_mesh
     recs, record_s = planned or spmd_records()
     t0 = time.time()
@@ -5487,20 +5640,74 @@ def spmd_path(torch, dev, args, planned=None) -> dict:
     with fake_group(SPMD_MESH[0] * SPMD_MESH[1]):
         mesh = make_test_mesh(SPMD_MESH, device=dev)
         for name, rec in recs.items():
-            out[name] = _spmd_cell(torch, dev, args, mesh, rec, name)
+            after = (lambda cell, trees: _spmd_dump(torch, dev, args, cell,
+                                                    trees)) \
+                if name == "train" else None
+            t1 = time.time()
+            out[name] = _spmd_cell(torch, dev, args, mesh, rec, name, after)
+            out[name]["wall_s"] = time.time() - t1
             free_host_and_card(torch)
     plain, cast = (out[k]["collectives"]["operand_bytes"]
                    for k in ("train", "train_cast_once"))
+    xl = ("xlstm_train", "xlstm_decode", "xlstm_long")
     log(f"spmd: cast-once moves {cast:,} B of collective operands a step, "
         f"without {plain:,} B; records traced in {record_s:.1f} s on meta, "
-        f"the card's part {time.time() - t0:.1f} s")
+        f"the card's part {time.time() - t0:.1f} s, of it (c) "
+        f"{sum(out[k]['wall_s'] for k in xl):.1f} s and (d)'s dump "
+        f"{out['train']['dump_s']:.1f} s ({smi_line()})")
     check(cast < plain, "cast-once did not cut the collectives' bytes")
-    out["launches"] = {"flash_attention": out["prefill"]["k6_wgmma"]}
+    out["launches"] = {
+        "flash_attention": out["prefill"]["k6_wgmma"],
+        **out["train"]["dump_launches"]}
     out["wall_s"] = time.time() - t0
     return out
 
 
 SPMD_CHILD_TIMEOUT_S = 600
+
+
+def start_spmd_records(args) -> dict:
+    """Path 18's records (spmd_records) traced on meta in a process of
+    their own (``--spmd-records``), started with the script: a few minutes
+    of one host core beside everything before path 11, none of this
+    process's interpreter. Killed at exit if still running."""
+    import atexit
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-spmd-rec-",
+                           dir=args.lifecycle_dir)
+    out = os.path.join(tmp, "records.json")
+    logf = open(os.path.join(tmp, "records.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spmd-records", out],
+        stdout=logf, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "log": logf, "tmp": tmp, "out": out,
+            "t0": time.time()}
+
+
+def finish_spmd_records(rp) -> tuple:
+    """Wait for the records' process (at most SPMD_CHILD_TIMEOUT_S more),
+    fail unless it exited 0 -> (records, seconds it traced, seconds this
+    process waited for it)."""
+    import shutil
+    t0 = time.time()
+    proc = rp["proc"]
+    try:
+        proc.wait(timeout=SPMD_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    rp["log"].seek(0)
+    lines = rp["log"].read().splitlines()
+    rp["log"].close()
+    try:
+        check(proc.returncode == 0, f"path 18's records exited "
+              f"{proc.returncode}:\n" + "\n".join(lines[-40:]))
+        with open(rp["out"]) as f:
+            given = json.load(f)
+    finally:
+        shutil.rmtree(rp["tmp"], ignore_errors=True)
+    return given["records"], given["record_s"], time.time() - t0
 
 
 def start_spmd_child(planned, args) -> dict:
@@ -5553,12 +5760,15 @@ def spmd_child_main(torch, dev, args) -> int:
     """The child's side of path 18: load K6 (built by the parent), run
     spmd_path on the parent's records, write its result to ``--out``."""
     from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
     from repro_torch.kernels.flash_attention import flash_attention as k6
-    build_all([k6.LIB])
+    build_all([ckpt_codec.LIB, k6.LIB])
+    ckpt_codec.LIB.load()
     k6.LIB.load()
     with open(args.spmd_child) as f:
         given = json.load(f)
     out = spmd_path(torch, dev, args, (given["records"], given["record_s"]))
+    out["ended_at"] = time.time()
     with open(args.out, "w") as f:
         json.dump(out, f)
     return 0
@@ -5597,6 +5807,7 @@ def free_host_and_card(torch):
 def _rss_gb() -> float:
     """The process's peak RSS so far, GB (ru_maxrss is in KiB on Linux)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
 
 
 class RssPeak:
@@ -5865,6 +6076,7 @@ def main(argv=None) -> int:
                          "path's hot fronts go (default: the system's "
                          "temporary directory)")
     ap.add_argument("--spmd-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-records", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     # cuBLAS picks deterministic algorithms only with a fixed workspace;
@@ -5876,6 +6088,11 @@ def main(argv=None) -> int:
               "False); nothing to drive", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.spmd_records:
+        recs, record_s = spmd_records()
+        with open(args.spmd_records, "w") as f:
+            json.dump({"records": recs, "record_s": record_s}, f)
+        return 0
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.ckpt_codec import ckpt_codec
     from repro_torch.kernels.flash_attention import flash_attention as k6
@@ -5892,6 +6109,7 @@ def main(argv=None) -> int:
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}; "
         f"{torch.cuda.device_count()} device(s)")
 
+    spmd_recs = start_spmd_records(args)
     t0 = time.time()
     libs = [ckpt_codec.LIB, k6.LIB]
     sos = build_all(libs)
@@ -5963,13 +6181,12 @@ def main(argv=None) -> int:
     def beside_resume():
         """Path 12 (b) (subprocesses with little of the card), then path
         17's and path 9's records traced on meta, beside path 7's resume
-        and reference."""
+        and reference (path 18's trace in their own process)."""
         t0 = time.time()
         restart = socket_restart(dev, args)
         restart["wall_s"] = time.time() - t0
         return {"restart": restart, "remat_record": remat_record(),
-                "plane_record": plane_record(),
-                "spmd_record": spmd_records()}
+                "plane_record": plane_record()}
 
     t0 = time.time()
     record["lifecycle"] = lifecycle_path(torch, dev, args,
@@ -5997,9 +6214,8 @@ def main(argv=None) -> int:
         f"s; the resume beside the reference "
         f"{record['lifecycle']['resume_phase_wall_s']:.1f} s, path 12 (b) "
         f"({later['restart']['wall_s']:.1f} s), path 17's record on meta "
-        f"({remat_planned[1]:.1f} s), path 9's "
-        f"({later['plane_record'][1]:.1f} s) and path 18's "
-        f"({later['spmd_record'][1]:.1f} s) beside those; paths 7, 13, 6 "
+        f"({remat_planned[1]:.1f} s) and path 9's "
+        f"({later['plane_record'][1]:.1f} s) beside those; paths 7, 13, 6 "
         f"and 12 (b) "
         f"together {time.time() - t0:.1f} s")
     for k, n in fam["launches"].items():
@@ -6066,7 +6282,8 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     # path 18 in a child process beside path 11 (12 GB of the card beside
     # its 56; path 11 is host-bound on its own threads)
-    spmd_child = start_spmd_child(later["spmd_record"], args)
+    *spmd_planned, spmd_wait = finish_spmd_records(spmd_recs)
+    spmd_child = start_spmd_child(spmd_planned, args)
     t0 = time.time()
     with RssPeak() as rss_fleet:
         record["fleet"] = fleet_path(torch, dev, args)
@@ -6082,12 +6299,16 @@ def main(argv=None) -> int:
     for k in ckpt_codec.KERNELS:
         rows[k]["launches"] += record["fleet"]["launches"][k]
     record["spmd"] = spmd = finish_spmd_child(spmd_child)
-    log(f"spmd: path 18 in a child process beside path 11: the child "
-        f"{spmd['child_wall_s']:.1f} s from its start (its card part "
+    spmd["child_end_s"] = spmd["ended_at"] - spmd_child["t0"]
+    log(f"spmd: path 18 in a child process beside path 11: the child ended "
+        f"{spmd['child_end_s']:.1f} s after its start (its card part "
         f"{spmd['wall_s']:.1f} s; its records {spmd['record_s']:.1f} s on "
-        f"meta beside path 7's resume); path 11 {record['fleet']['wall_s']:.1f} s")
-    rows["flash_attention"]["launches"] += \
-        spmd["launches"]["flash_attention"]
+        f"meta in their own process from the script's start, waited for "
+        f"{spmd_wait:.1f} s), path 11 {record['fleet']['wall_s']:.1f} s "
+        f"({'before' if spmd['child_end_s'] <= record['fleet']['wall_s'] else 'after'}"
+        f" path 11's end)")
+    for k, n in spmd["launches"].items():
+        rows[k]["launches"] += n
     mark("archs+fleet+spmd")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()

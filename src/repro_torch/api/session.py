@@ -29,7 +29,9 @@ lifecycle (``migrate``, ``should_migrate``, ``should_predump``,
 ``__enter__`` under PreemptionPolicy(install_signals=True)), and the
 `criu check` probe ``capabilities``; restore onto a mesh (``shardings=``
 / ``mesh=`` records of distributed/sharding.py) places every leaf on the
-mesh's one device, and a mesh over several devices raises.
+mesh's one device, or as DTensors over the ranks of a process group; a
+sync dump of DTensor leaves (every rank calls it) streams them to rank 0
+one gathered leaf at a time.
 
 The dirty classifier of pre-copy runs on the card: an fp32 or bf16 leaf
 on the card is digested there by K5 (core/predump.py), and a leaf whose
@@ -379,20 +381,52 @@ class CheckpointSession:
 
     def _save_sharded(self, tree, *, step, meta, topology) -> dict:
         """save() of a tree with DTensor leaves (a multi-device mesh):
-        every rank of the group calls it. Each leaf is gathered to a full
-        tensor once (``full_tensor``, collective), rank 0 dumps the
-        gathered tree, so the image holds the same chunk bytes and
-        manifest as an unsharded dump of the same values, and every rank
-        gets rank 0's image id and stats."""
+        every rank of the group calls it. The leaves are gathered one at a
+        time, in the image's leaf order, to rank 0 alone
+        (``sharding.gather_leaf``: the other ranks send their shards and
+        keep no full copy). Rank 0 pulls each gathered leaf through the
+        dump pipeline (core/dump.py ``pull``: the plan, codec, device
+        stage, SHA-256 and chunk writes of an unsharded dump) and drops it
+        before the next gather, so the image holds the chunk bytes and
+        manifest of an unsharded dump of the same values and no device
+        holds more than one gathered leaf. Rank 0 keeps the delta8
+        baseline, copied to the host as each leaf passes; every rank gets
+        rank 0's image id and stats, or its error."""
         import torch.distributed as dist
         from repro_torch.distributed import sharding as shd
-        full = shd.gather_tree(tree)
-        out = [None]
-        if dist.get_rank() == 0:
-            res = self.save(full, step=step, meta=meta, topology=topology)
-            out = [{"image_id": res["image_id"], "stats": res["stats"]}]
-        del full
+        pairs = flatten_with_paths(tree)
+        if dist.get_rank() != 0:
+            for _, t in pairs:
+                shd.gather_leaf(t)
+            out = [None]
+        else:
+            pulled, base = [], {}
+            keep = self._baseline_paths()
+
+            def pull(path, t):
+                x = shd.gather_leaf(t)
+                pulled.append(path)
+                if keep(path):
+                    base[path] = to_host(x)
+                return x
+            try:
+                self._drain_async()
+                res = _dump(tree, self.tier, replicas=self.replicas,
+                            executor=self.executor, device=self.device,
+                            pull=pull, **self._save_kw(step, meta, topology))
+                self._committed(tree, step, res, baseline=base)
+                out = [{"image_id": res["image_id"], "stats": res["stats"]}]
+            except Exception as e:
+                # the other ranks are still in their gathers: finish them
+                for _, t in pairs[len(pulled):]:
+                    shd.gather_leaf(t)
+                dist.broadcast_object_list(
+                    [{"error": f"{type(e).__name__}: {e}"}], src=0)
+                raise
         dist.broadcast_object_list(out, src=0)
+        if "error" in out[0]:
+            raise RuntimeError(f"the sharded dump failed on rank 0: "
+                               f"{out[0]['error']}")
         return dict(out[0], records=None)
 
     def _drain_async(self):
@@ -404,23 +438,33 @@ class CheckpointSession:
         if self._async is not None:
             self._drained.extend(self._async.wait())
 
-    def _committed(self, tree, step, out):
+    def _committed(self, tree, step, out, baseline=None):
         """After a dump of ``tree`` committed as ``out``: advance the delta8
-        baseline to it, then apply retention and gc."""
+        baseline to it (``baseline``, where the dump already copied it),
+        then apply retention and gc."""
         if self.codec_policy is not None and self.incremental:
-            self._prev_host = self._baseline_of(tree)
+            self._prev_host = self._baseline_of(tree) if baseline is None \
+                else baseline
             self._prev_step = step
             self._prev_image = out["image_id"]
         self.registry.retain(self.keep_last, self.keep_every)
         self.registry.gc()
 
+    def _baseline_paths(self):
+        """-> path -> bool: is the leaf at ``path`` part of the delta8
+        baseline (the codec policy delta8-codes it and dumps chain)?"""
+        policy = self.codec_policy
+        if policy is None or not self.incremental:
+            return lambda p: False
+        return lambda p: policy(p) == "delta8"
+
     def _baseline_of(self, tree) -> dict:
         """{path: host array} of the leaves the codec policy delta8-codes:
         the only leaves a later dump encodes against a baseline, copied to
         the host one at a time (the params of a train state stay out)."""
-        policy = self.codec_policy
+        keep = self._baseline_paths()
         return {p: to_host(a) for p, a in flatten_with_paths(tree)
-                if policy(p) == "delta8"}
+                if keep(p)}
 
     def adopt_baseline(self, tree, *, image_id: str, step: int):
         """Take a restored ``tree`` (the decoded content of ``image_id``)

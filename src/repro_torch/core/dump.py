@@ -11,12 +11,18 @@ committed last (atomic rename). Multi-host: leaves are partitioned
 round-robin by process; each process writes a manifest part and process 0
 merges (single-process containers just take the fast path).
 
+A sharded tree's leaves are pulled instead (``pull``): one at a time, in
+the image's leaf order, on the calling thread, each gathered leaf is
+encoded (device stage or host capture), written through the same
+executor path and dropped before the next pull.
+
 State is a plain nested dict of tensors. Paths are built as the JAX
 package builds them ("params/stack/b0/attn/wq") and dicts are flattened in
 sorted key order, as JAX does, so both packages write the same manifest
 for the same state."""
 from __future__ import annotations
 
+import dataclasses
 import json
 
 from repro_torch.core import chunking, manifest
@@ -62,7 +68,7 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
          executor: CheckpointExecutor | None = None,
          reuse_records: dict | None = None,
          device_codec: str = "off", device_source=None,
-         device="cuda") -> dict:
+         device="cuda", pull=None) -> dict:
     """Returns {"image_id", "stats", "records"}. ``tree`` is a nested dict
     of tensors (any device) or host arrays. ``prev_host_tree`` (path->np
     array) enables delta8; ``parent`` links the incremental chain;
@@ -75,7 +81,9 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
     encode+digest stage (core/device_codec.py), double-buffered against
     the host chunk writes; ``device_source`` is the tree the stage reads —
     by default ``tree`` itself, so the kernels read the live device
-    tensors."""
+    tensors. ``pull(path, leaf)`` (a sharded tree, whose DTensor leaves
+    are planned by their global shapes) returns each leaf's full tensor,
+    called in plan order on the calling thread (``_run_pulled``)."""
     dev = resolve_device(device)
     tier = as_tier(root)
     replicas = [as_tier(r) for r in replicas]
@@ -89,6 +97,20 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
                      process_index=process_index,
                      num_processes=num_processes,
                      reuse_records=reuse_records)
+
+    if pull is not None:
+        if reuse_records or device_source is not None or num_processes > 1:
+            raise ValueError("a pulled dump is one process's, re-emits no "
+                             "records and reads no other device source")
+        with tier.writer():
+            out = _run_pulled(plan, live, pull, ex, tier, replicas,
+                              prev_host_tree,
+                              device_codec_mod.resolve_mode(device_codec,
+                                                            dev), dev)
+            return _commit(plan, out, tier, replicas, step=step, meta=meta,
+                           parent=parent, topology=topology, device=dev,
+                           process_index=process_index,
+                           num_processes=num_processes)
 
     encoded = {}
     if device_codec_mod.resolve_mode(device_codec, dev):
@@ -113,36 +135,75 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
         out = ex.run_dump(plan, arrays, tier, replicas,
                           prev_host_tree=prev_host_tree, encoded=encoded,
                           device=dev)
+        return _commit(plan, out, tier, replicas, step=step, meta=meta,
+                       parent=parent, topology=topology, device=dev,
+                       process_index=process_index,
+                       num_processes=num_processes)
 
-        man = manifest.build(plan.image_id, step=step, leaves=out["records"],
-                             meta=meta or {}, parent=parent,
-                             env=manifest.env_fingerprint(dev),
-                             topology=topology)
-        journal = tier.ref_journal()
-        if journal is not None and num_processes == 1:
-            # refcount journal entry lands BEFORE the manifest (both
-            # inside the writer guard): a crash between the two leaves an
-            # orphan ref (bounded leak, swept later), never a committed
-            # manifest whose chunks a peer job's gc may reap
-            journal.publish(
-                plan.image_id,
-                {h for rec in out["records"] for h in rec["chunks"]},
-                manifest_rel=tier.manifest_path(plan.image_id))
-        if num_processes > 1:
-            part = f"images/{plan.image_id}/manifest.part{process_index}.json"
-            tier.write_bytes(part, manifest.to_json(man))
-            if process_index == 0:
-                merge_parts(tier, plan.image_id, num_processes,
-                            replicas=replicas)
-        else:
-            blob = manifest.to_json(man)
-            tier.write_bytes(tier.manifest_path(plan.image_id), blob,
-                             atomic=True)
-            for r in replicas:
-                r.write_bytes(r.manifest_path(plan.image_id), blob,
-                              atomic=True)
+
+def _commit(plan, out, tier, replicas, *, step, meta, parent, topology,
+            device, process_index, num_processes) -> dict:
+    """The manifest of an executed plan: the refcount journal, then the
+    manifest (or this process's part), committed last. Runs inside the
+    tier's writer guard."""
+    man = manifest.build(plan.image_id, step=step, leaves=out["records"],
+                         meta=meta or {}, parent=parent,
+                         env=manifest.env_fingerprint(device),
+                         topology=topology)
+    journal = tier.ref_journal()
+    if journal is not None and num_processes == 1:
+        # refcount journal entry lands BEFORE the manifest (both
+        # inside the writer guard): a crash between the two leaves an
+        # orphan ref (bounded leak, swept later), never a committed
+        # manifest whose chunks a peer job's gc may reap
+        journal.publish(
+            plan.image_id,
+            {h for rec in out["records"] for h in rec["chunks"]},
+            manifest_rel=tier.manifest_path(plan.image_id))
+    if num_processes > 1:
+        part = f"images/{plan.image_id}/manifest.part{process_index}.json"
+        tier.write_bytes(part, manifest.to_json(man))
+        if process_index == 0:
+            merge_parts(tier, plan.image_id, num_processes,
+                        replicas=replicas)
+    else:
+        blob = manifest.to_json(man)
+        tier.write_bytes(tier.manifest_path(plan.image_id), blob,
+                         atomic=True)
+        for r in replicas:
+            r.write_bytes(r.manifest_path(plan.image_id), blob,
+                          atomic=True)
     return {"image_id": plan.image_id, "stats": out["stats"],
             "records": man["leaves"]}
+
+
+def _run_pulled(plan, live, pull, ex, tier, replicas, prev_host_tree,
+                on_device: bool, dev) -> dict:
+    """``ex.run_dump`` of ``plan`` one leaf at a time, each leaf pulled
+    first (``pull(path, leaf)`` on the calling thread, in plan order: the
+    gathers of a sharded tree are collectives, so no worker thread issues
+    one). The pulled tensor goes to the device stage (an eligible leaf,
+    encoded and landed inline) or to the host, and is dropped before the
+    next pull; the leaf's chunks are written before it too, so the dump
+    holds one gathered leaf at a time."""
+    by_path = {lp.path: lp for lp in plan.leaves}
+    records, stats = [], {}
+    for path, leaf in live:
+        sub = dataclasses.replace(plan, leaves=(by_path[path],))
+        x = pull(path, leaf)
+        encoded = device_codec_mod.encode_leaves(
+            sub, {path: x}, prev_host_tree, None, device=dev) \
+            if on_device else {}
+        arrays = {} if path in encoded else {path: to_host(x, copy=False)}
+        del x
+        out = ex.run_dump(sub, arrays, tier, replicas,
+                          prev_host_tree=prev_host_tree, encoded=encoded,
+                          device=dev)
+        del arrays, encoded
+        records += out["records"]
+        for k, v in out["stats"].items():
+            stats[k] = stats.get(k, 0) + v
+    return {"records": records, "stats": stats}
 
 
 class _Capture(dict):

@@ -62,15 +62,16 @@ def np_dtype(name: str) -> np.dtype:
     return BF16 if name == "bfloat16" else np.dtype(name)
 
 
-def to_host(t) -> np.ndarray:
+def to_host(t, copy: bool = True) -> np.ndarray:
     """Tensor (any device) or array-like -> numpy host array. A bf16
     tensor lands as a ``BF16`` bit-pattern array. A tensor's array is a
     snapshot: a CPU tensor is copied (``.cpu()`` would alias it, and the
-    train step updates its state in place)."""
+    train step updates its state in place), unless ``copy=False`` says
+    the caller owns the tensor."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
     t = t.detach()
-    if t.device.type == "cpu":
+    if copy and t.device.type == "cpu":
         t = t.clone()
     if t.dtype == torch.bfloat16:
         return t.cpu().view(torch.int16).numpy().view(BF16)

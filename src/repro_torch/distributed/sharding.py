@@ -483,6 +483,82 @@ def gather_tree(tree):
                     tree)
 
 
+def shard_box(global_shape, mesh_shape, placements, coord) -> tuple:
+    """(local shape, global offset) of the shard at mesh coordinate
+    ``coord`` of a tensor of ``global_shape`` under ``placements``
+    (``Shard``/``Replicate``), laid out as DTensor lays it: in mesh-dim
+    order each ``Shard(d)`` splits the current piece of dim ``d`` into
+    ``torch.chunk``'s pieces (ceil-sized, the last ones short or empty).
+    ``compute_local_shape_and_global_offset`` gives the same for this
+    rank's own coordinate only."""
+    from torch.distributed.tensor import Replicate, Shard
+    shape, off = list(global_shape), [0] * len(global_shape)
+    for n, c, p in zip(mesh_shape, coord, placements):
+        if isinstance(p, Shard):
+            d = p.dim
+            step = -(-shape[d] // n)
+            start = min(step * c, shape[d])
+            shape[d], off[d] = min(shape[d], start + step) - start, \
+                off[d] + start
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"no shard layout for placement {p}")
+    return tuple(shape), tuple(off)
+
+
+def gather_leaf(t):
+    """A DTensor's full value on global rank 0, None on every other rank
+    (collective: every rank of the group calls it, leaf by leaf in one
+    order). Only the ranks that hold distinct shards take part — those at
+    coordinate 0 on the mesh dims the leaf is replicated over, which is
+    the whole group or one mesh dim's group on the port's 1-D and 2-D
+    meshes — each sending its local shard, padded to rank 0's (the
+    largest), with one ``dist.gather``; rank 0 lays each at its offset
+    (``shard_box``). No rank but 0 holds more than its own shard, and rank
+    0 at most the gathered shards and the full leaf. A plain tensor is
+    the same on every rank: rank 0 gets it as it is."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    if not is_dtensor(t):
+        return t if rank == 0 else None
+    dm, pl = t.device_mesh, list(t.placements)
+    ranks = dm.mesh
+    if int(ranks.reshape(-1)[0]) != 0 or dm.size() != dist.get_world_size():
+        raise ValueError("a leaf is gathered to rank 0 over a mesh that "
+                         "spans the whole group, rank 0 first")
+    shard_dims = [i for i, p in enumerate(pl) if p.is_shard()]
+    if any(p.is_partial() for p in pl) or \
+            len(shard_dims) not in (0, 1, ranks.ndim):
+        raise ValueError(f"cannot gather a leaf placed as {pl}")
+    local = t.to_local().detach()
+    if not shard_dims:
+        return local if rank == 0 else None
+    coord = [int(c) for c in (ranks == rank).nonzero()[0]]
+    if any(coord[i] for i in range(ranks.ndim) if i not in shard_dims):
+        return None                     # a replica of another's shard
+    group = None if len(shard_dims) == ranks.ndim else \
+        dm.get_group(shard_dims[0])
+    top, _ = shard_box(t.shape, tuple(ranks.shape), pl, [0] * ranks.ndim)
+    if tuple(local.shape) != top:
+        local = torch.nn.functional.pad(
+            local, [x for a, b in zip(reversed(top), reversed(local.shape))
+                    for x in (0, a - b)])
+    local = local.contiguous()
+    members = dist.get_process_group_ranks(group or dist.group.WORLD)
+    if rank != 0:
+        dist.gather(local, None, dst=0, group=group)
+        return None
+    bufs = [torch.empty_like(local) for _ in members]
+    dist.gather(local, bufs, dst=0, group=group)
+    del local
+    full = torch.empty(t.shape, dtype=t.dtype, device=bufs[0].device)
+    for r, buf in zip(members, bufs):
+        at = [int(c) for c in (ranks == r).nonzero()[0]]
+        shape, off = shard_box(t.shape, tuple(ranks.shape), pl, at)
+        full[tuple(slice(o, o + s) for o, s in zip(off, shape))] = \
+            buf[tuple(slice(0, s) for s in shape)]
+    return full
+
+
 def has_dtensor(tree) -> bool:
     from repro_torch.models.params import tree_leaves
     return any(is_dtensor(t) for t in tree_leaves(tree))
@@ -775,6 +851,68 @@ def local_heads(fn, q, k, v):
                               stride=contiguous_stride(shape))
 
 
+def local_rows(fn, rows, whole=()):
+    """``fn(*rows, *whole)`` run on each rank's own batch rows: where the
+    first of ``rows`` (batch-first tensors) is a DTensor, every one of
+    ``rows`` is pinned to its batch split (dim 0 split as the first one's
+    is, every other dim whole, a partial sum reduced) and every one of
+    ``whole`` (weights) is replicated, and ``fn`` runs on their local
+    shards as plain tensors. A recurrence over heads that the mesh cannot
+    split (xLSTM's 4 over 16 ranks) so runs with its heads whole on each
+    rank, its many small ops outside DTensor's dispatch; a weight's
+    gradient comes back as a partial sum over the batch's mesh dims.
+    ``fn`` returns a tuple of tensors, batch first, which come back as
+    DTensors split as the rows are. Plain tensors: ``fn(*rows, *whole)``."""
+    if not is_dtensor(rows[0]):
+        return fn(*rows, *whole)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = rows[0].device_mesh
+    want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in rows[0].placements)
+    rep = (Replicate(),) * len(want)
+    grad = [Partial() if isinstance(p, Shard) else p for p in want]
+    out = fn(*[local(pin(t, want).contiguous()) for t in rows],
+             *[local(pin(t, rep), grad) for t in whole])
+    B = rows[0].shape[0]
+
+    def back(t):
+        shape = torch.Size((B,) + tuple(t.shape[1:]))
+        return DTensor.from_local(t.contiguous(), mesh, want, shape=shape,
+                                  stride=contiguous_stride(shape))
+    return tuple(back(t) for t in out)
+
+
+def local_channels(fn, x, *weights):
+    """``fn(x, *weights)`` of a [B, S, C] tensor and per-channel weights
+    (their last dim C) run on each rank's shard where ``x`` is a DTensor:
+    ``x`` pinned with its sequence whole and its rows and channels split
+    as they were, each weight split over its channels as ``x`` is (a
+    weight's gradient a partial sum over the mesh dims that split the
+    rows), and ``fn`` on the local shards as plain tensors; the output
+    comes back split as ``x``. A depthwise causal conv's shifted slices so
+    cost no DTensor dispatch (torch 2.11's DTensor cannot pad a tensor
+    split over both mesh dims). Plain tensors: ``fn(x, *weights)``."""
+    if not is_dtensor(x):
+        return fn(x, *weights)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    last = x.ndim - 1
+    want = tuple(p if isinstance(p, Shard) and p.dim in (0, last)
+                 else Replicate() for p in x.placements)
+    x = pin(x, want)
+
+    def split(t):
+        pl = tuple(Shard(t.ndim - 1) if isinstance(p, Shard) and p.dim == last
+                   else Replicate() for p in want)
+        grad = [Partial() if isinstance(p, Shard) and p.dim == 0 else q
+                for p, q in zip(want, pl)]
+        return local(pin(t, pl), grad)
+    out = fn(local(x.contiguous()), *[split(t) for t in weights])
+    shape = torch.Size((x.shape[0],) + tuple(out.shape[1:-1])
+                       + (x.shape[-1],))
+    return DTensor.from_local(out.contiguous(), x.device_mesh, want,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
 def heads_whole(q):
     """``q`` [B, S, H, hd] with its head dim gathered (``Replicate`` where
     it was sharded): decode's one-token query meets a cache sharded over
@@ -815,3 +953,35 @@ def gather_fsdp(t):
     if want == list(t.placements):
         return t
     return t.redistribute(t.device_mesh, want)
+
+
+def _log_sigmoid_rules():
+    """DTensor sharding rules for ``F.logsigmoid``'s two ops, which
+    DTensor has none for (its backward): pointwise, so each keeps its
+    input's placements, replicated or split on any dim. The forward's
+    second output is the CPU kernel's buffer (``exp(-|x|)``, laid out as
+    the input) or, on CUDA, an empty tensor, which stays replicated. Each
+    rank runs the op on its shard, so every element is the one-device
+    op's, bitwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+
+    def pointwise(x):
+        return [Replicate()] + [Shard(d) for d in range(len(x.shape))]
+
+    def alike(buf, p):
+        return p if len(buf.shape) and buf.shape[0] else Replicate()
+
+    @register_sharding(aten.log_sigmoid_forward.default)
+    def _(x):
+        cuda = x.mesh.device_type == "cuda"
+        return [([p, Replicate() if cuda else p], [p]) for p in pointwise(x)]
+
+    @register_sharding(aten.log_sigmoid_backward.default)
+    def _(grad, x, buf):
+        return [([p], [p, p, alike(buf, p)]) for p in pointwise(x)]
+
+
+if torch.distributed.is_available():
+    _log_sigmoid_rules()

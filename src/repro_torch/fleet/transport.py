@@ -667,7 +667,8 @@ class CoordinatorServer:
 
     def __init__(self, url: str, *, coordinator: FleetCoordinator,
                  registry_tier=None, resume_timeout_s: float = 5.0,
-                 epoch: int = 1, handshake_timeout_s: float = 5.0):
+                 epoch: int = 1, handshake_timeout_s: float = 5.0,
+                 serve: bool = True):
         self.coordinator = coordinator
         self.registry = coordinator.registry
         self.registry_tier = storage.as_tier(registry_tier) \
@@ -682,6 +683,11 @@ class CoordinatorServer:
         self._lock = threading.Lock()
         self._journal_lock = threading.Lock()
         self._closing = threading.Event()
+        # connections wait in the listen backlog until this is set:
+        # ``serve=False`` defers it to ``open()``
+        self._serving = threading.Event()
+        if serve:
+            self._serving.set()
         self._listener = _listen(url)
         scheme, _addr = parse_url(url)
         if scheme == "tcp":
@@ -692,6 +698,14 @@ class CoordinatorServer:
         self._accept_thread = threading.Thread(
             target=self._accept_loop, daemon=True, name="coord-accept")
         self._accept_thread.start()
+
+    def open(self):
+        """Start accepting workers (a server made with ``serve=False``).
+        coordinator_serve opens once every journaled job has its
+        transport: a worker that redials a restarted coordinator while
+        the journal loads waits in the backlog, where it would otherwise
+        be refused as an unknown job and fail for good."""
+        self._serving.set()
 
     # ---------------------------------------------------------- transports
     def attach(self, job_id: str, config_wire: dict, *, host: str = "",
@@ -787,6 +801,8 @@ class CoordinatorServer:
     def _accept_loop(self):
         self._listener.settimeout(0.25)
         while not self._closing.is_set():
+            if not self._serving.wait(0.25):
+                continue
             try:
                 sock, _peer = self._listener.accept()
             except socket.timeout:
@@ -986,10 +1002,12 @@ def coordinator_serve(url: str, *, registry_tier=None, clock=None,
         dump_concurrency=dump_concurrency, policy=policy)
     server = CoordinatorServer(url, coordinator=coordinator,
                                registry_tier=tier, epoch=epoch,
-                               resume_timeout_s=resume_timeout_s)
+                               resume_timeout_s=resume_timeout_s,
+                               serve=False)
     coordinator.spawner = server.reuse_spawner if spawner == "reuse" \
         else spawner
     server._ensure_transports()
     registry.on_change = server.journal
     server.journal()        # the new epoch is durable before any HELLO
+    server.open()
     return server

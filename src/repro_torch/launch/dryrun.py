@@ -309,8 +309,10 @@ def local_bytes(t) -> int:
 
 
 # Baseline microbatch counts for train cells, the JAX package's (chosen
-# there for its per-device temp memory). measure_totals traces a
-# one-microbatch step, as the JAX package's does.
+# there for its per-device temp memory). measure_totals traces the step
+# at the cell's microbatches, where the JAX package's traces one: DTensor
+# plans each op for the rows it is given, so a microbatch's rows may split
+# otherwise than the whole batch's would.
 DEFAULT_TRAIN_MICROBATCHES = {
     "deepseek-67b": 16, "mistral-large-123b": 16, "qwen2-vl-72b": 16,
     "dbrx-132b": 16,
@@ -326,11 +328,14 @@ def default_microbatches(arch: str, shape_name: str) -> int:
 
 
 # ------------------------------------------------- loop-aware FLOP totals
-def _slstm_correction(cfg, shape, n_devices: int) -> dict:
+def _slstm_correction(cfg, shape, n_shards: int) -> dict:
     """The sLSTM token loop traces one step under ``flags.slstm_one_step``;
     the other S - 1 steps' recurrent work and state I/O are added
-    analytically (global, divided by device count), as the JAX package
-    does."""
+    analytically, as the JAX package does: global, divided by
+    ``n_shards``, the ways the local program splits it. The JAX package
+    divides by the device count; the port's scan runs each rank's batch
+    rows with the heads whole (``sharding.local_rows``), so its share is
+    the global work over the batch's row shards."""
     n_slstm = (cfg.num_layers // len(cfg.pattern)) * cfg.pattern.count("slstm")
     if n_slstm == 0 or shape.kind == "decode":
         return {"flops": 0.0, "flops_global": 0, "bytes": 0.0,
@@ -350,27 +355,30 @@ def _slstm_correction(cfg, shape, n_devices: int) -> dict:
     # the JAX package's state I/O per step (weights assumed resident)
     step_bytes = B * di * 4 * 6
     nbytes = step_bytes * (S - 1) * n_slstm * grad_mult
-    return {"flops": flops / n_devices, "flops_global": flops,
-            "bytes": nbytes / n_devices, "bytes_global": nbytes}
+    return {"flops": flops / n_shards, "flops_global": flops,
+            "bytes": nbytes / n_shards, "bytes_global": nbytes}
 
 
 _COLL = {"coll_operand": "operand_bytes", "coll_modeled":
          "modeled_traffic_bytes", "coll_count": "count"}
 
 
-def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
+def measure_totals(arch: str, shape, mesh: shd.Mesh, microbatches: int = 1,
+                   **opt_kw) -> dict:
     """Per-device totals by the JAX package's method: trace two
     reduced-depth variants (L1 = pattern+tail, L2 = 2*pattern+tail) of
     rank 0's program (``per_device``: on a mesh of several devices, under
-    a fake group of its size) and extrapolate linearly in the group
+    a fake group of its size), each the whole step at the cell's
+    ``microbatches`` (its rows per microbatch, so DTensor splits them as
+    the cell's step does), and extrapolate linearly in the group
     count: total = f(L1) + (f(L2) - f(L1)) * (G - 1), for the FLOPs, the
     bytes accessed and the collectives' count, operand bytes and modeled
     traffic (``coll_count``, ``coll_operand``, ``coll_modeled``, as the
     JAX package names them). The port's Python loops count every
     iteration, so for a model without sLSTM this equals the full-depth
     count exactly; the sLSTM loop counts one step and
-    ``_slstm_correction`` adds the rest, divided evenly over the mesh as
-    the JAX package does. ``step_flops`` and ``step_bytes`` are the
+    ``_slstm_correction`` adds the rest, divided over the batch's row
+    shards (the JAX package divides by the device count). ``step_flops`` and ``step_bytes`` are the
     per-device figures times the device count (one device: the step's).
     The guard skips the cells the JAX package skips.
     ``other_output_bytes`` is the L1 step's local outputs outside its
@@ -396,8 +404,8 @@ def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
     meas, other = {}, 0
     with per_device(mesh) as m:
         for name, L in (("L1", P + tail), ("L2", 2 * P + tail)):
-            cell = lower_cell(arch, shape, m, microbatches=1, num_layers=L,
-                              **opt_kw)
+            cell = lower_cell(arch, shape, m, microbatches=microbatches,
+                              num_layers=L, **opt_kw)
             t0 = time.time()
             with mflags.slstm_one_step():
                 out, cost = trace_cost(cell.step)
@@ -408,7 +416,9 @@ def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
             meas[name] = {"flops": cost["flops"], "bytes": cost["bytes"],
                           **{k: tot[f] for k, f in _COLL.items()},
                           "trace_s": round(time.time() - t0, 3)}
-    corr = _slstm_correction(cfg, shape, n_dev)
+    rows = shd.data_size(mesh) if n_dev > 1 and shd.batch_axes(
+        mesh, shape.global_batch) else 1
+    corr = _slstm_correction(cfg, shape, rows)
     out = {k: meas["L1"][k] + (meas["L2"][k] - meas["L1"][k]) * (G - 1)
            for k in ("flops", "bytes", *_COLL)}
     out["flops"] += corr["flops"]
@@ -425,7 +435,10 @@ def measure_totals(arch: str, shape, mesh: shd.Mesh, **opt_kw) -> dict:
                    + (f", rank 0's program of {n_dev} under a fake group"
                       if n_dev > 1 else "")
                    + f", linear extrapolation L1={P + tail} "
-                   f"L2={2 * P + tail} G={G}; FLOPs of matmul-class ops "
+                   f"L2={2 * P + tail} G={G}"
+                   + (f", {microbatches} microbatches"
+                      if shape.kind == "train" else "")
+                   + "; FLOPs of matmul-class ops "
                    "only"
                    + ("; sLSTM loop traced one step, the other S-1 added "
                       "analytically" if corr["flops_global"] else "")),
@@ -553,7 +566,8 @@ def run_cell(arch: str, shape, *, multi_pod=False, mesh=None, fsdp=True,
         if measure:
             try:
                 rec["totals_per_device"] = measure_totals(
-                    arch, shape, mesh, **opt_kw)
+                    arch, shape, mesh, microbatches=cell.microbatches,
+                    **opt_kw)
             except Exception as e:
                 rec["totals_per_device"] = {"error": _reason(e)}
         try:

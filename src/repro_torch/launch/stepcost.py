@@ -12,6 +12,14 @@ Bytes accessed (``bytes_accessed``), per op:
 - a view or metadata op (``func.is_view``: view, slice, select,
   transpose, expand, unbind, ``detach``, ...) counts 0, and so does
   ``_unsafe_view``, a reshape's view that its schema does not mark;
+- ``_c10d_functional._wrap_tensor_autograd`` hands a collective's output
+  to autograd: on a device a wrapper over the same storage, on ``meta``
+  a new storage from its fake. It is counted as the device holds it:
+  bytes as any op's, the new storage as the input's, which stays live as
+  long as either does (scripts/torch_gather_peak_card.py: on the H100 a
+  12.9 MB gather along dim 1, its concatenation and one use hold 25.76
+  MB, the card's peak and this count on meta; the fake's own storage
+  made a third copy);
   shape queries never reach the dispatcher; ``empty``, ``empty_like``
   and ``empty_strided`` only allocate, and count 0;
 - any other op counts the bytes of its tensor inputs, each read once,
@@ -78,6 +86,9 @@ _funcol = torch.ops._c10d_functional
 
 _NO_DATA = {aten.empty, aten.empty_like, aten.empty_strided,
             aten._unsafe_view, _funcol.wait_tensor}
+# hands a collective's output to autograd: on a device the same storage
+# (a wrapper), on meta a new one from its fake
+_WRAP = "_c10d_functional::_wrap_tensor_autograd"
 # collective -> (kind, position of its group-size argument or None)
 _COLLECTIVES = {
     _funcol.all_gather_into_tensor: ("all-gather", 1),
@@ -182,6 +193,9 @@ class StepCost(TorchDispatchMode):
         self.bytes_accessed += read + written
         inputs = {id(t.untyped_storage()) for t in ins}
         inputs |= {id(t.untyped_storage()) for t in _tensors(kwargs)}
+        if func._schema.name == _WRAP:
+            self._alias(ins[0].untyped_storage(), outs[0].untyped_storage())
+            return out
         peak = self.peak
         for t in outs:
             st = t.untyped_storage()
@@ -218,6 +232,12 @@ class StepCost(TorchDispatchMode):
             self._held = None
             if key in self._own:
                 self.peak = max(self.peak, peak)
+
+    def _alias(self, src, st):
+        """``st`` holds ``src``'s bytes (a wrapper on a device): ``src``
+        stays live while ``st`` does, and ``st`` counts nothing."""
+        if st is not src:
+            weakref.finalize(st, lambda keep=src: None)
 
     def _allocate(self, st):
         key, n = id(st), st.nbytes()

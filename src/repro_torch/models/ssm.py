@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import flags
 from repro_torch.models import params as pm
 from repro_torch.models.layers import rms_norm
@@ -45,7 +46,12 @@ def _f32(x):
 
 # ---------------------------------------------------------------- causal conv
 def causal_conv(x, w, b):
-    """Depthwise causal conv along seq. x [B,S,C], w [K,C], b [C]."""
+    """Depthwise causal conv along seq. x [B,S,C], w [K,C], b [C]; on a
+    mesh on each rank's rows and channels (``sharding.local_channels``)."""
+    return shd.local_channels(_causal_conv, x, w, b)
+
+
+def _causal_conv(x, w, b):
     K = w.shape[0]
     xp = F.pad(x, (0, 0, K - 1, 0))
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
@@ -261,10 +267,10 @@ def _mlstm_qkvgates(p, x, cfg: ModelConfig):
     xin = x @ p["w_xin"].to(dt_)
     z = x @ p["w_z"].to(dt_)
     xc = F.silu(causal_conv(xin, p["conv_x"].to(dt_), p["b_conv_x"].to(dt_)))
-    B, S = x.shape[0], x.shape[1]
-    q = (xc @ p["w_q"].to(dt_)).reshape(B, S, H, dh)
-    k = (xc @ p["w_k"].to(dt_)).reshape(B, S, H, dh) * (dh ** -0.5)
-    v = (xin @ p["w_v"].to(dt_)).reshape(B, S, H, dh)
+    # q, k, v stay [B, S, d_inner]: their heads are split in the scan
+    q = xc @ p["w_q"].to(dt_)
+    k = (xc @ p["w_k"].to(dt_)) * (dh ** -0.5)
+    v = xin @ p["w_v"].to(dt_)
     logi = _f32(xc @ p["w_i"].to(dt_)) + p["b_i"]
     logf = F.logsigmoid(_f32(xc @ p["w_f"].to(dt_)) + p["b_f"] + _F_BIAS)
     return q, k, v, logi, logf, z, xin
@@ -280,11 +286,26 @@ def _mlstm_out(p, h, z, cfg: ModelConfig):
 
 def mlstm_apply(p, x, cfg: ModelConfig, chunk: int = 128,
                 return_state: bool = False):
-    """Chunked-parallel mLSTM. x [B,S,d] -> [B,S,d]."""
-    B, S, d = x.shape
-    H = cfg.num_heads
-    dh = cfg.d_inner // H
+    """Chunked-parallel mLSTM. x [B,S,d] -> [B,S,d]. On a mesh the
+    chunked scan runs on each rank's rows with its heads whole
+    (``sharding.local_rows``)."""
     q, k, v, logi, logf, z, xin_raw = _mlstm_qkvgates(p, x, cfg)
+    h, C, n, m = shd.local_rows(
+        lambda *a: _mlstm_scan(*a, cfg.num_heads, chunk),
+        (q, k, v, logi, logf))
+    out = _mlstm_out(p, h, z, cfg)
+    if return_state:
+        return out, {"C": C, "n": n, "m": m,
+                     "conv_x": _tail(xin_raw, cfg.ssm_conv)}
+    return out
+
+
+def _mlstm_scan(q, k, v, logi, logf, H: int, chunk: int):
+    """The chunked scan on plain tensors: q, k, v [B,S,di], the gates
+    [B,S,H] -> (h [B,S,di] in q's dtype, the final C, n, m)."""
+    B, S, di = q.shape
+    dh = di // H
+    dev = q.device
     Q = _chunks(S, chunk)
     nc = S // Q
     qc = q.reshape(B, nc, Q, H, dh)
@@ -299,15 +320,15 @@ def mlstm_apply(p, x, cfg: ModelConfig, chunk: int = 128,
     seg = F_cs[:, :, :, None, :] - F_cs[:, :, None, :, :] + \
         li[:, :, None, :, :]                                   # [B,nc,i,j,H]
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                 device=x.device))[None, None, :, :, None]
+                                 device=dev))[None, None, :, :, None]
     seg = torch.where(tril, seg, torch.full((), -torch.inf, dtype=_F32,
-                                            device=x.device))
+                                            device=dev))
     # to-chunk-end decays (for state update)
     dend = F_tot[:, :, None, :] - F_cs + li                    # [B,nc,j,H]
 
-    C = torch.zeros((B, H, dh, dh), dtype=_F32, device=x.device)
-    n = torch.zeros((B, H, dh), dtype=_F32, device=x.device)
-    m = torch.full((B, H), _M0, dtype=_F32, device=x.device)
+    C = torch.zeros((B, H, dh, dh), dtype=_F32, device=dev)
+    n = torch.zeros((B, H, dh), dtype=_F32, device=dev)
+    m = torch.full((B, H), _M0, dtype=_F32, device=dev)
     hs = []
     for c in range(nc):
         qx, kx, vx = qc[:, c], kc[:, c], vc[:, c]
@@ -334,12 +355,8 @@ def mlstm_apply(p, x, cfg: ModelConfig, chunk: int = 128,
             "bjhd,bjhe->bhde", kw, _f32(vx))
         n = scale[..., None] * n + kw.sum(dim=1)
         m = m_end
-    h = torch.stack(hs, dim=1).reshape(B, S, H, dh).to(x.dtype)
-    out = _mlstm_out(p, h, z, cfg)
-    if return_state:
-        return out, {"C": C, "n": n, "m": m,
-                     "conv_x": _tail(xin_raw, cfg.ssm_conv)}
-    return out
+    h = torch.stack(hs, dim=1).reshape(B, S, di).to(q.dtype)
+    return h, C, n, m
 
 
 def mlstm_apply_with_state(p, x, cfg: ModelConfig, chunk: int = 128):
@@ -366,7 +383,6 @@ def mlstm_state_axes(cfg: ModelConfig):
 
 def mlstm_step(p, x1, state, cfg: ModelConfig):
     """x1 [B,d] -> (y1 [B,d], state)."""
-    B = x1.shape[0]
     H = cfg.num_heads
     dh = cfg.d_inner // H
     dt_ = x1.dtype
@@ -375,12 +391,24 @@ def mlstm_step(p, x1, state, cfg: ModelConfig):
     xc1, conv_x = conv_step(state["conv_x"], xin, p["conv_x"].to(dt_),
                             p["b_conv_x"].to(dt_))
     xc1 = F.silu(xc1)
-    q = _f32((xc1 @ p["w_q"].to(dt_)).reshape(B, H, dh))
-    k = _f32((xc1 @ p["w_k"].to(dt_)).reshape(B, H, dh) * (dh ** -0.5))
-    v = _f32((xin @ p["w_v"].to(dt_)).reshape(B, H, dh))
+    q = _f32(xc1 @ p["w_q"].to(dt_))
+    k = _f32((xc1 @ p["w_k"].to(dt_)) * (dh ** -0.5))
+    v = _f32(xin @ p["w_v"].to(dt_))
     logi = _f32(xc1 @ p["w_i"].to(dt_)) + p["b_i"]
     logf = F.logsigmoid(_f32(xc1 @ p["w_f"].to(dt_)) + p["b_f"] + _F_BIAS)
-    C, n, m = state["C"], state["n"], state["m"]
+    h, C, n, m = shd.local_rows(
+        lambda *a: _mlstm_cell(*a, H, dt_),
+        (q, k, v, logi, logf, state["C"], state["n"], state["m"]))
+    out = _mlstm_out(p, h, z[:, None], cfg)[:, 0]
+    return out, {"C": C, "n": n, "m": m, "conv_x": conv_x}
+
+
+def _mlstm_cell(q, k, v, logi, logf, C, n, m, H: int, dt_):
+    """One decode step's recurrence on plain tensors: q, k, v [B,di] fp32,
+    the gates [B,H], the state -> (h [B,1,di] in ``dt_``, C, n, m)."""
+    B, di = q.shape
+    dh = di // H
+    q, k, v = (t.reshape(B, H, dh) for t in (q, k, v))
     m_new = torch.maximum(logf + m, logi)                      # [B,H]
     wf = torch.exp(logf + m - m_new)
     wi = torch.exp(logi - m_new)
@@ -390,9 +418,8 @@ def mlstm_step(p, x1, state, cfg: ModelConfig):
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.einsum("bhd,bhd->bh", q, n)
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
-    h = h[:, None].reshape(B, 1, H, dh).to(dt_)
-    out = _mlstm_out(p, h, z[:, None], cfg)[:, 0]
-    return out, {"C": C, "n": n, "m": m_new, "conv_x": conv_x}
+    h = h[:, None].reshape(B, 1, di).to(dt_)
+    return h, C, n, m_new
 
 
 def mlstm_ref(p, x, cfg: ModelConfig):
@@ -429,17 +456,42 @@ def slstm_state_axes(cfg: ModelConfig):
     return {k: ("batch", "inner") for k in ("c", "n", "m", "h")}
 
 
+_GATES = ("z", "i", "f", "o")
+_STATE = ("c", "n", "m", "h")
+
+
 def _slstm_cell(p, gates_x, state, cfg: ModelConfig):
-    """gates_x: precomputed input contributions [B, 4, di] (z,i,f,o)."""
-    H = cfg.num_heads
-    dh = cfg.d_inner // H
-    B = gates_x.shape[0]
+    """gates_x: precomputed input contributions [B, 4, di] (z,i,f,o). On
+    a mesh the cell runs on each rank's rows with its heads whole
+    (``sharding.local_rows``)."""
+    def cell(gx, *a):
+        new = _slstm_step(dict(zip(_GATES, a[4:])), gx,
+                          dict(zip(_STATE, a[:4])), cfg.num_heads)
+        return tuple(new[k] for k in _STATE)
+    return dict(zip(_STATE, shd.local_rows(
+        cell, (gates_x, *(state[k] for k in _STATE)),
+        tuple(p[f"r_{g}"] for g in _GATES))))
+
+
+def _slstm_steps(gx, state, r, H: int, steps: int):
+    """``steps`` cell steps on plain tensors from ``state`` over gx
+    [B,S,4,di] -> (h [B,steps,di] fp32, the final c, n, m, h)."""
+    hs = []
+    for t in range(steps):
+        state = _slstm_step(r, gx[:, t], state, H)
+        hs.append(state["h"])
+    return (torch.stack(hs, dim=1), *(state[k] for k in _STATE))
+
+
+def _slstm_step(r, gates_x, state, H: int):
+    """One cell step on plain tensors; ``r`` {gate: [H, dh, dh]}."""
+    B, _, di = gates_x.shape
+    dh = di // H
     c, n, m, h = state["c"], state["n"], state["m"], state["h"]
     hh = h.reshape(B, H, dh)
 
     def rec(g):
-        return torch.einsum("bhd,hde->bhe", hh,
-                            _f32(p[f"r_{g}"])).reshape(B, -1)
+        return torch.einsum("bhd,hde->bhe", hh, _f32(r[g])).reshape(B, -1)
 
     zt = torch.tanh(gates_x[:, 0] + rec("z"))
     it = gates_x[:, 1] + rec("i")
@@ -465,18 +517,22 @@ def _slstm_gates_x(p, x):
 def slstm_apply(p, x, cfg: ModelConfig, chunk: int = 0,
                 return_state: bool = False):
     """Sequential scan over time (sLSTM is inherently recurrent): a Python
-    loop of S cell steps. On the meta device under
+    loop of S cell steps, on a mesh on each rank's rows with its heads
+    whole (``sharding.local_rows``). On the meta device under
     ``flags.slstm_one_step`` the loop traces one step, repeated S times
     (the dry run's FLOP count, models/flags.py)."""
     B, S = x.shape[:2]
     gx = _slstm_gates_x(p, x)
-    state = slstm_init_state(cfg, B, x.dtype, x.device)
     steps = 1 if flags.SLSTM_ONE_STEP and x.device.type == "meta" else S
-    hs = []
-    for t in range(steps):
-        state = _slstm_cell(p, gx[:, t], state, cfg)
-        hs.append(state["h"])
-    h = torch.stack(hs, dim=1).to(x.dtype)                     # [B,S,di]
+
+    def scan(gx, *r):
+        init = slstm_init_state(cfg, gx.shape[0], x.dtype, gx.device)
+        return _slstm_steps(gx, init, dict(zip(_GATES, r)), cfg.num_heads,
+                            steps)
+    h, *last = shd.local_rows(scan, (gx,), tuple(p[f"r_{g}"]
+                                                 for g in _GATES))
+    state = dict(zip(_STATE, last))
+    h = h.to(x.dtype)                                          # [B,S,di]
     if steps != S:
         h = h.expand(B, S, h.shape[-1])
     h = rms_norm(h, p["mh_norm"], cfg.norm_eps)

@@ -24,6 +24,12 @@ would on a card of the mesh.
       weights of a tiny cell on (16, 16); under ``--act-seq-shard`` the
       residual stream at the group boundaries is [B/data, S/model, d] on
       each rank. The change in temp is printed.
+  (x) xlstm-tiny (2 heads over 4 model ranks, as xlstm-350m's 4 over 16)
+      on (2, 4): its train and decode records are non-null, with temp,
+      FLOPs, bytes and collectives (each named the op DTensor could not
+      shard before the sLSTM/mLSTM head split and the log-sigmoid rule),
+      the train record's totals its whole-step trace, and its collectives
+      within 0.5-2x of JAX's record of the same cell.
   (g) on meta, K6's sharding rule runs the op on each rank's batch rows
       and query heads (4 over 4 ranks, 2 KV heads taken by offset) and
       counts K6's FLOP formula on the local shapes
@@ -71,6 +77,28 @@ _JAX_SIDE = textwrap.dedent("""
 """)
 
 
+XL_CELLS = {"train": ShapeConfig("train_4k", "train", 32, 8),
+            "decode": ShapeConfig("decode_32k", "decode", 256, 2)}
+
+_JAX_XLSTM = textwrap.dedent("""
+    import json
+    import repro.launch.dryrun as dr        # forces 512 host devices
+    from repro import configs
+    from repro.configs.base import SHAPES, ShapeConfig
+    from repro.launch.mesh import make_test_mesh
+    SHAPES["train_4k"] = ShapeConfig("train_4k", "train", 32, 8)
+    SHAPES["decode_32k"] = ShapeConfig("decode_32k", "decode", 256, 2)
+    configs.get_config = configs.get_tiny
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    out = {}
+    for kind, shape in (("train", "train_4k"), ("decode", "decode_32k")):
+        tot = dr.measure_totals("xlstm-350m", shape, mesh)
+        out[kind] = {k: tot[k] for k in ("coll_count", "coll_operand",
+                                         "coll_modeled")}
+    print(json.dumps(out))
+""")
+
+
 def _subprocess_env():
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -98,6 +126,42 @@ def jax_small():
     if proc.poll() is None:
         proc.kill()
         proc.wait()
+
+
+@pytest.fixture(scope="module")
+def jax_xlstm():
+    """JAX's (x) cells' collectives, started first and read when needed."""
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_XLSTM],
+                            env=_subprocess_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    got = {}
+
+    def read():
+        if not got:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-4000:]
+            got.update(json.loads(out.strip().splitlines()[-1]))
+        return got
+    yield read
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def xlstm_records(jax_xlstm):
+    """(x): the port's xlstm-tiny records on (2, 4) under a fake group of
+    8, one microbatch as JAX's totals trace one."""
+    real = configs.get_config
+    configs.get_config = configs.get_tiny
+    try:
+        with fake_group(8):
+            mesh = make_test_mesh((2, 4), device="meta")
+            return {kind: dryrun.run_cell("xlstm-350m", shape, mesh=mesh,
+                                          verbose=False)
+                    for kind, shape in XL_CELLS.items()}
+    finally:
+        configs.get_config = real
 
 
 @pytest.fixture(scope="module")
@@ -232,6 +296,80 @@ def test_small_mesh_collectives_near_jax(small_record, jax_small):
         print(f"(d) {k}: JAX {want[k]:.4e} port {tot[k]:.4e} "
               f"ratio {ratio:.3f}")
         assert 0.5 <= ratio <= 2.0, k
+
+
+def test_totals_trace_the_cells_microbatch_rows(monkeypatch):
+    """The L1/L2 traces run the cell's microbatches: zamba2 tiny (4 SSM
+    heads) on (2, 4), batch 8 in 2 microbatches. A rank's 4 rows of the
+    whole batch would split over ``model`` (4) and a microbatch's 2
+    cannot, so a one-microbatch trace counts another program (9.0604e7
+    FLOPs here against the step's 9.8714e7); at the cell's rows the
+    extrapolated total is the whole step's trace."""
+    monkeypatch.setattr(configs, "get_config",
+                        lambda a: configs.get_tiny(a).replace(ssm_heads=4))
+    with fake_group(8):
+        rec = dryrun.run_cell("zamba2-1.2b", ShapeConfig(
+            "tiny_train", "train", 32, 8), mesh=make_test_mesh(
+            (2, 4), device="meta"), microbatches=2, verbose=False)
+    tot, cost = rec["totals_per_device"], rec["cost_analysis_per_device"]
+    assert tot["flops"] == cost["flops"] > 0
+    assert tot["bytes"] == cost["bytes accessed"]
+    assert "2 microbatches" in tot["method"]
+
+
+# ------------------------------------------------------------------ (x)
+@pytest.mark.parametrize("kind", sorted(XL_CELLS))
+def test_xlstm_small_mesh_records_are_non_null(xlstm_records, kind):
+    rec = xlstm_records[kind]
+    mem = rec["memory_analysis_per_device"]
+    cost = rec["cost_analysis_per_device"]
+    tot = rec["totals_per_device"]
+    assert "error" not in tot, tot.get("error")
+    assert mem["temp_size_in_bytes"] > 0, mem.get("null_reason")
+    assert cost["flops"] > 0 and cost["bytes accessed"] > 0
+    assert rec["collectives_per_device"]["total"]["count"] > 0
+    if kind == "train":
+        # the sLSTM loop's other S - 1 steps, added over the row shards
+        assert tot["slstm_correction"]["flops"] > 0
+        assert tot["flops"] == cost["flops"]
+
+
+@pytest.mark.parametrize("kind", sorted(XL_CELLS))
+def test_xlstm_small_mesh_collectives_near_jax(xlstm_records, jax_xlstm,
+                                               kind):
+    """JAX's measured collectives of the same xlstm cell within 0.5-2x of
+    the port's, as (d) holds qwen3-8b's."""
+    tot, want = xlstm_records[kind]["totals_per_device"], jax_xlstm()[kind]
+    for k in ("coll_count", "coll_operand", "coll_modeled"):
+        ratio = want[k] / tot[k]
+        print(f"(x) {kind} {k}: JAX {want[k]:.4e} port {tot[k]:.4e} "
+              f"ratio {ratio:.3f}")
+        assert 0.5 <= ratio <= 2.0, k
+
+
+@pytest.mark.parametrize("spec", [("model", "data"), ("data", "model")],
+                         ids=["dim1", "dim0"])
+def test_gather_peak_on_meta_is_the_devices(spec):
+    """A weight's FSDP gather over ``data`` (along dim 1, then a
+    concatenation, or along dim 0) and one use of it: StepCost's peak on
+    meta equals its peak on CPU tensors, where the collective's autograd
+    wrapper holds the gathered storage itself (on the H100 the card's
+    peak agrees, PERF.md). Counting the fake's new storage put a third
+    copy in the dim-1 peak, as xlstm-350m's long_500k record had over the
+    card's."""
+    peaks = {}
+    with fake_group(8):
+        for dev in ("meta", "cpu"):
+            mesh = make_test_mesh((2, 4), device=dev)
+            t = shd.distribute(torch.zeros(64, 32, device=dev),
+                               shd.NamedSharding(mesh,
+                                                 shd.PartitionSpec(*spec)))
+
+            def use():
+                return shd.gather_fsdp(t).to_local() * 1.0
+            peaks[dev] = dryrun.trace_cost(use)[1]["temp"]
+    # the gathered weight (its model quarter, whole over data) and its use
+    assert peaks["meta"] == peaks["cpu"] == 2 * (64 * 32 // 4) * 4, peaks
 
 
 # ------------------------------------------------------------------ (e)

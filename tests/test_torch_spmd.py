@@ -23,9 +23,17 @@ port through ``params.from_jax``.
       within ``BF16_LOSS`` of (a)'s loss.
   (c) granite-moe tiny placed on (4, 2) and dumped from its DTensors:
       the image's chunks and manifest leaves equal an unsharded dump of
-      the same values; restored onto (2, 4) and (8, 1), every local shard
+      the same values; during that dump no rank holds more than one
+      full-size tensor of a split leaf at a time and ranks other than 0
+      hold none (``_FullLeaves`` watches every op of the local program);
+      restored onto (2, 4) and (8, 1), every local shard
       is bitwise its slice; an image the JAX package dumped on its (4, 2)
       mesh restores onto the port's (2, 4) bitwise.
+  (x) xlstm-tiny (2 heads, d_inner 128) on (2, 4), where 2 heads meet 4
+      model ranks: ``F.logsigmoid``'s sharding rule and the local head
+      split (``sharding.local_rows``) give bitwise the one-device ops,
+      forward and gradient; the fp32 train step, prefill and a decode step
+      equal one device's within ``STEP_ATOL``.
   (g) K6's op on DTensors with 4 query heads split 4 ways and 2 KV heads
       (not divisible): equal to the op on the full tensors; a tiny
       qwen3-8b prefill (H 4, KV 2) on (2, 4) gives the one-device logits
@@ -299,6 +307,32 @@ def test_dump_from_dtensors_equals_unsharded_dump(restore_runs):
     assert r["leaves_sharded"] == r["leaves_plain"]
 
 
+def test_sharded_delta8_chain_equals_unsharded_chain(restore_runs):
+    """(c) a delta8 chain's second image, its moments encoded on the
+    device stage against the baseline rank 0 copied as the first sharded
+    dump passed, equals the unsharded chain's: chunks, manifest leaves
+    and stats."""
+    (c_s, l_s, st_s), (c_p, l_p, st_p) = restore_runs["delta"]
+    assert c_s == c_p and l_s == l_p
+    assert st_s == st_p and st_s["leaves_device"] > 0
+    assert any(leaf["codec"] == "delta8" and
+               leaf["codec_meta"].get("applied") for leaf in l_s)
+
+
+def test_sharded_dump_holds_one_gathered_leaf_on_rank_0(restore_runs):
+    """(c) the sharded dump streams its leaves to rank 0 one at a time:
+    rank 0 never holds two full-size tensors of split leaves at once, and
+    no other rank ever holds one. Uneven shards (7 x 5 x 3 on (4, 2))
+    lie where DTensor lays them and gather back whole."""
+    peaks = restore_runs["full_leaves_peak"]
+    n_split = restore_runs["split_leaves"]
+    print(f"full-size split leaves live at once, by rank: {peaks} "
+          f"({n_split} split leaves)")
+    assert n_split > 1
+    assert peaks[0] == 1 and peaks[1:] == [0] * (WORLD - 1)
+    assert restore_runs["uneven_bad"] == 0
+
+
 @pytest.mark.parametrize("shape", ["2x4", "8x1"])
 def test_cross_mesh_restore_preserves_values(restore_runs, shape):
     """(c) the (4, 2) image restored onto another mesh: every rank's
@@ -312,6 +346,50 @@ def test_jax_image_restores_onto_port_mesh(restore_runs):
     """(c) the JAX package's (4, 2) image onto the port's (2, 4)."""
     n_leaves, n_equal, n_sharded = restore_runs["jax_2x4"]
     assert n_leaves == n_equal > 0 and n_sharded > 0
+
+
+# ------------------------------------------------------------------ (x)
+@pytest.fixture(scope="module")
+def xlstm_runs(work):
+    return run_ranks("xlstm", work[0])
+
+
+def test_log_sigmoid_rule_is_bitwise_the_one_device_op(xlstm_runs):
+    """``F.logsigmoid`` on a DTensor split over (data, model), through the
+    port's rule for its forward and backward ops: the values and the
+    gradient are the one-device op's, bitwise."""
+    assert xlstm_runs["logsig"] == [True, True]
+
+
+@pytest.mark.parametrize("scan", ["mlstm", "slstm"])
+def test_local_head_split_is_bitwise_the_one_device_scan(xlstm_runs, scan):
+    """The chunked mLSTM scan and the sLSTM steps through ``local_rows``
+    (2 heads whole on each rank's rows): every output, and the sLSTM
+    inputs' gradient, bitwise the one-device call's; its recurrent
+    weights' gradient, a sum over rows the two data shards add in another
+    order, within STEP_ATOL."""
+    assert xlstm_runs[scan] and all(xlstm_runs[scan]), xlstm_runs[scan]
+    if scan == "slstm":
+        assert xlstm_runs["slstm_wgrad"] < STEP_ATOL
+
+
+def test_sharded_xlstm_step_equals_one_device_step(xlstm_runs):
+    """The fp32 train step of xlstm-tiny on (2, 4): its loss and every
+    updated leaf equal the one-device step within STEP_ATOL."""
+    loss_err, worst = xlstm_runs["train"]
+    print(f"xlstm sharded vs one-device step: loss {loss_err:.3e}, worst "
+          f"leaf {worst:.3e}")
+    assert loss_err < STEP_ATOL and worst < STEP_ATOL
+
+
+def test_sharded_xlstm_decode_equals_one_device(xlstm_runs):
+    """xlstm-tiny's fp32 prefill and one decode step on (2, 4): the
+    logits of both and every recurrent cache leaf equal one device's
+    within STEP_ATOL of the leaf's largest magnitude (at least 1: the
+    mLSTM memory C sums 33 tokens' outer products)."""
+    errs = xlstm_runs["decode"]
+    print(f"xlstm sharded vs one-device prefill, decode, cache: {errs}")
+    assert max(errs) < STEP_ATOL
 
 
 # ------------------------------------------------------------------ (g)
@@ -418,9 +496,58 @@ def _restore_part(rank, d):
             lm, shd.make_rules(cfg, mesh)))
     root = os.path.join(d, "sharded_image")
     plain = os.path.join(d, "plain_image")
-    CheckpointSession(root, device="cpu").dump(DumpRequest(
-        state=shd.place(state, sps((4, 2))), step=5))
-    out = {}
+    placed = shd.place(state, sps((4, 2)))
+    split = {tuple(t.shape) for t in _leaves(placed).values()
+             if tuple(t.to_local().shape) != tuple(t.shape)}
+    with _FullLeaves(split) as watch:
+        CheckpointSession(root, device="cpu").dump(DumpRequest(
+            state=placed, step=5))
+    import torch.distributed as dist
+    peaks = [None] * WORLD
+    dist.all_gather_object(peaks, watch.peak)
+    out = {"full_leaves_peak": peaks, "split_leaves": sum(
+        tuple(t.to_local().shape) != tuple(t.shape)
+        for t in _leaves(placed).values())}
+    # uneven shards: shard_box is DTensor's layout at this rank's
+    # coordinate, and gather_leaf puts every shard back in its place
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    dm = shd.device_mesh(make_test_mesh((4, 2), device="cpu"))
+    x = torch.arange(7 * 5 * 3, dtype=torch.float32).reshape(7, 5, 3)
+    bad = 0
+    for pl in ([Shard(0), Shard(0)], [Shard(1), Shard(0)],
+               [Replicate(), Shard(2)], [Shard(0), Replicate()],
+               [Replicate(), Replicate()]):
+        t = distribute_tensor(x, dm, pl)
+        want = compute_local_shape_and_global_offset(t.shape, dm, pl)
+        bad += tuple(map(tuple, want)) != shd.shard_box(
+            t.shape, tuple(dm.shape), pl, dm.get_coordinate())
+        got = shd.gather_leaf(t)
+        bad += (not torch.equal(got, x)) if rank == 0 else got is not None
+    out["uneven_bad"] = _sum_over_ranks((bad,))[0]
+    # a delta8 chain: rank 0's baseline, copied leaf by leaf as the first
+    # dump passes, encodes the second dump as the unsharded session's does
+    from repro_torch.api import CodecPolicy, SessionConfig
+    chain = {}
+
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+    for name in ("sharded", "plain"):
+        if name == "plain" and rank:
+            break
+        tree = copy(state)
+        if name == "sharded":
+            tree = shd.place(tree, sps((4, 2)))
+        cfgd = SessionConfig(root=os.path.join(d, f"delta_{name}"),
+                             codec=CodecPolicy(optimizer="delta8",
+                                               device="on"))
+        sess = CheckpointSession(cfgd, device="cpu")
+        sess.dump(DumpRequest(state=tree, step=5))
+        for t in _leaves(tree["opt"]).values():
+            (t.to_local() if shd.is_dtensor(t) else t).add_(1e-3)
+        chain[name] = sess.dump(DumpRequest(state=tree, step=6)).stats
     if rank == 0:
         CheckpointSession(plain, device="cpu").dump(DumpRequest(
             state=state, step=5))
@@ -434,6 +561,10 @@ def _restore_part(rank, d):
         out["leaves_sharded"], out["leaves_plain"] = (
             read_manifest(as_tier(r), "step_0000000005")["leaves"]
             for r in (root, plain))
+        out["delta"] = [(chunks(os.path.join(d, f"delta_{n}")),
+                         read_manifest(as_tier(os.path.join(
+                             d, f"delta_{n}")), "step_0000000006")["leaves"],
+                         chain[n]) for n in ("sharded", "plain")]
 
     def compare(tree, want):
         n = eq = split = 0
@@ -465,6 +596,50 @@ def _restore_part(rank, d):
     if rank == 0:
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+class _FullLeaves:
+    """A dispatch mode over a block: the most storages of ``shapes`` (the
+    full shapes of a tree's split leaves) that this rank's local program
+    held at once. Every op's non-view outputs are seen (DTensor ops as
+    the local ops DTensor runs), each such storage live until torch frees
+    it (``weakref.finalize``)."""
+
+    def __init__(self, shapes):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.distributed.tensor import DTensor
+        watch = self
+        self.shapes, self.live, self.peak = set(shapes), {}, 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                if not func.is_view:
+                    for t in (out if isinstance(out, (tuple, list))
+                              else [out]):
+                        if isinstance(t, torch.Tensor) and \
+                                tuple(t.shape) in watch.shapes:
+                            watch._hold(t.untyped_storage())
+                return out
+        self.mode = Mode()
+
+    def _hold(self, st):
+        import weakref
+        if id(st) not in self.live:
+            self.live[id(st)] = weakref.finalize(st, self.live.pop, id(st),
+                                                 None)
+            self.peak = max(self.peak, len(self.live))
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        for fin in list(self.live.values()):
+            fin.detach()
 
 
 def _sum_over_ranks(counts):
@@ -539,8 +714,126 @@ def _prefill_part(rank, d):
     return out
 
 
+def _xlstm_part(rank, d):
+    import functools
+
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import kvcache, ssm
+    from repro_torch.models.model import LM
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.training import make_train_step, train_state_pspecs
+    P = shd.PartitionSpec
+    mesh = make_test_mesh((2, 4), device="cpu")
+
+    def put(t, spec):
+        return shd.distribute(t, shd.NamedSharding(mesh, spec))
+    cfg = configs.get_tiny("xlstm-350m")
+    H, di = cfg.num_heads, cfg.d_inner
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    # the rule alone: values and gradient, bitwise
+    x, w = torch.randn(8, 16, 12, generator=g), torch.randn(8, 16, 12,
+                                                            generator=g)
+    spec = P("data", None, "model")
+    xs = put(x, spec).requires_grad_()
+    x1 = x.clone().requires_grad_()
+    ys = F.logsigmoid(xs)
+    (ys * put(w, spec)).sum().backward()
+    (F.logsigmoid(x1) * w).sum().backward()
+    out["logsig"] = [torch.equal(ys.detach().full_tensor(),
+                                 F.logsigmoid(x)),
+                     torch.equal(xs.grad.full_tensor(), x1.grad)]
+    # the head split alone: 2 heads whole on each rank's rows
+    B, S = BATCH, SEQ
+    q, k, v = (torch.randn(B, S, di, generator=g) for _ in range(3))
+    li = torch.randn(B, S, H, generator=g)
+    lf = F.logsigmoid(torch.randn(B, S, H, generator=g))
+    want = ssm._mlstm_scan(q, k, v, li, lf, H, 8)
+    got = shd.local_rows(lambda *a: ssm._mlstm_scan(*a, H, 8),
+                         tuple(put(t, spec) for t in (q, k, v))
+                         + tuple(put(t, P("data")) for t in (li, lf)))
+    out["mlstm"] = [torch.equal(a.full_tensor(), b)
+                    for a, b in zip(got, want)]
+    gx = torch.randn(B, S, 4, di, generator=g)
+    r = {n: (torch.randn(H, di // H, di // H, generator=g) * 0.1)
+         for n in ssm._GATES}
+    init = ssm.slstm_init_state(cfg, B, torch.float32, "cpu")
+    r1 = {n: t.clone().requires_grad_() for n, t in r.items()}
+    gx1 = gx.clone().requires_grad_()
+    want = ssm._slstm_steps(gx1, init, r1, H, S)
+    want[0].sum().backward()
+    rs = [put(r[n], P()).requires_grad_() for n in ssm._GATES]
+    gxs = put(gx, P("data", None, None, "model")).requires_grad_()
+
+    def steps(gx, *rr):
+        st = ssm.slstm_init_state(cfg, gx.shape[0], torch.float32, "cpu")
+        return ssm._slstm_steps(gx, st, dict(zip(ssm._GATES, rr)), H, S)
+    got = shd.local_rows(steps, (gxs,), tuple(rs))
+    got[0].sum().backward()
+    out["slstm"] = [torch.equal(a.detach().full_tensor(), b.detach())
+                    for a, b in zip(got, want)] + \
+        [torch.equal(gxs.grad.full_tensor(), gx1.grad)]
+    # a weight's gradient sums the rows of two data shards: another order
+    out["slstm_wgrad"] = max(float((t.grad.full_tensor() - r1[n].grad)
+                                   .abs().max())
+                             for n, t in zip(ssm._GATES, rs))
+    # the model: the fp32 train step, prefill and decode against one device
+    lm1 = LM(cfg)
+    lm1.loss = functools.partial(lm1.loss, compute_dtype=torch.float32)
+    params = lm1.init(torch.Generator().manual_seed(4), device="cpu")
+    toks = torch.from_numpy(_tokens(cfg.vocab_size)).long()
+
+    def fresh():
+        p = tree_map(lambda _, t: t.clone(), params)
+        return {"params": p, "opt": init_opt_state(p),
+                "step": torch.zeros((), dtype=torch.int32)}
+    ref, ref_m = make_train_step(lm1, OptConfig())(fresh(), {"tokens": toks})
+    lm = LM(cfg, act_sharding=shd.NamedSharding(mesh, P("data", None, None)))
+    lm.loss = functools.partial(lm.loss, compute_dtype=torch.float32)
+    rules = shd.make_rules(cfg, mesh)
+    state = shd.place(fresh(), shd.named(mesh, train_state_pspecs(lm,
+                                                                  rules)))
+    st, m = make_train_step(lm, OptConfig())(
+        state, {"tokens": put(toks, P("data", None))})
+    got, want = _leaves(shd.gather_tree(st)), _leaves(ref)
+    out["train"] = (abs(float(m["loss"].full_tensor())
+                        - float(ref_m["loss"])),
+                    max(float((got[p].float() - want[p].float()).abs().max())
+                        for p in want))
+    f32 = torch.float32
+    ref_l, ref_c = lm1.prefill(params, tokens=toks, S_max=SEQ + 1,
+                               compute_dtype=f32)
+    nxt = ref_l.argmax(-1)[:, None]
+    ref_l2, ref_c = lm1.decode_step(params, ref_c, nxt, compute_dtype=f32)
+    crules = shd.cache_rules(cfg, mesh, ShapeConfig("t", "decode", SEQ + 1,
+                                                    BATCH))
+    crules["batch"] = shd.batch_axes(mesh, BATCH)
+    sp = shd.place(params, shd.named(mesh, lm.pspecs(rules)))
+    logits, cache = lm.prefill(
+        sp, tokens=put(toks, P("data", None)), S_max=SEQ + 1,
+        compute_dtype=f32,
+        cache_shardings=shd.named(mesh, kvcache.cache_pspecs(cfg, crules)))
+    l2, cache = lm.decode_step(sp, cache, put(nxt, P("data", None)),
+                               compute_dtype=f32)
+    gc = _leaves(shd.gather_tree({k: v for k, v in cache.items()
+                                  if k != "pos"}))
+    rc = _leaves({k: v for k, v in ref_c.items() if k != "pos"})
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1.0))
+    out["decode"] = (rel(logits.full_tensor(), ref_l),
+                     rel(l2.full_tensor(), ref_l2),
+                     max(rel(gc[p], rc[p]) for p in rc))
+    return out
+
+
 PARTS = {"train": _train_part, "restore": _restore_part,
-         "prefill": _prefill_part}
+         "prefill": _prefill_part, "xlstm": _xlstm_part}
 
 
 def _rank_main(part, rank, world, store, workdir):

@@ -312,6 +312,71 @@ def test_coordinator_restart_readopts_and_cas_holds(tmp_path):
             agent.stop(bye=False)
 
 
+class HelloSpy(ChaosSocket):
+    """A fault-free ChaosSocket that sets ``hello`` once the agent has
+    sent anything (its HELLO comes first on every connection)."""
+
+    def __init__(self, sock, hello):
+        super().__init__(sock)
+        self.hello = hello
+
+    def sendall(self, data):
+        try:
+            return super().sendall(data)
+        finally:
+            self.hello.set()
+
+
+def test_restart_serves_no_hello_before_its_journaled_jobs(tmp_path,
+                                                           monkeypatch):
+    """A worker that redials while the restarted coordinator is still
+    giving its journaled jobs their transports waits in the listen
+    backlog: it is not refused as an unknown job, which would fail its
+    agent for good. The restart is held between its listener and its
+    transports until the agent's HELLO is out, and a little longer if the
+    coordinator has accepted it, so the HELLO lands in that gap on every
+    run."""
+    from repro_torch.fleet import transport
+    journal = f"file://{tmp_path}/journal"
+    url = f"unix://{tmp_path}/c.sock"
+    server = coordinator_serve(url, registry_tier=journal,
+                               resume_timeout_s=10.0)
+    job, cfg, client = make_client(tmp_path, "j0", seed=31)
+    server.attach("j0", cfg.to_wire(), host="w0")
+    sent = threading.Event()
+    agent = WorkerAgent(client, url, reconnect=_FAST,
+                        wrap_socket=lambda sock: HelloSpy(sock, sent))
+    agent.start()
+    real = transport.CoordinatorServer._ensure_transports
+
+    def held(self):
+        assert sent.wait(timeout=10.0)
+        deadline = time.monotonic() + 1.0
+        while time.monotonic() < deadline and not (
+                self.stats["hellos"] or self.stats["rejected"]):
+            time.sleep(0.01)     # a coordinator that took the HELLO
+        return real(self)
+    server2 = None
+    try:
+        assert server.wait_connected(["j0"], timeout=10.0)
+        sent.clear()
+        monkeypatch.setattr(transport.CoordinatorServer,
+                            "_ensure_transports", held)
+        server.kill()
+        server2 = coordinator_serve(url, registry_tier=journal,
+                                    resume_timeout_s=10.0)
+        assert server2.wait_connected(["j0"], timeout=10.0), \
+            (agent.failed.is_set(), server2.stats)
+        assert not agent.failed.is_set()
+        assert server2.stats["rejected"] == 0
+        agent.wait_epoch(server2.epoch, timeout=10.0)
+        assert agent._epoch == server2.epoch
+    finally:
+        agent.stop(bye=False)
+        if server2 is not None:
+            server2.close()
+
+
 # ----------------------------- heartbeats never return: re-place via sweep
 def test_restart_replaces_job_whose_heartbeats_never_return(tmp_path):
     """After a coordinator restart, a job whose worker never redials
