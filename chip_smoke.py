@@ -349,7 +349,20 @@ Phases, one line each (plus details):
                unsharded bytes (the 2.49 GB embedding) + 1 GiB, where
                gathering the tree needs all 19.58 GB; the dump's seconds,
                leaves, unsharded bytes and the child's host RSS peak
-               during it printed. The records are traced on meta in a process of
+               during it printed. (e) Then, on the same state, every
+               other mode of a sharded state through the session: under
+               (d)'s codec a pre-dump round, the 3 leaves SPMD_DIRTY
+               changed on rank 0's shards, the residual dump (K5 once a
+               pass over rank 0's local shards, the residual gathering
+               only SPMD_DIRTY, K2 on the dirty moments); a lossless
+               migrate (exit 85; its digest pass's seconds: every leaf
+               gathered to rank 0 and hashed there); once path 11 has
+               ended (the parent's ``--fleet-done`` file: the capture
+               puts the state on this host), an async dump, its capture
+               (the freeze) beside (d)'s sync seconds, wait(), the
+               child's host RSS peak; each dump's rank-0 device peak
+               within (d)'s limit, K5 and K2 counted into the kernels
+               line. The records are traced on meta in a process of
                their own (``--spmd-records``) started with the script. The
                depth is cut for the path's time, not its memory (2 layers
                of train_4k take 12 GB). No loss is read: the fake
@@ -5354,6 +5367,10 @@ SPMD_XLSTM_TRAIN_LAYERS = 4        # of 24: one (m, m, m, s) group
 # H100; scripts/torch_xlstm_train_card.py runs it whole)
 SPMD_XLSTM_TRAIN_SEQ = 512
 SPMD_DUMP_SLACK = 1 << 30          # (d): peak <= 2 x largest leaf + this
+# (e): the leaves changed on rank 0's shards between the pre-dump round
+# and the residual dump (the attention's q projection and its moments)
+SPMD_DIRTY = ("opt/m/stack/b0/attn/wq", "opt/v/stack/b0/attn/wq",
+              "params/stack/b0/attn/wq")
 
 
 def spmd_records() -> tuple:
@@ -5624,6 +5641,216 @@ def _spmd_dump(torch, dev, args, cell, trees) -> dict:
     return out
 
 
+class _Gathers:
+    """Counts ``sharding.gather_leaf``'s calls in a block."""
+
+    def __enter__(self):
+        from repro_torch.distributed import sharding as shd
+        self.n, self._orig = 0, shd.gather_leaf
+
+        def counted(t):
+            self.n += 1
+            return self._orig(t)
+        shd.gather_leaf = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import sharding as shd
+        shd.gather_leaf = self._orig
+
+
+def _spmd_modes(torch, dev, args, trees, sync_s) -> dict:
+    """(e): item 16, F12 and F13 on the card, on (a)'s state after (d):
+    every mode of a sharded state through CheckpointSession, rank 0 of
+    the fake group. (1) Under (d)'s CodecPolicy(optimizer="bf16",
+    device="auto"): a pre-dump round, the leaves SPMD_DIRTY changed in
+    place on rank 0's shards, the residual dump: K5 once a pass over rank
+    0's local shards, the residual gathering SPMD_DIRTY alone, K2 on the
+    moments each dump writes. (2) A lossless migrate: its digest pass's
+    seconds (every leaf gathered to rank 0 and hashed there, before the
+    dump's own gathers). (3) An async dump: its capture (the freeze,
+    every leaf gathered and copied to rank 0's host) beside (d)'s sync
+    seconds, then wait(), the child's host RSS peak; it starts only once
+    path 11 has ended (``--fleet-done``), as the capture puts the state
+    on this host. Each dump's rank-0 device peak at most 2 x the largest
+    leaf + SPMD_DUMP_SLACK; each image in a temporary directory, removed
+    after it. The fake group moves no data, so the digests every rank
+    agrees on are rank 0's own (its all_gather_object hands each rank
+    rank 0's part) and no value is compared: the CPU tests
+    (tests/test_torch_spmd_modes.py) hold the images bitwise."""
+    import shutil
+    import tempfile
+    from repro_torch.api import (CheckpointSession, CodecPolicy, DumpRequest,
+                                 MigrateRequest, SessionConfig)
+    from repro_torch.core import flatten_with_paths
+    from repro_torch.kernels.ckpt_codec import ckpt_codec
+    state = {"params": trees["params"], **trees["opt_state"]}
+    pairs = dict(flatten_with_paths(state))
+    sizes = [t.numel() * t.element_size() for t in pairs.values()]
+    unsharded, largest = sum(sizes), max(sizes)
+    limit = 2 * largest + SPMD_DUMP_SLACK
+    out, peaks = {}, {}
+
+    def dump(codec, fn):
+        """``fn(session)`` on a session over a fresh file:// root, removed
+        after it."""
+        root = tempfile.mkdtemp(prefix="chip-smoke-modes-",
+                                dir=args.lifecycle_dir)
+        try:
+            free = shutil.disk_usage(root).free
+            check(free > 1.2 * unsharded, f"path 18 (e): {free / 1e9:.1f} "
+                  f"GB free under {root}, the image may take "
+                  f"{unsharded / 1e9:.1f}")
+            sess = CheckpointSession(SessionConfig(
+                root=f"file://{root}", codec=codec), device=dev)
+            return fn(sess)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    def measured(label, call):
+        """``call()``, its seconds, gathers, K launches, rank 0's device
+        peak and the host RSS peak kept under ``label``."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ckpt_codec.reset_launches()
+        t0 = time.time()
+        with RssPeak() as rss, _Gathers() as g:
+            res = call()
+            torch.cuda.synchronize()
+        s = time.time() - t0
+        peaks[label] = torch.cuda.max_memory_allocated() - base
+        out[label] = {"s": s, "gathers": g.n,
+                      "launches": dict(ckpt_codec.LAUNCHES),
+                      "peak_bytes": peaks[label],
+                      "host_peak_rss_gb": rss.peak_gb,
+                      "host_rss_start_gb": rss.start_gb}
+        return res
+
+    def rounds(sess):
+        r = measured("round", lambda: sess.dump(DumpRequest(
+            state=state, step=2, mode="pre_dump")))
+        for p in SPMD_DIRTY:
+            pairs[p].to_local().add_(1.0)
+        res = measured("residual", lambda: sess.dump(DumpRequest(
+            state=state, step=3)))
+        return r.stats, res.stats
+    bf16 = CodecPolicy(optimizer="bf16", device="auto")
+    rst, rest = dump(bf16, rounds)
+    dirty_moments = [p for p in SPMD_DIRTY if p.startswith("opt/")]
+    k5 = [out[k]["launches"]["digest_blocks"] for k in ("round", "residual")]
+    log(f"spmd: (e) {smi_line()}: a pre-dump round of (a)'s state "
+        f"{out['round']['s']:.1f} s ({rst['leaves_dirty']} dirty, "
+        f"{out['round']['gathers']} gathered, K5 {k5[0]}, K2 "
+        f"{out['round']['launches']['bf16_encode_digest']}); "
+        f"{len(SPMD_DIRTY)} leaves changed on rank 0's shards, the residual "
+        f"dump {out['residual']['s']:.2f} s ({rest['leaves_reused']} "
+        f"re-emitted, {out['residual']['gathers']} gathered, K5 {k5[1]}, "
+        f"K2 {out['residual']['launches']['bf16_encode_digest']}); the "
+        f"digests every rank agrees on are rank 0's own under the fake "
+        f"group")
+    check(k5 == [1, 1], f"path 18 (e): K5 launched {k5} times in the round "
+          f"and the residual, once a pass expected")
+    check(out["round"]["gathers"] == len(pairs)
+          and rst["leaves_dirty"] == len(pairs),
+          f"path 18 (e): the first round gathered "
+          f"{out['round']['gathers']} of {len(pairs)} leaves")
+    check(out["residual"]["gathers"] == len(SPMD_DIRTY)
+          and rest["leaves_reused"] == len(pairs) - len(SPMD_DIRTY),
+          f"path 18 (e): the residual gathered {out['residual']['gathers']}"
+          f" leaves and re-emitted {rest['leaves_reused']}; "
+          f"{len(SPMD_DIRTY)} were changed")
+    check(out["residual"]["launches"]["bf16_encode_digest"]
+          == len(dirty_moments),
+          f"path 18 (e): K2 launched "
+          f"{out['residual']['launches']['bf16_encode_digest']} times in "
+          f"the residual, {len(dirty_moments)} moments dirty")
+    # the classification pass alone, and K5 over rank 0's local shards
+    # (these launches come after the counts above and are not counted)
+    from repro_torch.core.predump import digest_pairs
+    from repro_torch.kernels.ckpt_codec import ops
+    torch.cuda.synchronize()
+    t0 = time.time()
+    digest_pairs(list(pairs.items()))
+    pass_s = time.time() - t0
+    shards = [t.to_local() for t in pairs.values() if t.is_floating_point()]
+    nbytes = sum(t.numel() * t.element_size() for t in shards)
+    k5 = {"ms": cuda_ms(torch, lambda: ops.classifier_lanes_many(shards),
+                        iters=20),
+          "back_to_back_ms": cuda_ms(
+              torch, lambda: ops.classifier_lanes_many(shards), iters=10,
+              batch=10),
+          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+          "leaves": len(shards), "pass_s": pass_s}
+    out["k5_shards"] = k5
+    log(f"spmd: (e) {smi_line()}: the classification pass {pass_s:.3f} s "
+        f"(K5, the lanes to the host, their hashes, all_gather_object); K5 "
+        f"over rank 0's {len(shards)} local shards ({nbytes / 1e6:.1f} MB) "
+        f"{k5['ms']:.4f} ms one call, {k5['back_to_back_ms']:.4f} ms back "
+        f"to back, bound {k5['bound_ms']:.4f} ms by bytes")
+
+    def migrate(sess):
+        t = measured("migrate", lambda: sess.migrate(MigrateRequest(
+            state=state, step=4, reason="chip_smoke")))
+        out["migrate"]["digest_s"] = sess._orchestrator().digest_s
+        return t
+    ticket = dump(CodecPolicy(), migrate)
+    check(ticket.exit_code == 85 and ticket.record.state_digest,
+          f"path 18 (e): the lossless migrate gave exit "
+          f"{ticket.exit_code}, digest {ticket.record.state_digest}")
+    log(f"spmd: (e) {smi_line()}: a lossless migrate of (a)'s state "
+        f"{out['migrate']['s']:.1f} s, of it the digest pass "
+        f"{out['migrate']['digest_s']:.1f} s ({len(pairs)} leaves gathered "
+        f"to rank 0 and hashed there before the dump's "
+        f"{out['migrate']['gathers'] - len(pairs)} gathers), exit "
+        f"{ticket.exit_code}")
+
+    waited = 0.0
+    if args.fleet_done:
+        t0 = time.time()
+        while not os.path.exists(args.fleet_done):
+            check(time.time() - t0 < SPMD_CHILD_TIMEOUT_S,
+                  "path 18 (e): path 11 did not end")
+            time.sleep(0.5)
+        waited = time.time() - t0
+
+    def async_dump(sess):
+        measured("async", lambda: sess.dump(DumpRequest(
+            state=state, step=5, mode="async")))
+        return measured("async_wait", sess.wait)
+    receipts = dump(bf16, async_dump)
+    check(len(receipts) == 1 and receipts[0].committed,
+          f"path 18 (e): the async dump's wait() gave {receipts}")
+    a = out["async"]
+    log(f"spmd: (e) {smi_line()}: an async dump of (a)'s state after "
+        f"waiting {waited:.1f} s for path 11's end: its capture (the "
+        f"freeze) {a['s']:.2f} s ({a['gathers']} leaves gathered and "
+        f"copied to rank 0's host) against (d)'s sync dump {sync_s:.1f} s; "
+        f"wait() {out['async_wait']['s']:.1f} s more; the child's host RSS "
+        f"{a['host_rss_start_gb']:.1f} GB at the capture's start, its peak "
+        f"{max(a['host_peak_rss_gb'], out['async_wait']['host_peak_rss_gb'], a['host_rss_start_gb']):.1f}"
+        f" GB (sampled every 20 ms)")
+    check(a["gathers"] == len(pairs), f"path 18 (e): the async capture "
+          f"gathered {a['gathers']} of {len(pairs)} leaves")
+    log(f"spmd: (e): rank 0's device peak above the state by dump: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in peaks.items())
+        + f" (limit {limit / 1e9:.3f} GB: 2 x the largest leaf + 1 GiB)")
+    for k, v in peaks.items():
+        check(v <= limit, f"path 18 (e): rank 0's device peak in {k} {v} B "
+              f"passed {limit} B")
+    out["launches"] = {k: sum(out[m]["launches"][k] for m in peaks)
+                       for k in ckpt_codec.KERNELS}
+    out["async_waited_s"] = waited
+    return {"modes": out}
+
+
+def _spmd_after(torch, dev, args, cell, trees) -> dict:
+    """(d), then (e) on the same state."""
+    out = _spmd_dump(torch, dev, args, cell, trees)
+    out.update(_spmd_modes(torch, dev, args, trees, out["dump_s"]))
+    return out
+
+
 def spmd_path(torch, dev, args, planned=None) -> dict:
     """Path 18: rank 0's per-device program of production cells
     (qwen3-8b's and xlstm-350m's) on the card, under a fake group of 256
@@ -5640,8 +5867,8 @@ def spmd_path(torch, dev, args, planned=None) -> dict:
     with fake_group(SPMD_MESH[0] * SPMD_MESH[1]):
         mesh = make_test_mesh(SPMD_MESH, device=dev)
         for name, rec in recs.items():
-            after = (lambda cell, trees: _spmd_dump(torch, dev, args, cell,
-                                                    trees)) \
+            after = (lambda cell, trees: _spmd_after(torch, dev, args, cell,
+                                                     trees)) \
                 if name == "train" else None
             t1 = time.time()
             out[name] = _spmd_cell(torch, dev, args, mesh, rec, name, after)
@@ -5656,9 +5883,9 @@ def spmd_path(torch, dev, args, planned=None) -> dict:
         f"{sum(out[k]['wall_s'] for k in xl):.1f} s and (d)'s dump "
         f"{out['train']['dump_s']:.1f} s ({smi_line()})")
     check(cast < plain, "cast-once did not cut the collectives' bytes")
-    out["launches"] = {
-        "flash_attention": out["prefill"]["k6_wgmma"],
-        **out["train"]["dump_launches"]}
+    modes = out["train"]["modes"]["launches"]
+    out["launches"] = {"flash_attention": out["prefill"]["k6_wgmma"], **{
+        k: n + modes[k] for k, n in out["train"]["dump_launches"].items()}}
     out["wall_s"] = time.time() - t0
     return out
 
@@ -5722,11 +5949,17 @@ def start_spmd_child(planned, args) -> dict:
     with open(recs, "w") as f:
         json.dump({"records": planned[0], "record_s": planned[1]}, f)
     logf = open(os.path.join(tmp, "child.log"), "w+")
+    done = os.path.join(tmp, "fleet_done")
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--spmd-child", recs,
-         "--out", os.path.join(tmp, "out.json"), "--seed", str(args.seed)],
+         "--out", os.path.join(tmp, "out.json"), "--seed", str(args.seed),
+         "--fleet-done", done] + (["--lifecycle-dir", args.lifecycle_dir]
+                                  if args.lifecycle_dir else []),
         stdout=logf, stderr=subprocess.STDOUT)
-    return {"proc": proc, "log": logf, "tmp": tmp, "t0": time.time()}
+    import atexit
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "log": logf, "tmp": tmp, "t0": time.time(),
+            "fleet_done": done}
 
 
 def finish_spmd_child(child) -> dict:
@@ -6076,6 +6309,7 @@ def main(argv=None) -> int:
                          "path's hot fronts go (default: the system's "
                          "temporary directory)")
     ap.add_argument("--spmd-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-done", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--spmd-records", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -6285,8 +6519,14 @@ def main(argv=None) -> int:
     *spmd_planned, spmd_wait = finish_spmd_records(spmd_recs)
     spmd_child = start_spmd_child(spmd_planned, args)
     t0 = time.time()
-    with RssPeak() as rss_fleet:
-        record["fleet"] = fleet_path(torch, dev, args)
+    try:
+        with RssPeak() as rss_fleet:
+            record["fleet"] = fleet_path(torch, dev, args)
+    finally:
+        # path 18 (e)'s async capture waits for this (the host's room)
+        free_host_and_card(torch)
+        rss_at_done = RssPeak().rss_gb()
+        open(spmd_child["fleet_done"], "w").close()
     record["fleet"].update(
         host_peak_rss_gb=rss_fleet.peak_gb, wall_s=time.time() - t0,
         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -6309,6 +6549,15 @@ def main(argv=None) -> int:
         f" path 11's end)")
     for k, n in spmd["launches"].items():
         rows[k]["launches"] += n
+    capture = max(spmd["train"]["modes"][k]["host_peak_rss_gb"]
+                  for k in ("async", "async_wait"))
+    log(f"spmd: (e)'s async capture started after path 11's end: this "
+        f"process's host RSS then {rss_at_done:.1f} GB + the child's peak "
+        f"{capture:.1f} GB = {rss_at_done + capture:.1f} GB of the host's "
+        f"96 GiB")
+    check(rss_at_done + capture < 96 * 2 ** 30 / 1e9,
+          f"path 18 (e)'s async capture: the host held "
+          f"{rss_at_done + capture:.1f} GB")
     mark("archs+fleet+spmd")
     free_host_and_card(torch)
     torch.cuda.reset_peak_memory_stats()

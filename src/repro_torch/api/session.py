@@ -29,9 +29,11 @@ lifecycle (``migrate``, ``should_migrate``, ``should_predump``,
 ``__enter__`` under PreemptionPolicy(install_signals=True)), and the
 `criu check` probe ``capabilities``; restore onto a mesh (``shardings=``
 / ``mesh=`` records of distributed/sharding.py) places every leaf on the
-mesh's one device, or as DTensors over the ranks of a process group; a
-sync dump of DTensor leaves (every rank calls it) streams them to rank 0
-one gathered leaf at a time.
+mesh's one device, or as DTensors over the ranks of a process group; and
+a state of DTensor leaves in every dump mode, ``migrate`` and the tree
+digest, every rank calling each: a pre-dump round classifies each rank's
+local shards, and every dump streams the leaves it writes to rank 0 one
+gathered leaf at a time (an async dump copies them to rank 0's host).
 
 The dirty classifier of pre-copy runs on the card: an fp32 or bf16 leaf
 on the card is digested there by K5 (core/predump.py), and a leaf whose
@@ -53,7 +55,7 @@ from repro_torch.api.requests import (DumpReceipt, DumpRequest, MigrateRequest,
                                       RestoreResult)
 from repro_torch.core.async_engine import AsyncCheckpointer as _AsyncEngine
 from repro_torch.core.dump import dump as _dump
-from repro_torch.core.dump import flatten_with_paths
+from repro_torch.core.dump import flatten_with_paths, host_tree_by_path
 from repro_torch.core.executor import CheckpointExecutor, get_default_executor
 from repro_torch.core.plan import DumpPlan, plan_dump
 from repro_torch.core.registry import Registry
@@ -113,9 +115,11 @@ class CheckpointSession:
         self._prev_host = None  # for delta8 chains
         self._prev_step = None  # step whose image _prev_host belongs to
         self._prev_image = None  # image id _prev_host is the content of
+        self._prev_digests = None  # a sharded dump's digests of _prev_host
         self._tracker = None    # lazy DirtyLeafTracker (pre-dump rounds)
         self._async = None
         self._drained = []      # async results consumed by sync-save drains
+        self._sharded_async = False   # wait() is collective from then on
         self._orch = None       # lazy MigrationOrchestrator
         self._installed = False
         self._closed = False
@@ -164,7 +168,7 @@ class CheckpointSession:
             return
         self._closed = True
         try:
-            if drain and self._async is not None:
+            if drain and (self._async is not None or self._sharded_async):
                 self._wait_raw()
         finally:
             self._prev_host = None
@@ -192,12 +196,6 @@ class CheckpointSession:
                             f"{type(request).__name__} — build one, or use "
                             f"the legacy save() shim")
         t0 = time.monotonic()
-        from repro_torch.distributed import sharding as shd
-        if request.mode != "sync" and shd.has_dtensor(request.state):
-            raise ValueError(
-                f"a {request.mode} dump of DTensor leaves: only a sync dump "
-                f"gathers a sharded state (every rank calls it); gather it "
-                f"yourself (distributed.sharding.gather_tree) for this mode")
         if request.mode == "pre_dump":
             out = self.pre_dump(request.state, step=request.step,
                                 meta=request.meta,
@@ -353,7 +351,8 @@ class CheckpointSession:
         blocks until the image is durable, returns {"image_id", "stats",
         "records"}; then applies retention and gc. After pre-dump rounds
         this is automatically the residual dump — digest-unchanged leaves
-        re-emit cached records and are never copied to the host.
+        re-emit cached records and are never copied to the host. A tree
+        with DTensor leaves: every rank calls it (``_save_sharded``).
 
         Example::
 
@@ -373,61 +372,89 @@ class CheckpointSession:
                     executor=self.executor, device=self.device,
                     reuse_records=reuse,
                     **self._save_kw(step, meta, topology))
-        if digests is not None:
-            self._tracker.update(digests, out["records"], out["image_id"],
-                                 pre_dump=False)
-        self._committed(tree, step, out)
+        self._dumped(tree, step, out, digests, pre_dump=False)
         return out
 
-    def _save_sharded(self, tree, *, step, meta, topology) -> dict:
-        """save() of a tree with DTensor leaves (a multi-device mesh):
-        every rank of the group calls it. The leaves are gathered one at a
-        time, in the image's leaf order, to rank 0 alone
-        (``sharding.gather_leaf``: the other ranks send their shards and
-        keep no full copy). Rank 0 pulls each gathered leaf through the
-        dump pipeline (core/dump.py ``pull``: the plan, codec, device
-        stage, SHA-256 and chunk writes of an unsharded dump) and drops it
-        before the next gather, so the image holds the chunk bytes and
-        manifest of an unsharded dump of the same values and no device
-        holds more than one gathered leaf. Rank 0 keeps the delta8
-        baseline, copied to the host as each leaf passes; every rank gets
-        rank 0's image id and stats, or its error."""
-        import torch.distributed as dist
-        from repro_torch.distributed import sharding as shd
-        pairs = flatten_with_paths(tree)
-        if dist.get_rank() != 0:
-            for _, t in pairs:
-                shd.gather_leaf(t)
-            out = [None]
-        else:
-            pulled, base = [], {}
-            keep = self._baseline_paths()
+    def _save_sharded(self, tree, *, step, meta, topology,
+                      pre_dump: bool = False) -> dict:
+        """save() or pre_dump() of a tree with DTensor leaves (a
+        multi-device mesh): every rank of the group calls it.
 
-            def pull(path, t):
-                x = shd.gather_leaf(t)
-                pulled.append(path)
+        Once the session has run a pre-dump round (and in one), the leaves
+        are classified first on each rank's local shards
+        (core/predump.py ``digest_pairs``: one K5 launch a rank, and one
+        small collective gives every rank the same digests). Rank 0's
+        tracker picks the leaves whose records the dump re-emits
+        (``_sharded_reuse``) and every rank learns that set. The other
+        leaves are gathered one at a time, in the image's leaf order, to
+        rank 0 alone (``sharding.gather_leaf``: the other ranks send their
+        shards and keep no full copy). Rank 0 pulls each gathered leaf
+        through the dump pipeline (core/dump.py ``pull``: the plan, codec,
+        device stage, SHA-256 and chunk writes of an unsharded dump) and
+        drops it before the next gather, so the image holds the chunk
+        bytes and manifest of an unsharded dump of the same values and no
+        device holds more than one gathered leaf. Rank 0 keeps the tracker
+        and the delta8 baseline (copied to the host as each leaf passes, a
+        re-emitted leaf's copy kept from the last dump); every rank gets
+        rank 0's image id and stats, or its error."""
+        from repro_torch.core.predump import DirtyLeafTracker, digest_pairs
+        from repro_torch.distributed import sharding as shd
+        if pre_dump and self._tracker is None:
+            self._tracker = DirtyLeafTracker()   # every rank: later dumps
+            #                                      classify too
+        pairs = flatten_with_paths(tree)
+        digests = None if self._tracker is None else \
+            digest_pairs(pairs, executor=self.executor)
+        job = {}
+
+        def decide():                    # rank 0: what the dump re-emits
+            self._drain_async()
+            job["reuse"] = self._sharded_reuse(digests)
+            return sorted(job["reuse"])
+        reused = set(shd.rank0_decides(decide))
+
+        def write(pull):                 # rank 0: the dump itself
+            reuse, keep = job["reuse"], self._baseline_paths()
+            base = {p: self._prev_host[p] for p in reuse if keep(p)}
+
+            def pulled(path, t):
+                x = pull(path, t)
                 if keep(path):
                     base[path] = to_host(x)
                 return x
-            try:
-                self._drain_async()
-                res = _dump(tree, self.tier, replicas=self.replicas,
-                            executor=self.executor, device=self.device,
-                            pull=pull, **self._save_kw(step, meta, topology))
-                self._committed(tree, step, res, baseline=base)
-                out = [{"image_id": res["image_id"], "stats": res["stats"]}]
-            except Exception as e:
-                # the other ranks are still in their gathers: finish them
-                for _, t in pairs[len(pulled):]:
-                    shd.gather_leaf(t)
-                dist.broadcast_object_list(
-                    [{"error": f"{type(e).__name__}: {e}"}], src=0)
-                raise
-        dist.broadcast_object_list(out, src=0)
-        if "error" in out[0]:
-            raise RuntimeError(f"the sharded dump failed on rank 0: "
-                               f"{out[0]['error']}")
-        return dict(out[0], records=None)
+            if pre_dump:
+                rnd, kw = self._round_kw(step, meta, topology, len(pairs),
+                                         reuse)
+            else:
+                kw = self._save_kw(step, meta, topology)
+            out = _dump(tree, self.tier, replicas=self.replicas,
+                        executor=self.executor, device=self.device,
+                        pull=pulled, reuse_records=reuse, **kw)
+            self._dumped(tree, step, out, digests, pre_dump=pre_dump,
+                         baseline=base)
+            if pre_dump:
+                self._round_stats(out, rnd, len(pairs), reuse)
+            return {"image_id": out["image_id"], "stats": out["stats"]}
+        todo = [(p, t) for p, t in pairs if p not in reused]
+        return dict(shd.gathered_on_rank0(todo, write), records=None)
+
+    def _sharded_reuse(self, digests) -> dict:
+        """Rank 0: the records a sharded dump classified as ``digests``
+        re-emits: the tracker's clean leaves whose chunks are all still
+        pooled (a re-emitted leaf is not gathered, so the executor's
+        fall-back to a full encode would have nothing to read) and, for a
+        leaf of the delta8 baseline, whose host copy on rank 0 holds the
+        digested content."""
+        if digests is None:
+            return {}
+        keep, held = self._baseline_paths(), self._prev_digests or {}
+
+        def pooled(rec):
+            uniq = set(rec["chunks"])
+            return len(self.tier.has_chunks(uniq)) == len(uniq)
+        return {p: r for p, r in self._tracker.reuse_for(digests).items()
+                if (not keep(p) or held.get(p) == digests[p])
+                and pooled(r)}
 
     def _drain_async(self):
         """Drain in-flight async dumps before a sync dump or a pre-copy
@@ -438,13 +465,26 @@ class CheckpointSession:
         if self._async is not None:
             self._drained.extend(self._async.wait())
 
-    def _committed(self, tree, step, out, baseline=None):
+    def _dumped(self, tree, step, out, digests, *, pre_dump: bool,
+                baseline=None):
+        """After a dump of ``tree``, classified as ``digests`` (None: not
+        classified), committed as ``out``: the tracker adopts its records,
+        then ``_committed``."""
+        if digests is not None:
+            self._tracker.update(digests, out["records"], out["image_id"],
+                                 pre_dump=pre_dump)
+        self._committed(tree, step, out, baseline=baseline,
+                        digests=None if baseline is None else digests)
+
+    def _committed(self, tree, step, out, baseline=None, digests=None):
         """After a dump of ``tree`` committed as ``out``: advance the delta8
-        baseline to it (``baseline``, where the dump already copied it),
-        then apply retention and gc."""
+        baseline to it (``baseline``, where the dump already copied it;
+        ``digests``, a sharded dump's, of the leaves it holds), then apply
+        retention and gc."""
         if self.codec_policy is not None and self.incremental:
             self._prev_host = self._baseline_of(tree) if baseline is None \
                 else baseline
+            self._prev_digests = digests
             self._prev_step = step
             self._prev_image = out["image_id"]
         self.registry.retain(self.keep_last, self.keep_every)
@@ -484,6 +524,7 @@ class CheckpointSession:
         if self.codec_policy is None or not self.incremental:
             return
         self._prev_host = self._baseline_of(tree)
+        self._prev_digests = None
         self._prev_step = int(step)
         self._prev_image = image_id
 
@@ -502,23 +543,39 @@ class CheckpointSession:
         delta8-encode (a reused record must decode parent-free — see
         core/predump.py), but they do advance the session's delta8
         baseline so the final dump's dirty leaves delta against the last
-        round's image.
+        round's image. A tree with DTensor leaves: every rank calls it,
+        and it classifies each rank's local shards (``_save_sharded``).
 
         Example::
 
             r = sess.pre_dump(state, step=12)
             print(r["image_id"], r["stats"]["leaves_clean"])
         """
-        from repro_torch.core.predump import (PRE_DUMP_META_KEY,
-                                              DirtyLeafTracker, digest_pairs)
+        from repro_torch.core.predump import DirtyLeafTracker, digest_pairs
+        from repro_torch.distributed import sharding as shd
+        if shd.has_dtensor(tree):
+            return self._save_sharded(tree, step=step, meta=meta,
+                                      topology=topology, pre_dump=True)
         if self._tracker is None:
             self._tracker = DirtyLeafTracker()
         self._drain_async()
         pairs = flatten_with_paths(tree)
         digests = digest_pairs(pairs, executor=self.executor)
         reuse = self._tracker.reuse_for(digests)
+        rnd, kw = self._round_kw(step, meta, topology, len(pairs), reuse)
+        out = _dump(tree, self.tier, replicas=self.replicas,
+                    executor=self.executor, reuse_records=reuse,
+                    device=self.device, **kw)
+        self._dumped(tree, step, out, digests, pre_dump=True)
+        self._round_stats(out, rnd, len(pairs), reuse)
+        return out
+
+    def _round_kw(self, step, meta, topology, n: int, reuse) -> tuple:
+        """(round, dump kwargs) of a pre-dump round over ``n`` leaves that
+        re-emits ``reuse``: an image id of its own (never one that
+        exists), the latest image as parent, no delta8 baseline."""
+        from repro_torch.core.predump import PRE_DUMP_META_KEY
         latest = self.registry.latest()
-        parent = latest["image_id"] if latest else None
         rnd = self._tracker.rounds
         existing = set(self.tier.image_ids())
         image_id = f"step_{int(step):010d}p{rnd:02d}"
@@ -529,20 +586,18 @@ class CheckpointSession:
         kw = self._save_kw(step, {**(meta or {}),
                                   PRE_DUMP_META_KEY: {
                                       "round": rnd,
-                                      "dirty": len(pairs) - len(reuse),
+                                      "dirty": n - len(reuse),
                                       "clean": len(reuse)}},
                            topology, with_parent=False)
-        kw.update(parent=parent, prev_host_tree=None)
-        out = _dump(tree, self.tier, replicas=self.replicas,
-                    executor=self.executor, image_id=image_id,
-                    reuse_records=reuse, device=self.device, **kw)
-        self._tracker.update(digests, out["records"], out["image_id"],
-                             pre_dump=True)
-        self._committed(tree, step, out)
+        kw.update(parent=latest["image_id"] if latest else None,
+                  prev_host_tree=None, image_id=image_id)
+        return rnd, kw
+
+    @staticmethod
+    def _round_stats(out, rnd: int, n: int, reuse) -> None:
         out["stats"]["predump_round"] = rnd
-        out["stats"]["leaves_dirty"] = len(pairs) - len(reuse)
+        out["stats"]["leaves_dirty"] = n - len(reuse)
         out["stats"]["leaves_clean"] = len(reuse)
-        return out
 
     def save_async(self, tree, *, step: int, meta: dict | None = None,
                    topology: dict | None = None):
@@ -557,7 +612,27 @@ class CheckpointSession:
             sess.save_async(state, step=7)   # returns once captured
             ...                              # training continues
             sess.wait()                      # durable (or raises)
+
+        A tree with DTensor leaves: every rank calls it (and wait()). Each
+        leaf is gathered to rank 0 alone, one at a time, and copied to
+        rank 0's host, which holds the whole capture until the write job
+        ends (the JAX package's ``device_get``); rank 0 alone writes it
+        and keeps it as the delta8 baseline.
         """
+        from repro_torch.distributed import sharding as shd
+        if shd.has_dtensor(tree):
+            self._sharded_async = True
+            todo = flatten_with_paths(tree)
+
+            def submit(pull):
+                self._submit_async(tree, step, meta, topology, lambda _: {
+                    p: to_host(pull(p, t)) for p, t in todo})
+            shd.gathered_on_rank0(todo, submit)
+            return
+        self._submit_async(tree, step, meta, topology)
+
+    def _submit_async(self, tree, step, meta, topology,
+                      capture=host_tree_by_path):
         if self._async is None:
             self._async = _AsyncEngine(
                 self.tier, replicas=self.replicas,
@@ -570,17 +645,31 @@ class CheckpointSession:
         # one capture: the job's input and the next call's delta baseline
         host = self._async.dump_async(tree, resolve_parent=self.incremental,
                                       baseline_step=self._prev_step,
-                                      baseline_image=self._prev_image, **kw)
+                                      baseline_image=self._prev_image,
+                                      capture=capture, **kw)
         if self.codec_policy is not None and self.incremental:
             # mirror save(): job N's delta baseline (kw's prev_host_tree,
             # the tree of the PRECEDING save call) must equal the content
             # of the image the job resolves as parent at run time, so the
             # next call's baseline becomes this tree
             self._prev_host = host
+            self._prev_digests = None
             self._prev_step = step
             self._prev_image = f"step_{int(step):010d}"  # dump()'s default
 
     def _wait_raw(self) -> list:
+        """The async results since the last barrier, durable. After an
+        async dump of DTensor leaves it is collective: rank 0 waits for
+        its write jobs and every rank gets their image ids and stats, or
+        the error of a failed job."""
+        if self._sharded_async:
+            from repro_torch.distributed import sharding as shd
+            return shd.rank0_decides(lambda: [
+                {"image_id": o["image_id"], "stats": o["stats"]}
+                for o in self._wait_local()])
+        return self._wait_local()
+
+    def _wait_local(self) -> list:
         if self._async is not None:
             out, self._drained = self._drained + self._async.wait(), []
             self.registry.retain(self.keep_last, self.keep_every)

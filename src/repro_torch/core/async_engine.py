@@ -17,7 +17,9 @@ device.to_host) and the copy is complete before it returns. The job then
 encodes that copy with the host codec (``device="cpu"``, device codec
 stage off): it never touches the card, so it cannot race the steps that
 run meanwhile, and it uses no stream of theirs. That is the rule for every
-async dump, not a fallback: a sync dump still encodes on the card."""
+async dump, not a fallback: a sync dump still encodes on the card. A
+sharded state is captured by gathering each leaf to rank 0 and copying it
+to rank 0's host (api/session.py), the port's ``device_get``."""
 from __future__ import annotations
 
 import threading
@@ -46,11 +48,12 @@ class AsyncCheckpointer:
 
     def dump_async(self, tree, *, resolve_parent: bool = False,
                    baseline_step: int | None = None,
-                   baseline_image: str | None = None, **kw) -> dict:
-        """Captures (a finished host copy of every leaf) then submits the
-        write job; returns the capture ({path: array}, read-only: the job
-        encodes it). Blocks only if max_pending dumps are already in
-        flight, before it captures.
+                   baseline_image: str | None = None,
+                   capture=host_tree_by_path, **kw) -> dict:
+        """Captures (a finished host copy of every leaf: ``capture(tree)``
+        -> {path: array}) then submits the write job; returns the capture
+        (read-only: the job encodes it). Blocks only if max_pending dumps
+        are already in flight, before it captures.
 
         resolve_parent: re-resolve the incremental parent link when the job
         RUNS (the previous ordered dump has committed by then) instead of
@@ -88,7 +91,7 @@ class AsyncCheckpointer:
                 self._slots.release()
 
         try:
-            host_tree = host_tree_by_path(tree)   # finished copies
+            host_tree = capture(tree)   # finished copies
             with self._lock:
                 self._pending = [f for f in self._pending if not f.done()]
                 self._pending.append(self._ex.submit(job))

@@ -14,7 +14,8 @@ merges (single-process containers just take the fast path).
 A sharded tree's leaves are pulled instead (``pull``): one at a time, in
 the image's leaf order, on the calling thread, each gathered leaf is
 encoded (device stage or host capture), written through the same
-executor path and dropped before the next pull.
+executor path and dropped before the next pull; a leaf whose record is
+re-emitted is not pulled.
 
 State is a plain nested dict of tensors. Paths are built as the JAX
 package builds them ("params/stack/b0/attn/wq") and dicts are flattened in
@@ -83,7 +84,8 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
     by default ``tree`` itself, so the kernels read the live device
     tensors. ``pull(path, leaf)`` (a sharded tree, whose DTensor leaves
     are planned by their global shapes) returns each leaf's full tensor,
-    called in plan order on the calling thread (``_run_pulled``)."""
+    called in plan order on the calling thread for every leaf whose
+    record is not re-emitted (``_run_pulled``)."""
     dev = resolve_device(device)
     tier = as_tier(root)
     replicas = [as_tier(r) for r in replicas]
@@ -99,9 +101,9 @@ def dump(tree, root, *, step: int, image_id: str | None = None,
                      reuse_records=reuse_records)
 
     if pull is not None:
-        if reuse_records or device_source is not None or num_processes > 1:
-            raise ValueError("a pulled dump is one process's, re-emits no "
-                             "records and reads no other device source")
+        if device_source is not None or num_processes > 1:
+            raise ValueError("a pulled dump is one process's and reads no "
+                             "other device source")
         with tier.writer():
             out = _run_pulled(plan, live, pull, ex, tier, replicas,
                               prev_host_tree,
@@ -185,21 +187,28 @@ def _run_pulled(plan, live, pull, ex, tier, replicas, prev_host_tree,
     one). The pulled tensor goes to the device stage (an eligible leaf,
     encoded and landed inline) or to the host, and is dropped before the
     next pull; the leaf's chunks are written before it too, so the dump
-    holds one gathered leaf at a time."""
+    holds one gathered leaf at a time. A leaf the plan re-emits from a
+    cached record is not pulled: should its chunks have left the pool,
+    the executor's fall-back to a full encode finds no array and fails
+    the dump."""
     by_path = {lp.path: lp for lp in plan.leaves}
     records, stats = [], {}
     for path, leaf in live:
         sub = dataclasses.replace(plan, leaves=(by_path[path],))
-        x = pull(path, leaf)
-        encoded = device_codec_mod.encode_leaves(
-            sub, {path: x}, prev_host_tree, None, device=dev) \
-            if on_device else {}
-        arrays = {} if path in encoded else {path: to_host(x, copy=False)}
-        del x
-        out = ex.run_dump(sub, arrays, tier, replicas,
-                          prev_host_tree=prev_host_tree, encoded=encoded,
-                          device=dev)
-        del arrays, encoded
+        if by_path[path].reuse is not None:
+            out = ex.run_dump(sub, {}, tier, replicas, device=dev)
+        else:
+            x = pull(path, leaf)
+            encoded = device_codec_mod.encode_leaves(
+                sub, {path: x}, prev_host_tree, None, device=dev) \
+                if on_device else {}
+            arrays = {} if path in encoded else \
+                {path: to_host(x, copy=False)}
+            del x
+            out = ex.run_dump(sub, arrays, tier, replicas,
+                              prev_host_tree=prev_host_tree,
+                              encoded=encoded, device=dev)
+            del arrays, encoded
         records += out["records"]
         for k, v in out["stats"].items():
             stats[k] = stats.get(k, 0) + v

@@ -47,21 +47,40 @@ def tree_digest(pairs) -> str:
     values give the same digest no matter what mesh the tree lives on (or
     lived on), which is exactly the invariant a cross-topology migration
     must preserve. ``pairs`` is {path: array} or an iterable of
-    (path, array)."""
+    (path, array).
+
+    A tree with DTensor leaves (a mesh over the ranks of a process group)
+    is digested collectively: every rank calls it, each leaf is gathered
+    to rank 0 alone in path order (``sharding.gather_leaf``), hashed
+    there and dropped before the next, and every rank returns rank 0's
+    digest, that of the unsharded tree."""
+    from repro_torch.distributed import sharding as shd
+    if isinstance(pairs, dict):
+        pairs = pairs.items()
+    pairs = sorted(pairs, key=lambda kv: kv[0])
+    h = hashlib.sha256()
+    if any(shd.is_dtensor(a) for _, a in pairs):
+        def body(pull):
+            for path, t in pairs:
+                # a gathered leaf is the digest's own: no second copy
+                _hash_leaf(h, path, pull(path, t), copy=False)
+            return h.hexdigest()
+        return shd.gathered_on_rank0(pairs, body)
+    for path, arr in pairs:
+        _hash_leaf(h, path, arr)
+    return h.hexdigest()
+
+
+def _hash_leaf(h, path: str, arr, copy: bool = True) -> None:
     import numpy as np
 
     from repro_torch.device import dtype_name, to_host
-    if isinstance(pairs, dict):
-        pairs = pairs.items()
-    h = hashlib.sha256()
-    for path, arr in sorted(pairs, key=lambda kv: kv[0]):
-        a = to_host(arr)
-        h.update(path.encode())
-        h.update(dtype_name(a).encode())
-        h.update(repr(a.shape).encode())
-        # the array's own buffer, not a tobytes() copy of it
-        h.update(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
-    return h.hexdigest()
+    a = to_host(arr, copy=copy)
+    h.update(path.encode())
+    h.update(dtype_name(a).encode())
+    h.update(repr(a.shape).encode())
+    # the array's own buffer, not a tobytes() copy of it
+    h.update(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
 
 class CorruptionError(RuntimeError):

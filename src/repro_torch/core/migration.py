@@ -181,6 +181,7 @@ class MigrationOrchestrator:
         self.last_migration: MigrationManifest | None = None
         self.last_image_id: str | None = None
         self.migrate_latency_s: float | None = None
+        self.digest_s: float | None = None   # the last migrate's digest
 
     # ------------------------------------------------------------ lifecycle
     def install(self):
@@ -301,7 +302,14 @@ class MigrationOrchestrator:
         ServeEngine.checkpoint hands them over, so after pre-dump rounds K5
         classifies them on the card and only dirty leaves are captured.
         The host copy is taken only for the tree digest, one leaf at a
-        time, and only under a lossless codec policy."""
+        time, and only under a lossless codec policy.
+
+        On a mesh (DTensor leaves; every rank calls it, as it calls
+        pre_dump_round) the digest is a pass of its own before the dump:
+        each leaf gathered to rank 0 alone and hashed there
+        (integrity.tree_digest; its seconds in ``digest_s``); the dump
+        after rounds classifies each rank's local shards and gathers only
+        the dirty leaves."""
         t0 = time.monotonic()
         if iterator is not None and hasattr(iterator, "stop_prefetch"):
             iterator.stop_prefetch()
@@ -314,8 +322,10 @@ class MigrationOrchestrator:
         # lossy codec policy (delta8/bf16 optimizer state) breaks that
         # identity by design, so record no digest rather than make every
         # lossy migration image fail verification on resume
+        t1 = time.monotonic()
         digest = tree_digest(flatten_with_paths(state)) \
             if getattr(self.ckpt, "codec_policy", None) is None else None
+        self.digest_s = time.monotonic() - t1
         if step is None:
             step = _state_step(state)
         rec = self.build_manifest(step=step, data_state=data_state,

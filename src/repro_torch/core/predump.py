@@ -145,9 +145,64 @@ def digest_pairs(pairs, executor=None) -> dict:
     leaves (``ops.classifier_lanes_many``, asynchronous on the card) and
     their lanes come to the host in one copy. Every other leaf takes
     ``leaf_digest``, fanned out on the executor's cpu pool when one is
-    given (classification parallelizes exactly like encode does)."""
-    from repro_torch.kernels.ckpt_codec import ops
+    given (classification parallelizes exactly like encode does).
+
+    With DTensor leaves (a mesh over the ranks of a process group) it is
+    collective: every rank calls it, digests its local shards as above
+    (``_shard_digests``) and every rank returns the same dict."""
+    from repro_torch.distributed import sharding as shd
     pairs = list(pairs)
+    if any(shd.is_dtensor(a) for _, a in pairs):
+        return _shard_digests(pairs, executor)
+    return _local_digests(pairs, executor)
+
+
+def _shard_digests(pairs, executor) -> dict:
+    """digest_pairs of a tree with DTensor leaves. Each rank that holds a
+    distinct shard of a leaf (``sharding.shard_holders``) digests that
+    local shard, all of them in one K5 launch per device; rank 0 alone
+    digests the plain leaves (the same on every rank). One
+    ``all_gather_object`` of those digest strings, never lanes, then
+    gives every rank every part, and a DTensor leaf's digest is one
+    string over its holders' shard digests in rank order, its dtype,
+    global shape and placements. No leaf is gathered. A rank whose
+    digests fail sends its error instead, and every rank raises."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    rank = dist.get_rank()
+    mine = [(p, a.to_local().detach().contiguous())
+            for p, a in pairs if shd.is_dtensor(a)
+            and rank in shd.shard_holders(a)]
+    if rank == 0:
+        mine += [(p, a) for p, a in pairs if not shd.is_dtensor(a)]
+    try:
+        part = {"ok": _local_digests(mine, executor)}
+    except Exception as e:
+        part, err = {"error": f"rank {rank}: {type(e).__name__}: {e}"}, e
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, part)
+    bad = [p["error"] for p in parts if "error" in p]
+    if bad:
+        if "error" in part:
+            raise err
+        raise RuntimeError(f"classification failed on {bad[0]}")
+    out = {}
+    for p, a in pairs:
+        if not shd.is_dtensor(a):
+            out[p] = parts[0]["ok"][p]
+            continue
+        h = hashlib.blake2b(digest_size=20)
+        h.update(f"{dtype_name(a)}{tuple(a.shape)}{tuple(a.placements)}"
+                 f"{tuple(a.device_mesh.shape)}".encode())
+        for r in shd.shard_holders(a):
+            h.update(parts[r]["ok"][p].encode())
+        out[p] = "shards:" + h.hexdigest()
+    return out
+
+
+def _local_digests(pairs, executor) -> dict:
+    """digest_pairs of leaves that all lie on this process's devices."""
+    from repro_torch.kernels.ckpt_codec import ops
     lane_pairs = [(p, a) for p, a in pairs if uses_lanes(a)]
     host_pairs = [(p, a) for p, a in pairs if not uses_lanes(a)]
     by_device: dict = {}

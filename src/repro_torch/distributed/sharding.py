@@ -532,8 +532,7 @@ def gather_leaf(t):
     local = t.to_local().detach()
     if not shard_dims:
         return local if rank == 0 else None
-    coord = [int(c) for c in (ranks == rank).nonzero()[0]]
-    if any(coord[i] for i in range(ranks.ndim) if i not in shard_dims):
+    if rank not in shard_holders(t):
         return None                     # a replica of another's shard
     group = None if len(shard_dims) == ranks.ndim else \
         dm.get_group(shard_dims[0])
@@ -557,6 +556,68 @@ def gather_leaf(t):
         full[tuple(slice(o, o + s) for o, s in zip(off, shape))] = \
             buf[tuple(slice(0, s) for s in shape)]
     return full
+
+
+def shard_holders(t) -> list:
+    """The ranks that hold a DTensor's distinct shards, in rank order:
+    those at coordinate 0 on the mesh dims it is replicated over (the
+    ranks ``gather_leaf`` gathers from)."""
+    pl = list(t.placements)
+    if any(p.is_partial() for p in pl):
+        raise ValueError(f"no distinct shards of a leaf placed as {pl}")
+    ranks = t.device_mesh.mesh
+    first = tuple(slice(None) if p.is_shard() else slice(0, 1) for p in pl)
+    return sorted(int(r) for r in ranks[first].reshape(-1))
+
+
+def rank0_decides(fn):
+    """``fn()`` on global rank 0 alone; its result (small, picklable) on
+    every rank, or its error raised on every rank (collective: every rank
+    of the group calls it)."""
+    import torch.distributed as dist
+    out, err = [None], None
+    if dist.get_rank() == 0:
+        try:
+            out = [{"ok": fn()}]
+        except Exception as e:
+            out, err = [{"error": f"{type(e).__name__}: {e}"}], e
+    dist.broadcast_object_list(out, src=0)
+    if "error" in out[0]:
+        if err is not None:
+            raise err
+        raise RuntimeError(f"rank 0 failed: {out[0]['error']}")
+    return out[0]["ok"]
+
+
+def gathered_on_rank0(todo, body):
+    """Collective over [(path, leaf)] ``todo``: rank 0 runs ``body(pull)``,
+    where ``pull(path, leaf)`` gathers the next leaf of ``todo`` to it
+    (``gather_leaf``), while every other rank sends its shards of each
+    leaf in ``todo``'s order. ``body`` pulls leaves in that order; should
+    it stop early or raise, rank 0 finishes the gathers the other ranks
+    are in. -> ``body``'s result (small, picklable) on every rank, or its
+    error raised on every rank."""
+    import torch.distributed as dist
+    done = 0
+
+    def pull(path, t):
+        nonlocal done
+        if todo[done][0] != path:
+            raise ValueError(f"pulled {path!r}, the gather order's next "
+                             f"leaf is {todo[done][0]!r}")
+        done += 1
+        return gather_leaf(t)
+
+    def run():
+        try:
+            return body(pull)
+        finally:
+            for _, t in todo[done:]:
+                gather_leaf(t)
+    if dist.get_rank() != 0:
+        for _, t in todo:
+            gather_leaf(t)
+    return rank0_decides(run)
 
 
 def has_dtensor(tree) -> bool:

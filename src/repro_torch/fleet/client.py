@@ -164,7 +164,8 @@ class FleetClient:
         if self.on_restore:
             self.on_restore(res)
         after = dict(getattr(tier, "stats", {}))
-        # tree_digest copies one leaf at a time to the host and hashes it
+        # tree_digest copies one leaf at a time to the host and hashes it;
+        # a wire RestoreRequest carries no shardings, so no DTensor here
         digest = tree_digest(flatten_with_paths(res.state))
         return RestoreAck(
             job_id=self.job_id, image_id=res.image_id, step=res.step,

@@ -503,7 +503,8 @@ class SimCluster:
     # ------------------------------------------------------------- digests
     def job_digest(self, job_id: str) -> str:
         """The job's CURRENT logical-state digest (for bit-identity
-        assertions against dump records and restore acks)."""
+        assertions against dump records and restore acks). A job's state
+        lies on its one device: no DTensor, so no collective."""
         from repro_torch.core.dump import flatten_with_paths
         from repro_torch.core.integrity import tree_digest
         return tree_digest(flatten_with_paths(self.jobs[job_id].state()))

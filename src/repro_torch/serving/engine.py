@@ -165,6 +165,7 @@ class ServeEngine:
             from repro_torch.core.integrity import tree_digest
             from repro_torch.core.migration import (MIGRATION_META_KEY,
                                                     MigrationManifest)
+            # the engine serves on one device: its tree holds no DTensor
             meta[MIGRATION_META_KEY] = MigrationManifest(
                 step=step, arch=arch or "serve",
                 state_digest=tree_digest(flatten_with_paths(tree)),

@@ -378,6 +378,7 @@ class SessionManager:
             from repro_torch.core.integrity import tree_digest
             from repro_torch.core.migration import (MIGRATION_META_KEY,
                                                     MigrationManifest)
+            # the plane's params and pool lie on one device: no DTensor
             meta[MIGRATION_META_KEY] = MigrationManifest(
                 step=step, arch=self.cfg.name,
                 state_digest=tree_digest(flatten_with_paths(tree)),

@@ -82,14 +82,15 @@ def _env():
 
 
 def run_ranks(part: str, workdir: str, world: int = WORLD,
-              timeout: float = RANK_TIMEOUT):
-    """Start ``world`` ranks of ``part``; wait at most ``timeout`` s for
-    all of them; -> rank 0's results (``<workdir>/<part>.pt``)."""
+              timeout: float = RANK_TIMEOUT, script: str = __file__):
+    """Start ``world`` ranks of ``part`` (of ``script``'s PARTS); wait at
+    most ``timeout`` s for all of them; -> rank 0's results
+    (``<workdir>/<part>.pt``)."""
     store = os.path.join(workdir, f"store_{part}")
     logs = [open(os.path.join(workdir, f"{part}_{r}.log"), "w+")
             for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), part, str(r),
+        [sys.executable, os.path.abspath(script), part, str(r),
          str(world), store, workdir], env=_env(), stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(world)]
     deadline = time.monotonic() + timeout
@@ -836,7 +837,7 @@ PARTS = {"train": _train_part, "restore": _restore_part,
          "prefill": _prefill_part, "xlstm": _xlstm_part}
 
 
-def _rank_main(part, rank, world, store, workdir):
+def _rank_main(part, rank, world, store, workdir, parts=None):
     import torch.distributed as dist
     sys.path.insert(0, os.path.abspath(SRC))
     torch.set_num_threads(1)
@@ -846,7 +847,7 @@ def _rank_main(part, rank, world, store, workdir):
                             timeout=datetime.timedelta(
                                 seconds=RANK_TIMEOUT))
     try:
-        out = PARTS[part](rank, workdir)
+        out = (parts or PARTS)[part](rank, workdir)
         if rank == 0:
             torch.save(out, os.path.join(workdir, f"{part}.pt"))
         dist.barrier()
